@@ -7,18 +7,31 @@ Needs one CUDA GPU and a checkout of the repository around this file; it
 exits non-zero without either. Phases, each fatal on failure:
 
   1. census: the card's name and power limit (nvidia-smi);
-  2. build: nvcc builds every kernel of the main path from the checkout;
-  3. kernels against their plain versions at the main path's shapes, with
-     times (CUDA events, L2 flushed before each launch), the plain version's
-     and one library call's (SDPA with the same additive mask, a yardstick
-     only), and the byte/operation bound;
-  4. the full-width backbone on the card (kernel) against the CPU (plain
-     version), both f32;
+  2. build: nvcc builds every kernel of the main path from the checkout, one
+     process per source, all started together; each one's ptxas lines;
+  3. decode attention against its plain version at the main path's shapes,
+     with times (CUDA events, L2 flushed before each launch), the plain
+     version's and one library call's (SDPA with the same additive mask, a
+     yardstick only), and the byte/operation bound;
+  3b. the fused SwiGLU-MLP GEMV against its plain version at the decode
+     MLP's shapes (backbone 896 x 4864 at M = B x K rows, MTP heads
+     896 x 22016 at M = B), bf16 and f32, timed the same way; its yardstick
+     is the torch.matmul form (three cuBLAS products and two elementwise
+     ops: no single PyTorch call computes this function);
+  4. the full-width backbone on the card (both kernels) against the CPU
+     (plain versions), f32: a prefill and decode blocks at B 1, and a
+     batched decode block at B 3, K 2 with per-row lengths;
   5. the main path: the default HydraVoxConfig() with random weights (LLM and
-     flow bf16, HiFT f32) behind the port's HTTP server on 127.0.0.1, three
-     POST /api/v1/tts requests (inference_head_num 1, 2 and 5, one with two
-     sentences); each WAV must be 24 kHz, non-empty and finite, and the
-     kernel's launch count must equal n_layers x backbone forwards;
+     flow bf16, HiFT f32) behind the port's HTTP server on 127.0.0.1:
+     POST /api/v1/tts at inference_head_num 1 and 5 (one sentence each,
+     `Engine.synthesize`), a two- and a four-segment text at heads 2 (one
+     `Engine.synthesize_batch` each, a row per segment), and a burst of
+     three concurrent one-sentence requests against a server with a 0.25 s
+     window, served as one coalesced flash batch. Each WAV must be 24 kHz,
+     non-empty and finite; for every request each kernel's launch count
+     must equal the count the code predicts (decode attention: n_layers x
+     backbone forwards; MLP GEMV: n_layers x decode-step forwards + heads x
+     steps);
   6. the kernels line, the card line, and the final JSON line.
 
 TF32 is off for matmuls and cuDNN convs throughout, so f32 is full f32 in
@@ -41,9 +54,11 @@ import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 MAX_TOKENS = 300  # bounds each request's decode so the run stays short
+BURST_WINDOW = 0.25  # s: the coalescing window of the burst's server
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core f32, dense bf16
 N_TIMED = 50
+FLUSH_WRITES = 16
 
 
 def fail(msg: str):
@@ -60,7 +75,11 @@ def census() -> str:
 
 
 def time_ms(fn, flush):
-    """Median per-call device time over N_TIMED calls, L2 flushed before each."""
+    """Median per-call device time over N_TIMED calls, L2 flushed before each.
+    The flush is written FLUSH_WRITES times (~1.4 ms of device work), so the
+    host has queued the call before its start event fires and the host's
+    dispatch time stays out of the measurement, even for the plain versions'
+    dozens of small ops on a busy host."""
     import torch
 
     for _ in range(3):
@@ -68,7 +87,8 @@ def time_ms(fn, flush):
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(N_TIMED)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(N_TIMED)]
     for s, e in zip(starts, ends):
-        flush.zero_()
+        for _ in range(FLUSH_WRITES):
+            flush.zero_()
         s.record()
         fn()
         e.record()
@@ -99,10 +119,11 @@ def check_decode_attention(da, flush):
     g = torch.Generator(device="cuda").manual_seed(0)
     # main-path shapes: Hq 14, Hkv 2, D 64; decode T in {1, 2, 5}, prefill
     # blocks of ~130 and of the requests' prompt bucket; cache_len at and
-    # around the 32-key tiles and 128-key splits; B 1 and 3
+    # around the 32-key tiles and 128-key splits; B 1, 3 and 4 (flash batches)
     cases = [(1, 1, 512, [0]), (1, 1, 512, [127]), (1, 2, 512, [128]), (1, 2, 512, [255]),
              (1, 5, 512, [383]), (1, 66, 512, [0]), (1, 130, 512, [0]),
-             (3, 1, 768, [31, 256, 700]), (3, 5, 768, [32, 511, 600])]
+             (3, 1, 768, [31, 256, 700]), (3, 5, 768, [32, 511, 600]),
+             (4, 2, 512, [40, 129, 300, 509])]
     tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
     records = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -136,9 +157,66 @@ def check_decode_attention(da, flush):
     return records
 
 
+def mlp_bound(m: int, h: int, i: int, dtype) -> tuple:
+    """(bound_ms, bound_by) of the fused MLP: bytes (x, the three weights and
+    the output, each once) over the HBM rate vs operations (6 M H I for the
+    three products, 4 M I for silu and the product) over the type's peak."""
+    es = dtype.itemsize
+    nbytes = (2 * m * h + 3 * h * i) * es
+    flops = 6 * m * h * i + 4 * m * i
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[str(dtype).replace("torch.", "")]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# (M, H, I): the backbone decode MLP at M = B x K rows (1, 2, 5 for a single
+# request at heads 1, 2, 5; 4, 6, 8 for the main path's batches at heads 2;
+# 10 and 40 for B 2 and 8 at heads 5) and the MTP heads' at M = B
+MLP_CASES = [(m, 896, 4864) for m in (1, 2, 4, 5, 6, 8, 10, 40)] + \
+            [(m, 896, 22016) for m in (1, 2, 3, 4, 8)]
+
+
+def check_mlp_gemv(mg, flush):
+    """Phase 3b. Returns the per-case records."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    records = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for m, h, i in MLP_CASES:
+            x = torch.randn(m, h, generator=g, device="cuda").to(dtype)
+            gate, up, down = (
+                (torch.randn(shape, generator=g, device="cuda") * 0.05).to(dtype)
+                for shape in ((h, i), (h, i), (i, h)))
+            out = mg.mlp_gemv_cuda(x, gate, up, down)
+            torch.cuda.synchronize()
+            ref = mg.mlp_gemv_ref(x, gate, up, down).float()
+            err = (out.float() - ref).abs().max().item()
+            lim = tol[dtype] * (1.0 + ref.abs().max().item())
+            if not err <= lim:
+                fail(f"mlp_gemv {dtype} M{m} H{h} I{i}: err {err} > {lim}")
+            rec = dict(
+                dtype=str(dtype).replace("torch.", ""), M=m, H=h, I=i, max_abs_err=err,
+                kernel_ms=time_ms(lambda: mg.mlp_gemv_cuda(x, gate, up, down), flush),
+                ref_ms=time_ms(lambda: mg.mlp_gemv_ref(x, gate, up, down), flush),
+                # a yardstick, not one call: no single PyTorch call computes
+                # this function
+                library_ms=time_ms(lambda: (F.silu(x @ gate) * (x @ up)) @ down, flush),
+            )
+            rec["bound_ms"], rec["bound_by"] = mlp_bound(m, h, i, dtype)
+            records.append(rec)
+            print("mlp_gemv", json.dumps(rec), flush=True)
+    return records
+
+
 def check_backbone(engine):
-    """Phase 4: full-width Qwen2 prefill + two decode blocks, f32, on the card
-    (through the kernel) and on the CPU (plain version)."""
+    """Phase 4: the full-width Qwen2 backbone, f32, on the card (through both
+    kernels) and on the CPU (plain versions): a prefill of 66 and two decode
+    blocks at B 1, then a flash-batch prefill and two decode blocks at B 3,
+    K 2 with per-row lengths (the second with one row finished, advance 0).
+    Returns the larger relative error."""
     import torch
 
     from flowmirror_hydravox_tpu_torch.models import qwen2
@@ -149,107 +227,194 @@ def check_backbone(engine):
     on_cpu = {"layers": {k: v.cpu() for k, v in on_card["layers"].items()},
               "norm": on_card["norm"].cpu()}
     g = torch.Generator().manual_seed(1)
-    blocks = [torch.randn(1, n, cfg.hidden_size, generator=g) * 0.5 for n in (66, 2, 2)]
-    outs = {}
-    for name, params, dev in (("card", on_card, "cuda"), ("cpu", on_cpu, "cpu")):
-        cache = qwen2.init_kv_cache(cfg, 1, 256, dtype=torch.float32, device=dev)
-        hs = []
-        for x in blocks:
-            h, cache = qwen2.forward_block_with_cache(params, cfg, x.to(dev), cache)
-            hs.append(h.cpu())
-        outs[name] = torch.cat(hs, dim=1)
-    rel = ((outs["card"] - outs["cpu"]).norm() / outs["cpu"].norm()).item()
-    print(f"backbone full width f32, card (kernel) vs CPU (plain): relative error {rel:.3e}",
-          flush=True)
-    if not rel <= 1e-4:
-        fail(f"full-width backbone disagrees with the CPU plain path: {rel}")
-    return rel
+    runs = {  # (batch, [(block, advance, decode_step)])
+        "B1": (1, [(torch.randn(1, n, cfg.hidden_size, generator=g) * 0.5, [n], n == 2)
+                   for n in (66, 2, 2)]),
+        "B3": (3, [(torch.randn(3, 40, cfg.hidden_size, generator=g) * 0.5, [40, 17, 29], False),
+                   (torch.randn(3, 2, cfg.hidden_size, generator=g) * 0.5, [2, 2, 2], True),
+                   (torch.randn(3, 2, cfg.hidden_size, generator=g) * 0.5, [2, 0, 2], True)]),
+    }
+    worst = 0.0
+    for run, (batch, blocks) in runs.items():
+        outs = {}
+        for name, params, dev in (("card", on_card, "cuda"), ("cpu", on_cpu, "cpu")):
+            cache = qwen2.init_kv_cache(cfg, batch, 256, dtype=torch.float32, device=dev)
+            hs = []
+            for x, adv, decode_step in blocks:
+                h, cache = qwen2.forward_block_with_cache(
+                    params, cfg, x.to(dev), cache,
+                    advance=torch.tensor(adv, dtype=torch.int32, device=dev),
+                    decode_step=decode_step)
+                hs.append(h.cpu())
+            outs[name] = torch.cat(hs, dim=1)
+        rel = ((outs["card"] - outs["cpu"]).norm() / outs["cpu"].norm()).item()
+        print(f"backbone full width f32 {run}, card (kernels) vs CPU (plain): "
+              f"relative error {rel:.3e}", flush=True)
+        if not rel <= 1e-4:
+            fail(f"full-width backbone {run} disagrees with the CPU plain path: {rel}")
+        worst = max(worst, rel)
+    return worst
 
 
-def drive_main_path(engine, frontend, da):
-    """Phase 5: the server, three /tts requests. Returns (requests, launches)."""
+TEXTS = {  # name: (text, heads, the engine route, rows)
+    "heads1": ("Hello, this sentence is spoken by the first head only.", 1, "synthesize", 1),
+    "two_segments": ("The quick brown fox jumps over the lazy dog! "
+                     "Then a second sentence follows the first one.", 2, "synthesize_batch", 2),
+    "heads5": ("Five heads decode this request in groups of five.", 5, "synthesize", 1),
+    "four_segments": ("Here is the first part of this longer request! Is this the second part "
+                      "of it? Yes, and a third part follows; the fourth part closes the whole "
+                      "request.", 2, "synthesize_batch", 4),
+}
+BURST = ["A short burst request arrives first.", "Another burst request comes right behind it.",
+         "The third burst request completes the group."]
+
+
+def drive_main_path(engine, frontend, da, mg):
+    """Phase 5: the requests through two servers, one with the default
+    window and one with BURST_WINDOW. Returns (requests, launches)."""
     from flowmirror_hydravox_tpu_torch.runtime.server import make_server
 
+    cfg = engine.cfg.llm
+    n_layers = cfg.backbone.num_layers
     records = []
-    synthesize = engine.synthesize
+    synthesize, synthesize_batch = engine.synthesize, engine.synthesize_batch
 
-    def recording(*args, **kwargs):
-        res = synthesize(*args, **kwargs)
-        records.append(res)
+    def record_one(**kwargs):
+        res = synthesize(**kwargs)
+        records.append(dict(route="synthesize", rows=1, heads=kwargs["inference_head_num"],
+                            tokens=len(res.speech_tokens), steps=res.steps,
+                            llm_time=res.llm_time, synth_time=res.synth_time,
+                            total_time=res.total_time))
         return res
 
-    engine.synthesize = recording  # record per-segment metrics
-    server = make_server("127.0.0.1", 0, engine, frontend, request_timeout=600.0)
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    url = f"http://127.0.0.1:{server.server_address[1]}"
-    n_layers = engine.cfg.llm.backbone.num_layers
+    def record_batch(token_lists, **kwargs):
+        wavs, stats = synthesize_batch(token_lists, **kwargs)
+        records.append(dict(route="synthesize_batch", rows=len(token_lists),
+                            heads=kwargs["inference_head_num"], tokens=sum(stats["tokens"]),
+                            steps=stats["steps"], llm_time=stats["llm_time"],
+                            synth_time=stats["synth_time"], total_time=stats["total_time"]))
+        return wavs, stats
 
-    def call(path, body=None):
+    def predicted(recs):
+        """Launches per synthesis of `steps` decode steps: every step runs the
+        MTP heads (one MLP launch per head) and every step but the last a
+        decode-step forward (the stopping step runs none, llm.py); with the
+        prefill, `steps` backbone forwards in all, each one attention launch
+        per layer, the decode-step ones one MLP launch per layer."""
+        heads = [max(1, min(int(r["heads"]), cfg.head_num)) for r in recs]
+        attention = sum(n_layers * r["steps"] for r in recs)
+        mlp = sum(n_layers * (r["steps"] - 1) + k * r["steps"] for r, k in zip(recs, heads))
+        return attention, mlp
+
+    engine.synthesize, engine.synthesize_batch = record_one, record_batch
+    servers = [make_server("127.0.0.1", 0, engine, frontend, request_timeout=600.0),
+               make_server("127.0.0.1", 0, engine, frontend, request_timeout=600.0,
+                           batch_window=BURST_WINDOW)]
+    threads = [threading.Thread(target=sv.serve_forever, daemon=True) for sv in servers]
+    for th in threads:
+        th.start()
+    url, burst_url = (f"http://127.0.0.1:{sv.server_address[1]}" for sv in servers)
+
+    def call(base, path, body=None):
         data = None if body is None else json.dumps(body).encode()
-        req = urllib.request.Request(url + path, data, {"Content-Type": "application/json"})
+        req = urllib.request.Request(base + path, data, {"Content-Type": "application/json"})
         with urllib.request.urlopen(req, timeout=900) as r:
             return r.status, json.load(r)
 
-    def tts(text, heads):
-        code, body = call("/api/v1/tts", {"text": text, "speaker_id": "default",
-                                          "extra_params": {"inference_head_num": heads}})
+    def tts(base, text, heads):
+        code, body = call(base, "/api/v1/tts", {"text": text, "speaker_id": "default",
+                                                "extra_params": {"inference_head_num": heads}})
         if code != 200 or not body.get("success"):
-            fail(f"/api/v1/tts heads={heads}: {code} {body.get('error')}")
+            raise RuntimeError(f"/api/v1/tts heads={heads}: {code} {body.get('error')}")
         with wave.open(io.BytesIO(base64.b64decode(body["data"]["audio_base64"]))) as w:
             rate, frames = w.getframerate(), w.readframes(w.getnframes())
         pcm = np.frombuffer(frames, np.int16).astype(np.float32) / 32768.0
         if rate != 24000 or pcm.size == 0 or not np.isfinite(pcm).all():
-            fail(f"bad WAV for heads={heads}: rate {rate}, {pcm.size} samples")
+            raise RuntimeError(f"bad WAV for heads={heads}: rate {rate}, {pcm.size} samples")
         return pcm.size, float(np.abs(pcm).max())
+
+    def measure(name, run, routes, heads):
+        """Run one request (or the burst), check its routes and both
+        kernels' launch counts, and return its record."""
+        before = (da.launch_count, mg.launch_count, len(records))
+        t0 = time.time()
+        try:
+            wavs = run()
+        except (RuntimeError, OSError) as e:
+            fail(f"{name}: {e}")
+        wall = time.time() - t0
+        recs = records[before[2]:]
+        if [(r["route"], r["rows"]) for r in recs] != routes:
+            fail(f"{name}: engine calls {[(r['route'], r['rows']) for r in recs]}, "
+                 f"expected {routes}")
+        launched = (da.launch_count - before[0], mg.launch_count - before[1])
+        if launched != predicted(recs) or 0 in launched:
+            fail(f"{name}: (attention, mlp) launches {launched}, predicted {predicted(recs)}")
+        audio_s = sum(n for n, _ in wavs) / 24000.0
+        req = dict(
+            name=name, heads=heads, route=routes[0][0], rows=routes[0][1],
+            requests=len(wavs), tokens=sum(r["tokens"] for r in recs),
+            steps=sum(r["steps"] for r in recs), llm_time=sum(r["llm_time"] for r in recs),
+            synth_time=sum(r["synth_time"] for r in recs), wall_s=wall, audio_s=audio_s,
+            peak=max(p for _, p in wavs), attention_launches=launched[0],
+            mlp_launches=launched[1],
+        )
+        req["tps"] = req["tokens"] / req["llm_time"]
+        req["rtf"] = sum(r["total_time"] for r in recs) / audio_s
+        print("request", json.dumps(req), flush=True)
+        return req
+
+    def burst():
+        out, errors = [None] * len(BURST), []
+
+        def one(i):
+            try:
+                out[i] = tts(burst_url, BURST[i], 2)
+            except Exception as e:  # reported by the caller
+                errors.append(f"burst request {i}: {e}")
+
+        workers = [threading.Thread(target=one, args=(i,)) for i in range(len(BURST))]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=900)
+        if errors or any(w.is_alive() for w in workers):
+            raise RuntimeError("; ".join(errors) or "a burst request did not finish")
+        return out
 
     requests = []
     try:
-        if call("/health") != (200, {"status": "ok"}):
+        if call(url, "/health") != (200, {"status": "ok"}):
             fail("/health")
-        code, body = call("/api/v1/speakers")
+        code, body = call(url, "/api/v1/speakers")
         if code != 200 or body["data"]["speakers"] != ["default"]:
             fail(f"/api/v1/speakers: {code} {body}")
-        tts("Warm up the card.", 2)  # first-use cost (cuBLAS, cuDNN) outside the counted run
-        records.clear()
-        da.launch_count = 0  # counts from here are the main path's
-        total = 0
-        for text, heads in (("Hello, this sentence is spoken by the first head only.", 1),
-                            ("The quick brown fox jumps over the lazy dog! "
-                             "Then a second sentence follows the first one.", 2),
-                            ("Five heads decode this request in groups of five.", 5)):
-            before, n_rec = da.launch_count, len(records)
-            t0 = time.time()
-            n_samples, peak = tts(text, heads)
-            wall = time.time() - t0
-            segs = records[n_rec:]
-            launched = da.launch_count - before
-            # each segment: one prefill + one forward per step except the
-            # stopping step (llm.generate_until runs no forward once finished)
-            forwards = sum(1 + max(r.steps - 1, 0) for r in segs)
-            if launched != n_layers * forwards or launched == 0:
-                fail(f"heads={heads}: {launched} kernel launches, expected "
-                     f"{n_layers} x {forwards}")
-            req = dict(
-                heads=heads, segments=len(segs), tokens=int(sum(len(r.speech_tokens) for r in segs)),
-                steps=int(sum(r.steps for r in segs)),
-                llm_time=sum(r.llm_time for r in segs), synth_time=sum(r.synth_time for r in segs),
-                wall_s=wall, audio_s=n_samples / 24000.0, peak=peak, kernel_launches=launched,
-            )
-            req["tps"] = req["tokens"] / req["llm_time"]
-            req["rtf"] = sum(r.total_time for r in segs) / req["audio_s"]
-            requests.append(req)
-            print("request", json.dumps(req), flush=True)
-            total += launched
-        if total != da.launch_count:
-            fail("launch count changed outside the requests")
-        return requests, da.launch_count
+        # first-use cost (cuBLAS, cuDNN) of both routes outside the counted run
+        for text in ("Warm up the card.", "Warm up the card! And the flash batch as well."):
+            tts(url, text, 2)
+        burst_service = servers[1].RequestHandlerClass.service
+        da.launch_count = mg.launch_count = 0  # counts from here are the main path's
+        for name, (text, heads, route, rows) in TEXTS.items():
+            requests.append(measure(name, lambda: [tts(url, text, heads)], [(route, rows)],
+                                    heads))
+        batched = burst_service.batched_requests
+        requests.append(measure("burst", burst, [("synthesize_batch", len(BURST))], 2))
+        if burst_service.batched_requests - batched != len(BURST):
+            fail(f"the burst was not one coalesced group: batched_requests rose by "
+                 f"{burst_service.batched_requests - batched}")
+        launches = (da.launch_count, mg.launch_count)
+        if launches != (sum(r["attention_launches"] for r in requests),
+                        sum(r["mlp_launches"] for r in requests)):
+            fail("launch counts changed outside the requests")
+        return requests, launches
     finally:
-        engine.synthesize = synthesize
-        server.shutdown()
-        server.RequestHandlerClass.service.shutdown()
-        server.server_close()
-        thread.join(timeout=10)
+        engine.synthesize, engine.synthesize_batch = synthesize, synthesize_batch
+        for sv in servers:
+            sv.shutdown()
+            sv.RequestHandlerClass.service.shutdown()
+            sv.server_close()
+        for th in threads:
+            th.join(timeout=10)
 
 
 def main():
@@ -269,16 +434,35 @@ def main():
 
     from flowmirror_hydravox_tpu_torch import __main__ as launcher
     from flowmirror_hydravox_tpu_torch.ops import decode_attention as da
+    from flowmirror_hydravox_tpu_torch.ops import mlp_gemv as mg
+    from flowmirror_hydravox_tpu_torch.ops import nvcc_build
 
     t0 = time.time()
-    da.build_library(force=True)
-    print(f"build: decode_attention.cu in {time.time() - t0:.1f} s (nvcc, sm_90a)", flush=True)
-    regs = [ln.strip() for ln in (da.BUILD_DIR / "decode_attention.build.log").read_text().splitlines()
-            if "registers" in ln]
-    print("ptxas:", " | ".join(regs), flush=True)
+    build_errors = []
+
+    def build(op):
+        try:
+            op.build_library(force=True)
+        except RuntimeError as e:
+            build_errors.append(str(e))
+
+    build_threads = [threading.Thread(target=build, args=(op,)) for op in (da, mg)]
+    for th in build_threads:
+        th.start()
+    for th in build_threads:
+        th.join()
+    if build_errors:
+        fail("build: " + "\n".join(build_errors))
+    print(f"build: decode_attention.cu and mlp_gemv.cu in parallel in {time.time() - t0:.1f} s "
+          f"(nvcc, sm_90a)", flush=True)
+    for op in (da, mg):
+        regs = [ln.strip() for ln in nvcc_build.build_log(op.KERNEL_SOURCE).read_text().splitlines()
+                if "registers" in ln]
+        print(f"ptxas {op.KERNEL_SOURCE.name}:", " | ".join(regs), flush=True)
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")  # 256 MB > L2
-    kernel_cases = check_decode_attention(da, flush)
+    attention_cases = check_decode_attention(da, flush)
+    mlp_cases = check_mlp_gemv(mg, flush)
 
     t0 = time.time()
     engine, frontend = launcher.build(launcher.parse_args(
@@ -289,31 +473,47 @@ def main():
           f"built in {time.time() - t0:.1f} s", flush=True)
     backbone_rel = check_backbone(engine)
 
-    requests, launches = drive_main_path(engine, frontend, da)
+    requests, (attention_launches, mlp_launches) = drive_main_path(engine, frontend, da, mg)
     del flush
 
-    # the kernels line: the serving shape (bf16, B 1, T 2, the 512-row cache
-    # the requests use), max_abs_err over every case checked in phase 3
-    main = next(c for c in kernel_cases
-                if c["dtype"] == "bfloat16" and c["B"] == 1 and c["T"] == 2 and c["cache_len"] == [255])
+    # the kernels line: each kernel at its serving shape (bf16; decode
+    # attention at B 1, T 2 against the 512-row cache the requests use; the
+    # MLP at the backbone's M 2 of heads 2), max_abs_err over every case
+    # checked in phases 3 and 3b
+    att = next(c for c in attention_cases
+               if c["dtype"] == "bfloat16" and c["B"] == 1 and c["T"] == 2 and c["cache_len"] == [255])
+    mlp = next(c for c in mlp_cases
+               if c["dtype"] == "bfloat16" and c["M"] == 2 and c["I"] == 4864)
     kernels = {"kernels": [{
         "name": "decode_attention",
         "route": "cuda",
         "source": "flowmirror_hydravox_tpu_torch/csrc/decode_attention.cu",
         "replaces": "flowmirror_hydravox_tpu/ops/pallas_attention.py:97",
-        "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in kernel_cases),
-        "ms": main["kernel_ms"],
-        "plain_ms": main["ref_ms"],
-        "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"],
-        "library_ms": main["library_ms"],
+        "launches": attention_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in attention_cases),
+        "ms": att["kernel_ms"],
+        "plain_ms": att["ref_ms"],
+        "bound_ms": att["bound_ms"],
+        "bound_by": att["bound_by"],
+        "library_ms": att["library_ms"],
+    }, {
+        "name": "mlp_gemv",
+        "route": "cuda",
+        "source": "flowmirror_hydravox_tpu_torch/csrc/mlp_gemv.cu",
+        "replaces": "flowmirror_hydravox_tpu/ops/pallas_mlp.py:52",
+        "launches": mlp_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in mlp_cases),
+        "ms": mlp["kernel_ms"],
+        "plain_ms": mlp["ref_ms"],
+        "bound_ms": mlp["bound_ms"],
+        "bound_by": mlp["bound_by"],
+        "library_ms": mlp["library_ms"],  # the torch.matmul form, a yardstick
     }]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "kernel_cases": kernel_cases, "backbone_rel_err": backbone_rel,
-         "requests": requests, **kernels}, indent=1))
+        {"card": card, "attention_cases": attention_cases, "mlp_cases": mlp_cases,
+         "backbone_rel_err": backbone_rel, "requests": requests, **kernels}, indent=1))
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

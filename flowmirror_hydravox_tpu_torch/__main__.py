@@ -9,6 +9,12 @@ latency testing). With random full-width LLM weights the text vocab follows
 the tokenizer's, padded to a multiple of 128. Serving dtypes: bf16 for the
 LLM and flow, f32 for HiFT. A `default` speaker (zero embedding) is
 registered.
+
+Batching: a multi-segment text decodes as one flash batch, and concurrent
+batchable requests are coalesced by the server's 0.03 s window into one
+flash batch of up to 8 requests (runtime/server.py). That is the JAX
+launcher's `--continuous-batching 0` mode, and the port's only one until the
+continuous batcher is ported, so the launcher has no batching flag.
 """
 
 from __future__ import annotations

@@ -77,12 +77,14 @@ def solve_euler(params: dict, cfg: FlowConfig, z, mu, mask, spks, cond, n_timest
     return x
 
 
-def inference(params: dict, cfg: FlowConfig, token, token_valid, prompt_feat, prompt_mel_len: int,
+def inference(params: dict, cfg: FlowConfig, token, token_valid, prompt_feat, prompt_mel_len,
               embedding, n_timesteps: Optional[int] = None):
-    """Full flow inference (flow.py:367-430, finalize=True). token (1, Lp + Lt)
-    prompt + generated speech tokens, token_valid (1, Lp + Lt) bool,
-    prompt_feat (1, mel_len1, 80) (may be 0-length), embedding (1, 192).
-    Returns the mel (1, 80, T_mel) f32, prompt region included."""
+    """Full flow inference (flow.py:367-430, finalize=True). token (B, Lp + Lt)
+    prompt + generated speech tokens, token_valid (B, Lp + Lt) bool,
+    prompt_feat (B or 1, mel_len1, 80) (may be 0-length), prompt_mel_len an
+    int (a shared prompt) or (B,) (per-row prompts, flow.py:186-190),
+    embedding (B, 192). Returns the mel (B, 80, T_mel) f32, prompt region
+    included."""
     n_timesteps = n_timesteps or cfg.n_timesteps
     h = encode_tokens(params, cfg, token, token_valid)
     b, t_mel, _ = h.shape
@@ -95,7 +97,8 @@ def inference(params: dict, cfg: FlowConfig, token, token_valid, prompt_feat, pr
     pf = torch.zeros((b, t_mel, mel_dim), dtype=h.dtype, device=dev)
     lp = prompt_feat.shape[1]
     if lp > 0:
-        in_prompt = torch.arange(t_mel, device=dev)[None, :] < int(prompt_mel_len)
+        pml = torch.as_tensor(prompt_mel_len, device=dev).reshape(-1, 1)
+        in_prompt = torch.arange(t_mel, device=dev)[None, :] < pml
         pf_src = F.pad(prompt_feat.to(h.dtype), (0, 0, 0, max(t_mel - lp, 0)))[:, :t_mel]
         pf = torch.where(in_prompt[:, :, None], pf_src.expand(b, t_mel, mel_dim), pf)
     conds = pf.transpose(1, 2)  # (B, 80, T)

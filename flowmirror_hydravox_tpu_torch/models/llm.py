@@ -7,8 +7,14 @@ flowmirror_hydravox_tpu/models/llm.py on the SFT path.
   - KV-cached group decode: each step samples K = inference_head_num tokens
     against the same history, accepts them up to the first stop id, and runs
     one backbone forward over the K accepted tokens.
+  - The flash batch (`generate_batched`): B utterances decode together with
+    per-row lengths and stops, sharing each weight read.
 
-The decode loop is a Python loop with one host read per step (the K sampled
+Every decode-step MLP (the MTP heads' and the backbone's) goes through
+`ops.mlp_gemv.mlp_gemv`, the fused SwiGLU GEMV kernel on the card; the
+prompt prefill's MLP stays torch.matmul.
+
+The decode loops are Python loops with one host read per step (the sampled
 ids): it decides how many tokens to accept and whether to stop, as the JAX
 `lax.while_loop` body does on the device.
 """
@@ -18,18 +24,19 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
-import torch.nn.functional as F
 
 from ..config import LLMConfig
-from ..ops.sampling import SamplingParams, ras_sample_heads
+from ..ops.mlp_gemv import mlp_gemv
+from ..ops.sampling import SamplingParams, ras_sample_heads, ras_sample_heads_batched
 from . import qwen2
 
 CACHE_ROUND = 256  # cache lengths round up to a multiple of this
 
 
 class GenerateResult(NamedTuple):
-    tokens: torch.Tensor  # (max_tokens,) int32 on the device; valid prefix only
-    num_tokens: int
+    tokens: torch.Tensor  # (max_tokens,) int32 on the device, valid prefix only;
+    # (B, max_tokens) from generate_batched
+    num_tokens: int  # a list of B ints from generate_batched
     steps: int  # base-LLM step count (for TPS metrics)
 
 
@@ -39,8 +46,7 @@ def _mtp_head_apply(head: dict, x, eps: float):
     v = attn_in @ head["v_proj_w"] + head["v_proj_b"]
     x = x + v @ head["o_proj_w"]
     mlp_in = qwen2._rms_norm(x, head["post_attention_layernorm"], eps)
-    gate = F.silu(mlp_in @ head["gate_proj_w"])
-    return x + (gate * (mlp_in @ head["up_proj_w"])) @ head["down_proj_w"]
+    return x + mlp_gemv(mlp_in, head["gate_proj_w"], head["up_proj_w"], head["down_proj_w"])
 
 
 def mtp_logits(params: dict, cfg: LLMConfig, hidden, num_heads: int):
@@ -140,6 +146,7 @@ def generate_until(params: dict, cfg: LLMConfig, state: dict, target_num: int, m
             hidden, state["cache"] = qwen2.forward_block_with_cache(
                 params["backbone"], bb, emb, state["cache"],
                 advance=torch.full((1,), head_k, dtype=torch.int32, device=emb.device),
+                decode_step=True,
             )
             state["cache_pos"] += head_k
             state["last_hidden"] = hidden[0, head_k - 1]
@@ -159,3 +166,80 @@ def generate(params: dict, cfg: LLMConfig, prompt_embeds, prompt_len: int, min_l
                            inference_head_num=inference_head_num)
     return GenerateResult(tokens=state["tokens"][:max_tokens], num_tokens=state["num"],
                           steps=state["steps"])
+
+
+def generate_batched(params: dict, cfg: LLMConfig, prompt_embeds, prompt_len, min_len, max_len,
+                     sampling: SamplingParams, noise, *, inference_head_num: int,
+                     max_tokens: int = 1024, cache_len_cap: Optional[int] = None) -> GenerateResult:
+    """The flash batch (llm.py:410-504): B utterances decode in one loop with
+    per-row stops and lengths; the loop runs until every row has finished.
+
+    prompt_embeds (B, T, H) padded; prompt_len, min_len, max_len: B ints.
+    `noise.sampling_batch(b, k, vocab)` gives each step's Gumbel noise.
+    Returns tokens (B, max_tokens), num_tokens (list of B ints), steps.
+
+    Per step: the MTP heads and the batched RAS draw for all B rows (finished
+    rows draw too and accept nothing, as the JAX vmap does); one host read of
+    the (B, K) ids; per row, the stop-inside-group rule and the `max_len`
+    budget; then one backbone forward over the (B, K) block, in which
+    finished rows advance 0 and keep their `last_hidden`. The step in which
+    the last row finishes runs no forward: the JAX loop runs it (:489), but
+    its hidden states and cache are never read, so skipping it changes no
+    result (the same rule as `generate_until`)."""
+    head_k = max(1, min(int(inference_head_num), cfg.head_num))
+    b, t_prompt, _ = prompt_embeds.shape
+    if cache_len_cap is None:
+        cache_len_cap = t_prompt + max_tokens + head_k
+    cap = -(-cache_len_cap // CACHE_ROUND) * CACHE_ROUND
+    if t_prompt > cap:
+        raise ValueError(f"prompt block of {t_prompt} exceeds the cache of {cap}")
+    bb = cfg.backbone
+    dev = prompt_embeds.device
+    speech_table = params["speech_embedding"]
+    prompt_len = [int(n) for n in prompt_len]
+    min_len = [int(n) for n in min_len]
+    max_len = [int(n) for n in max_len]
+
+    cache = qwen2.init_kv_cache(bb, b, cap, dtype=prompt_embeds.dtype, device=dev)
+    hidden, cache = qwen2.forward_block_with_cache(
+        params["backbone"], bb, prompt_embeds, cache,
+        advance=torch.tensor(prompt_len, dtype=torch.int32, device=dev),
+    )
+    rows = torch.arange(b, device=dev)
+    last_hidden = hidden[rows, torch.tensor(prompt_len, device=dev) - 1]  # (B, H)
+    tokens = torch.full((b, max_tokens + head_k), -1, dtype=torch.int32, device=dev)
+    min_len_t = torch.tensor(min_len, device=dev)
+    num = [0] * b
+    finished = [False] * b
+    num_t = torch.zeros(b, dtype=torch.int64, device=dev)
+    steps = 0
+    while not all(finished):
+        gumbel_nuc, gumbel_flat = noise.sampling_batch(b, head_k, cfg.vocab_size)
+        logits = mtp_logits(params, cfg, last_hidden, head_k).transpose(0, 1)  # (B, K, V)
+        sampled = ras_sample_heads_batched(
+            logits, tokens, num_t, sampling, min_len_t, cfg.speech_token_size,
+            gumbel_nuc, gumbel_flat,
+        )
+        ids = sampled.tolist()  # the step's one host read
+        for r in range(b):
+            n_ok = next((j for j, tok in enumerate(ids[r]) if tok >= cfg.speech_token_size),
+                        head_k)
+            n_accept = 0 if finished[r] else min(n_ok, max(max_len[r] - num[r], 0))
+            if n_accept:
+                tokens[r, num[r]:num[r] + n_accept] = sampled[r, :n_accept].to(torch.int32)
+            num[r] += n_accept
+            finished[r] = (finished[r] or n_ok < head_k or num[r] >= max_len[r]
+                           or n_accept == 0)
+        steps += 1
+        if all(finished):
+            break
+        # the row state goes back in one copy, while the device is idle after
+        # the read above
+        num_t, done = torch.tensor([num, finished], dtype=torch.int64, device=dev)
+        done = done.bool()
+        hidden, cache = qwen2.forward_block_with_cache(
+            params["backbone"], bb, speech_table[sampled], cache,
+            advance=torch.where(done, 0, head_k).to(torch.int32), decode_step=True,
+        )
+        last_hidden = torch.where(done[:, None], last_hidden, hidden[:, head_k - 1])
+    return GenerateResult(tokens=tokens[:, :max_tokens], num_tokens=num, steps=steps)

@@ -4,7 +4,10 @@ flowmirror_hydravox_tpu/models/qwen2.py.
 Parameters keep the JAX layout: matmul weights (in, out), per-layer leaves
 stacked (n_layers, ...). The KV cache is preallocated at a fixed length; each
 block of K new tokens is written at `cache.length` and attention runs through
-`decode_attention_dispatch` (the Hopper kernel on the card).
+`decode_attention_dispatch` (the Hopper kernel on the card). The MLP of a
+decode step's block goes through `mlp_gemv` (the fused SwiGLU GEMV kernel on
+the card); the prompt prefill keeps `_mlp_block` (torch.matmul), as the JAX
+package leaves that product to XLA. The caller names the route.
 
 Unlike the JAX package, whose arrays are immutable, the cache tensors are
 updated in place: `forward_block_with_cache` writes the block into the same
@@ -20,6 +23,7 @@ import torch.nn.functional as F
 
 from ..config import Qwen2Config
 from ..ops.attention import decode_attention_dispatch
+from ..ops.mlp_gemv import mlp_gemv
 from ..ops.rope import apply_rope_halved, rope_cos_sin
 
 
@@ -63,13 +67,18 @@ def layer_slices(params: dict, n_layers: int):
 
 
 def forward_block_with_cache(params: dict, cfg: Qwen2Config, inputs_embeds, cache: KVCache,
-                             advance: Optional[torch.Tensor] = None):
+                             advance: Optional[torch.Tensor] = None, *,
+                             decode_step: bool = False):
     """Process a block of K new tokens (B, K, H) against the KV cache.
 
     The block is written at positions [cache.length, cache.length + K);
     `advance` (B,) of them are committed (default K). Uncommitted slots are
     shadowed by the next block's write before they can be attended. The
     caller keeps cache.length + K <= S_max (indexing past the end raises).
+
+    `decode_step` names the call site: True for the sampled tokens of a
+    decode step, whose MLP goes through `mlp_gemv`; False for a prompt
+    prefill, whose MLP stays `_mlp_block`.
 
     Returns (hidden (B, K, H) after the final norm, cache with the new length).
     """
@@ -96,7 +105,11 @@ def forward_block_with_cache(params: dict, cfg: Qwen2Config, inputs_embeds, cach
         attn = decode_attention_dispatch(q.contiguous(), k_cache_l, v_cache_l, cache.length)
         x = x + attn.reshape(b, kblk, -1) @ layer["o_proj_w"]
         mlp_in = _rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps)
-        x = x + _mlp_block(layer, mlp_in)
+        if decode_step:
+            x = x + mlp_gemv(mlp_in, layer["gate_proj_w"], layer["up_proj_w"],
+                             layer["down_proj_w"])
+        else:
+            x = x + _mlp_block(layer, mlp_in)
 
     if advance is None:
         advance = torch.full((b,), kblk, dtype=torch.int32, device=dev)

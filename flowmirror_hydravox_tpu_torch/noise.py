@@ -5,6 +5,8 @@ hands them out in the order the JAX package draws it:
 
   - `sampling(k, vocab)`: one decode step's Gumbel noise, (nucleus (k, KMAX),
     flat (k, vocab)) f32, one row per MTP head;
+  - `sampling_batch(b, k, vocab)`: one flash-batch step's, (nucleus
+    (b, k, KMAX), flat (b, k, vocab)) f32, per batch row and head;
   - `vocoder(b, t, nh)`: the NSF source's (rand_ini (b, nh) uniform [0, 1),
     noise (b, t, nh) standard normal) f32.
 
@@ -33,6 +35,9 @@ class TorchNoise:
 
     def sampling(self, k: int, vocab: int):
         return self._gumbel((k, nucleus_kmax(vocab))), self._gumbel((k, vocab))
+
+    def sampling_batch(self, b: int, k: int, vocab: int):
+        return self._gumbel((b, k, nucleus_kmax(vocab))), self._gumbel((b, k, vocab))
 
     def vocoder(self, b: int, t: int, nh: int):
         rand_ini = torch.rand((b, nh), generator=self.generator, device=self.device)

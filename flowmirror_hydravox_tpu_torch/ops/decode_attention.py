@@ -21,23 +21,16 @@ from __future__ import annotations
 
 import ctypes
 import math
-import os
-import pathlib
-import shutil
-import subprocess
-import tempfile
 import threading
 
 import torch
 
+from . import nvcc_build
+
 NEG_INF = -1.0e10
 
-_PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
-KERNEL_SOURCE = _PKG_DIR / "csrc" / "decode_attention.cu"
-BUILD_DIR = _PKG_DIR / "build"
-LIBRARY = BUILD_DIR / "libhv_decode_attention.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+KERNEL_SOURCE = nvcc_build.CSRC_DIR / "decode_attention.cu"
+LIBRARY = nvcc_build.BUILD_DIR / "libhv_decode_attention.so"
 SUPPORTED_HEAD_DIMS = (16, 64)  # tiny_config(), HydraVoxConfig()
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Enough blocks to fill the H100's 132 SMs twice; decode steps with few row
@@ -80,27 +73,9 @@ def decode_attention_ref(q, k_cache, v_cache, cache_len):
     return masked_gqa(q, k_cache, v_cache, bias)
 
 
-def build_library(force: bool = False) -> pathlib.Path:
-    """Compile the kernel source into LIBRARY unless an up-to-date build exists.
-    Writes to a temporary name and renames, so concurrent builds are safe."""
-    if (not force and LIBRARY.exists()
-            and LIBRARY.stat().st_mtime >= KERNEL_SOURCE.stat().st_mtime):
-        return LIBRARY
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the decode-attention kernel cannot be built")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(KERNEL_SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "decode_attention.build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, LIBRARY)
-    return LIBRARY
+def build_library(force: bool = False):
+    """Compile the kernel source into LIBRARY unless an up-to-date build exists."""
+    return nvcc_build.build_library(KERNEL_SOURCE, LIBRARY, force)
 
 
 def _library():

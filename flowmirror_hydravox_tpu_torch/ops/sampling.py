@@ -66,15 +66,18 @@ def nucleus_sample(logits, top_p: float, top_k: int, gumbel):
     return torch.gather(top_idx, -1, pick[..., None])[..., 0]
 
 
-def _in_window(history, num_decoded: int, win_size: int):
-    pos = torch.arange(history.shape[0], device=history.device)
+def _in_window(history, num_decoded, win_size: int):
+    """Positions of the last `win_size` decoded tokens. `num_decoded` is an
+    int, or a tensor that broadcasts against history's last axis."""
+    pos = torch.arange(history.shape[-1], device=history.device)
     return (pos < num_decoded) & (pos >= num_decoded - win_size)
 
 
-def _ras_candidate(logits, token_history, num_decoded: int, params: SamplingParams,
+def _ras_candidate(logits, token_history, num_decoded, params: SamplingParams,
                    ignore_eos, speech_token_size: int, gumbel_nuc):
-    """Nucleus-candidate phase of a RAS step for (..., V) logits. Returns
-    (candidate, repeated, masked_logits)."""
+    """Nucleus-candidate phase of a RAS step for (..., V) logits; the history
+    (..., L) and `num_decoded` broadcast against the logits' leading axes.
+    Returns (candidate, repeated, masked_logits)."""
     v = logits.shape[-1]
     is_stop = torch.arange(v, device=logits.device) >= speech_token_size
     ignore = torch.as_tensor(ignore_eos, device=logits.device)[..., None]
@@ -142,5 +145,23 @@ def ras_sample_heads(head_logits, token_history, num_decoded: int, params: Sampl
     ignore = (num_decoded + torch.arange(k, device=head_logits.device)) < min_len
     cands, reps, maskeds = _ras_candidate(
         head_logits, token_history, num_decoded, params, ignore, speech_token_size, gumbel_nuc)
+    flats = _gumbel_argmax(torch.log_softmax(maskeds, dim=-1), gumbel_flat)
+    return torch.where(reps, flats, cands)
+
+
+def ras_sample_heads_batched(head_logits, token_history, num_decoded, params: SamplingParams,
+                             min_len, speech_token_size: int, gumbel_nuc, gumbel_flat):
+    """`ras_sample_heads` for B rows at once, each against its own history,
+    `num_decoded` and `min_len`: the JAX vmap over rows (llm.py:466-471),
+    written out as a leading batch axis. head_logits (B, K, V), token_history
+    (B, L), num_decoded (B,) and min_len (B,) integer tensors, gumbel_nuc
+    (B, K, KMAX), gumbel_flat (B, K, V). Returns (B, K) int64."""
+    k = head_logits.shape[1]
+    dev = head_logits.device
+    num = num_decoded.to(dev).long()
+    ignore = (num[:, None] + torch.arange(k, device=dev)) < min_len.to(dev)[:, None]
+    cands, reps, maskeds = _ras_candidate(
+        head_logits, token_history[:, None, :], num[:, None, None], params, ignore,
+        speech_token_size, gumbel_nuc)
     flats = _gumbel_argmax(torch.log_softmax(maskeds, dim=-1), gumbel_flat)
     return torch.where(reps, flats, cands)

@@ -1,7 +1,8 @@
 """Inference engine: text tokens -> speech tokens -> mel -> 24 kHz waveform.
 
 Port of the two-stage path of flowmirror_hydravox_tpu/runtime/engine.py
-(`Engine(fused=False)`):
+(`Engine(fused=False)`), for one utterance (`synthesize`) and for the flash
+batch of several (`synthesize_batch`):
 
   - stage 1: prompt assembly, KV-cache prefill and multi-head decode
     (models/llm.py), the attention of every layer going through the Hopper
@@ -111,30 +112,40 @@ class Engine:
             inference_head_num=head_num, max_tokens=self.max_tokens, cache_len_cap=cache_cap,
         )
 
-    def _synth_body(self, token_bucket: int, pm_bucket: int, sp_bucket: int, tokens, num: int,
-                    sp_tokens, sp_len: int, prompt_mel, pm_len: int, embedding, noise):
-        """Stage 2: flow + HiFT on the bucket-padded token buffer.
-        Returns (wav_i16 (1, token_bucket*ratio*upsample), mel (1, 80, t_mel))."""
+    def _synth_body(self, token_bucket: int, pm_bucket: int, sp_bucket: int, tokens, num,
+                    sp_tokens, sp_len, prompt_mel, pm_len, embedding, noise):
+        """Stage 2: flow + HiFT on the bucket-padded token buffers of B rows
+        (`_synth_body` :278 for one row, `_batch_synth_body` :448 for B).
+        tokens (B, >= 1) generated, num (B,) counts; sp_tokens (B, sp_bucket),
+        sp_len (B,); prompt_mel (B, pm_bucket, 80), pm_len (B,); embedding
+        (B or 1, 192); counts are host integer sequences. Returns
+        (wav_i16 (B, token_bucket*ratio*upsample), mel (B, 80, t_mel))."""
         fcfg, hcfg = self.cfg.flow, self.cfg.hift
         ratio = fcfg.token_mel_ratio
         t_mel = token_bucket * ratio
         dev = self.device
+        b = tokens.shape[0]
+        num = torch.as_tensor(np.asarray(num, np.int64), device=dev)[:, None]
+        sp_len = torch.as_tensor(np.asarray(sp_len, np.int64), device=dev)[:, None]
+        pm_len = torch.as_tensor(np.asarray(pm_len, np.int64), device=dev)
 
-        pos = torch.arange(token_bucket, device=dev)
-        gen_idx = torch.clamp(pos - sp_len, 0, tokens.shape[0] - 1)
-        seq = tokens[gen_idx]
+        pos = torch.arange(token_bucket, device=dev)[None, :]
+        gen_idx = torch.clamp(pos - sp_len, 0, tokens.shape[1] - 1)
+        seq = torch.gather(tokens, 1, gen_idx)
         if sp_bucket > 0:
-            sp_idx = torch.clamp(pos, 0, sp_bucket - 1)
-            seq = torch.where(pos < sp_len, sp_tokens[sp_idx], seq)
+            sp_idx = torch.clamp(pos, 0, sp_bucket - 1).expand(b, token_bucket)
+            seq = torch.where(pos < sp_len, torch.gather(sp_tokens, 1, sp_idx), seq)
         valid = pos < sp_len + num
 
-        mel = flow_model.inference(self.flow_params, fcfg, seq[None], valid[None],
-                                   prompt_mel, pm_len, embedding)  # (1, 80, t_mel) f32
-        # drop the prompt-mel region, then edge-replicate past the valid end
-        # so the f0 convs near the boundary see plausible context
-        mel_gen = torch.nn.functional.pad(mel, (0, pm_bucket))[:, :, pm_len:pm_len + t_mel]
-        src = torch.clamp(torch.arange(t_mel, device=dev), max=max(num * ratio - 1, 0))
-        mel_gen = mel_gen[:, :, src]
+        emb = embedding.expand(b, embedding.shape[-1])
+        mel = flow_model.inference(self.flow_params, fcfg, seq, valid, prompt_mel, pm_len,
+                                   emb)  # (B, 80, t_mel) f32
+        # drop each row's prompt-mel region, then edge-replicate past its
+        # valid end so the f0 convs near the boundary see plausible context
+        mel_pad = torch.nn.functional.pad(mel, (0, pm_bucket))
+        frame = torch.arange(t_mel, device=dev)[None, :]
+        src = pm_len[:, None] + torch.minimum(frame, torch.clamp_min(num * ratio - 1, 0))
+        mel_gen = torch.gather(mel_pad, 2, src[:, None, :].expand(b, mel.shape[1], t_mel))
 
         wav = hift_model.inference(self.hift_params, hcfg, mel_gen, noise)
         wav_i16 = (torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)
@@ -235,9 +246,9 @@ class Engine:
         flow_dtype = self.flow_params["input_embedding"].dtype
         with torch.profiler.record_function("engine.synth"):
             wav_dev, mel_dev = self._synth_body(
-                tok_bkt, pm_bucket, sbkt, res.tokens, n_tok,
-                self._tensor(sp_pad, torch.int32), lp, self._tensor(pm, flow_dtype), pm_len,
-                self._tensor(spk_embedding[None], torch.float32), noise,
+                tok_bkt, pm_bucket, sbkt, res.tokens[None], [n_tok],
+                self._tensor(sp_pad[None], torch.int32), [lp], self._tensor(pm, flow_dtype),
+                [pm_len], self._tensor(spk_embedding[None], torch.float32), noise,
             )
             if speed != 1.0:
                 wav = self._resample_and_vocode(mel_dev, n_tok * ratio, speed, noise)
@@ -261,3 +272,122 @@ class Engine:
         logger.info("synth: %d tokens in %d steps, tps=%.1f rtf=%.4f (llm %.3fs flow+hift %.3fs)",
                     n_tok, steps, result.tps, result.rtf, llm_time, synth_time)
         return result
+
+    @torch.inference_mode()
+    def synthesize_batch(
+        self,
+        text_tokens_list,  # list of (Lt_i,) int32 arrays
+        sampling: Optional[SamplingConfig] = None,
+        inference_head_num: Optional[int] = None,
+        prompt_speech_tokens=None,  # one shared (Lp,) array, or a per-row list
+        prompt_mel=None,  # one shared (Lm, 80) array, or a per-row list
+        spk_embedding=None,  # (192,) shared, or (B, 192) per row
+        noise=None,
+    ):
+        """Flash-batch synthesis (engine.py:623-897, its two-stage form): B
+        utterances (the segments of one text, or coalesced requests) decode
+        in one `llm.generate_batched` loop, then flow + HiFT run once over all
+        rows at the bucket of the longest realised row. `noise` (default:
+        drawn from the engine's generator) feeds both the LM and HiFT, as one
+        JAX key does. Returns (list of B float32 wavs, stats dict with
+        llm_time, synth_time, total_time, tokens, steps, rtf).
+
+        Each row's token-length bounds come from its whole text, as the JAX
+        default `tts_text_lens=None` does for SFT rows (no prompt text).
+        Not ported: the fused single dispatch (:770-798), the warm-shape
+        synth-group planner (:512-, which exists for XLA compile reuse),
+        spec decode (:396-405) and the `llm_prompt_speech_tokens` override:
+        the prompt tokens feed both the LM and the flow."""
+        t_start = time.time()
+        cfg = self.cfg
+        sampling = sampling or cfg.tts_sampling
+        head_num = inference_head_num or cfg.llm.inference_head_num
+        noise = noise if noise is not None else self.next_noise()
+        bsz = len(text_tokens_list)
+
+        def _rows(x, dtype, empty_shape):
+            if isinstance(x, (list, tuple)):
+                if len(x) != bsz:
+                    raise ValueError(f"{len(x)} per-row prompts for {bsz} rows")
+                return [np.zeros(empty_shape, dtype) if r is None or len(r) == 0
+                        else np.asarray(r, dtype) for r in x]
+            shared = (np.zeros(empty_shape, dtype) if x is None or len(x) == 0
+                      else np.asarray(x, dtype))
+            return [shared] * bsz
+
+        sp_rows = _rows(prompt_speech_tokens, np.int32, (0,))
+        pm_rows = _rows(prompt_mel, np.float32, (0, cfg.flow.output_size))
+        if spk_embedding is None:
+            spk_embedding = np.zeros((192,), np.float32)
+        spk_embedding = np.asarray(spk_embedding, np.float32)
+        emb_rows = spk_embedding if spk_embedding.ndim == 2 else spk_embedding[None]
+
+        # ---- shared padding/bucketing ----
+        text_rows = [np.asarray(t, np.int32) for t in text_tokens_list]
+        tbkt = _bucket(max(len(t) for t in text_rows), PROMPT_BUCKETS)
+        if any(len(t) > tbkt for t in text_rows):
+            logger.warning("text rows longer than the largest prompt bucket %d truncated", tbkt)
+            text_rows = [t[:tbkt] for t in text_rows]
+        lts = [len(t) for t in text_rows]
+        lp_max = max(len(r) for r in sp_rows)
+        sbkt = _bucket(lp_max, PROMPT_BUCKETS) if lp_max else 0
+        sp_rows = [r[:sbkt] for r in sp_rows]
+        lps = [len(r) for r in sp_rows]
+        text_pad = np.zeros((bsz, tbkt), np.int32)
+        sp_pad = np.zeros((bsz, sbkt), np.int32)
+        for i in range(bsz):
+            text_pad[i, :lts[i]] = text_rows[i]
+            sp_pad[i, :lps[i]] = sp_rows[i]
+        min_lens = [int(n * MIN_TOKEN_TEXT_RATIO) for n in lts]
+        max_lens = [min(int(n * MAX_TOKEN_TEXT_RATIO), self.max_tokens) for n in lts]
+        sp = SamplingParams.make(sampling.top_p, sampling.top_k, sampling.win_size, sampling.tau_r)
+
+        lm_max = max(len(r) for r in pm_rows)
+        pm_bucket = _bucket(lm_max, MEL_BUCKETS) if lm_max else 0
+        pm = np.zeros((bsz, pm_bucket, cfg.flow.output_size), np.float32)
+        pm_lens = [min(len(r), pm_bucket) for r in pm_rows]
+        for i, r in enumerate(pm_rows):
+            pm[i, :pm_lens[i]] = r[:pm_bucket]
+
+        ratio = cfg.flow.token_mel_ratio
+        up = cfg.hift.upsample_scale
+
+        # ---- stage 1: the batched decode ----
+        t0 = time.time()
+        with torch.profiler.record_function("engine.llm"):
+            llm_cfg = cfg.llm
+            text_dev = self._tensor(text_pad, torch.int32)
+            sp_dev = self._tensor(sp_pad, torch.int32)
+            prompts = [llm_model.build_inference_prompt(
+                self.llm_params, llm_cfg, text_dev[i], lts[i], sp_dev[i], lps[i])
+                for i in range(bsz)]
+            res = llm_model.generate_batched(
+                self.llm_params, llm_cfg, torch.stack([e for e, _ in prompts]),
+                [n for _, n in prompts], min_lens, max_lens, sp, noise,
+                inference_head_num=head_num, max_tokens=self.max_tokens,
+                cache_len_cap=2 + tbkt + sbkt + self.max_tokens + head_num,
+            )
+        nums, steps = res.num_tokens, res.steps
+        llm_time = time.time() - t0
+
+        # ---- stage 2: flow + hift over all rows at the realised bucket ----
+        t0 = time.time()
+        tok_bkt = _bucket(max(max(lp + n for lp, n in zip(lps, nums)), 1), SYNTH_BUCKETS)
+        flow_dtype = self.flow_params["input_embedding"].dtype
+        with torch.profiler.record_function("engine.synth"):
+            wav_dev, _ = self._synth_body(
+                tok_bkt, pm_bucket, sbkt, res.tokens, nums, sp_dev, lps,
+                self._tensor(pm, flow_dtype), pm_lens,
+                self._tensor(emb_rows, torch.float32), noise,
+            )
+            wavs_np = wav_dev.cpu().numpy().astype(np.float32) / 32767.0
+        wavs = [wavs_np[i, :nums[i] * ratio * up] for i in range(bsz)]
+        synth_time = time.time() - t0
+
+        total = time.time() - t_start
+        dur = sum(len(w) for w in wavs) / cfg.sample_rate
+        stats = dict(llm_time=llm_time, synth_time=synth_time, total_time=total,
+                     tokens=list(nums), steps=steps, rtf=total / max(dur, 1e-9))
+        logger.info("flash batch x%d: %s tokens in %d steps, rtf=%.4f (llm %.3fs synth %.3fs)",
+                    bsz, stats["tokens"], steps, stats["rtf"], llm_time, synth_time)
+        return wavs, stats

@@ -7,9 +7,20 @@ with the reference's REST schema (server/router.py):
        -> {success, message, data: {audio_base64, sample_rate, duration}, error}
 
 Errors: unknown speaker -> 500 naming the speakers; bad JSON -> 400; unknown
-route -> 404; timeout -> 408. Requests run one at a time on a worker thread
-(one device program stream); a multi-segment text is synthesised segment by
-segment with 50-150 ms pauses between segments.
+route -> 404; timeout -> 408. Requests run on one worker thread (one device
+program stream), and take the JAX server's routes:
+
+  - a single-segment text goes through `Engine.synthesize`, with its speed;
+  - a multi-segment text goes through one flash batch,
+    `Engine.synthesize_batch`, whatever its speed (the JAX server passes no
+    speed there either), with 50-150 ms pauses between segments;
+  - window coalescing: when the worker takes a batchable request (SFT tts,
+    speed 1, no rolling prompt), it pulls further requests of the same
+    sampling and head count for up to `batch_window` s, `max_batch` in all,
+    and serves the group as one flash batch with per-row speaker
+    embeddings. A request that does not match ends the window and runs
+    right after the group, in arrival order. This is the JAX launcher's
+    `--continuous-batching 0` mode; the continuous batcher is not ported.
 """
 
 from __future__ import annotations
@@ -22,7 +33,7 @@ import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 
@@ -36,13 +47,34 @@ DEFAULT_TTS_EXTRA = {"top_p": 0.9, "top_k": 10, "win_size": 24, "tau_r": 0.2,
                      "speed": 1.0, "inference_head_num": 2}
 
 
-class TTSService:
-    """Queue + worker thread around the Engine."""
+def _with_pauses(wavs, sr: int) -> np.ndarray:
+    """Segments joined with random 50-150 ms pauses (infer_speech_model.py)."""
+    pieces = []
+    for i, w in enumerate(wavs):
+        pieces.append(w)
+        if i < len(wavs) - 1:
+            pieces.append(np.zeros(int(random.uniform(0.05, 0.15) * sr), np.float32))
+    return np.concatenate(pieces) if pieces else np.zeros(0, np.float32)
 
-    def __init__(self, engine: Engine, frontend, request_timeout: float = 60.0):
+
+class TTSService:
+    """Queue + worker thread around the Engine.
+
+    `batch_window` / `max_batch`: cross-request coalescing of batchable
+    requests into one flash batch (see the module docstring); 0 turns it
+    off. Left out from the JAX service: the power-of-two row padding, the
+    warm-shape keys and the cold-batch fallback (server.py:310-335,
+    :363-412), which exist to reuse XLA compile shapes; PyTorch runs
+    eagerly, so a group is served at its own row count."""
+
+    def __init__(self, engine: Engine, frontend, request_timeout: float = 60.0,
+                 batch_window: float = 0.03, max_batch: int = 8):
         self.engine = engine
         self.frontend = frontend
         self.timeout = request_timeout
+        self.batch_window = batch_window
+        self.max_batch = max_batch
+        self.batched_requests = 0  # requests served through a coalesced group
         self.default_extra = dict(DEFAULT_TTS_EXTRA)
         self.tasks: "queue.Queue" = queue.Queue()
         self.results: Dict[str, Any] = {}
@@ -57,13 +89,30 @@ class TTSService:
                 task = self.tasks.get(timeout=0.1)
             except queue.Empty:
                 continue
-            try:
-                result = self._process(task)
-            except Exception as e:  # the error flows back through the result
-                logger.exception("task %s failed", task["task_id"])
-                result = {"error": str(e)}
-            with self.results_lock:
-                self.results[task["task_id"]] = result
+            group, leftover = [task], None
+            if self.batch_window > 0 and self._batchable(task) is not None:
+                more, leftover = self._coalesce_more(task)
+                group += more
+            if len(group) > 1:
+                self._run_group(group)
+            else:
+                self._run_one(task)
+            if leftover is not None:
+                # the non-matching task pulled while coalescing runs now, in
+                # arrival order, not behind newer traffic
+                self._run_one(leftover)
+
+    def _set_result(self, task: dict, result: dict):
+        with self.results_lock:
+            self.results[task["task_id"]] = result
+
+    def _run_one(self, task: dict):
+        try:
+            result = self._process(task)
+        except Exception as e:  # the error flows back through the result
+            logger.exception("task %s failed", task["task_id"])
+            result = {"error": str(e)}
+        self._set_result(task, result)
 
     @staticmethod
     def _sampling(extra: dict) -> SamplingConfig:
@@ -74,31 +123,126 @@ class TTSService:
             tau_r=float(extra.get("tau_r", 0.2)),
         )
 
+    def _batchable(self, task: dict) -> Optional[tuple]:
+        """The coalescing key (sampling, head count) of an SFT tts task at
+        speed 1 with no rolling prompt, else None (server.py:206-228);
+        malformed extra_params give None and fail later as the task's own
+        error."""
+        if task.get("type") != "tts" or task.get("last_prompt"):
+            return None
+        extra = task.get("extra_params") or {}
+        try:
+            if float(extra.get("speed", 1.0)) != 1.0:
+                return None
+            return self._sampling(extra), int(extra.get("inference_head_num", 2))
+        except (TypeError, ValueError):
+            return None
+
+    def _coalesce_more(self, first: dict) -> tuple:
+        """Pull more same-key tasks for up to batch_window s (server.py:245-265).
+        Returns (group_tail, leftover): a non-matching task ends the window
+        and is handed back to run right after the group."""
+        key = self._batchable(first)
+        group = []
+        deadline = time.time() + self.batch_window
+        while len(group) + 1 < self.max_batch:
+            remaining = deadline - time.time()
+            if remaining <= 0:
+                break
+            try:
+                cand = self.tasks.get(timeout=remaining)
+            except queue.Empty:
+                break
+            if self._batchable(cand) == key:
+                group.append(cand)
+            else:
+                return group, cand
+        return group, None
+
+    def _sft_rows(self, task: dict):
+        """(text token rows, speaker embedding, prompt tokens, prompt mel) of
+        one tts task, one row per segment (server.py:827-846)."""
+        segments = self.frontend.text_normalize(task["text"], split=True)
+        feats0 = self.frontend.frontend_sft(segments[0], task["speaker_id"])
+        rows = [feats0["text_tokens"]] + [self.frontend.extract_text_tokens(s)
+                                          for s in segments[1:]]
+        emb = np.asarray(feats0["spk_embedding"], np.float32).reshape(-1)[:192]
+        return rows, emb, feats0.get("prompt_speech_tokens"), feats0.get("prompt_mel")
+
+    def _run_group(self, group: list):
+        """One flash batch for the coalesced tasks (server.py:267-361): the
+        rows are every task's segments, with per-row speaker embeddings and
+        prompts; each task gets its own rows back, joined with pauses. A
+        task whose featurisation fails gets its error; if the batch fails,
+        every task in it gets the batch's error."""
+        extra = group[0].get("extra_params") or {}
+        spans, token_rows, embs, sp_rows, pm_rows = [], [], [], [], []
+        for task in group:
+            try:
+                rows, emb, sp_t, pm_t = self._sft_rows(task)
+            except Exception as e:
+                logger.exception("task %s failed", task["task_id"])
+                self._set_result(task, {"error": str(e)})
+                continue
+            spans.append((task, len(token_rows), len(token_rows) + len(rows)))
+            token_rows += rows
+            embs += [emb] * len(rows)
+            sp_rows += [sp_t] * len(rows)
+            pm_rows += [pm_t] * len(rows)
+        if not spans:
+            return
+        try:
+            wavs, stats = self.engine.synthesize_batch(
+                token_rows, sampling=self._sampling(extra),
+                inference_head_num=int(extra.get("inference_head_num", 2)),
+                prompt_speech_tokens=sp_rows, prompt_mel=pm_rows, spk_embedding=np.stack(embs),
+            )
+        except Exception as e:
+            logger.exception("coalesced batch failed")
+            for task, _, _ in spans:
+                self._set_result(task, {"error": str(e)})
+            return
+        self.batched_requests += len(spans)
+        logger.info("coalesced %d requests (%d rows) rtf=%.4f", len(spans), len(token_rows),
+                    stats["rtf"])
+        sr = self.engine.cfg.sample_rate
+        for task, start, end in spans:
+            self._set_result(task, {"output_audio": _with_pauses(wavs[start:end], sr),
+                                    "sample_rate": sr})
+
     def _process(self, task: dict) -> dict:
+        """One task alone (server.py:687-741): a multi-segment text through
+        one flash batch (which takes no speed), a single segment through
+        `synthesize` with its speed."""
         extra = task.get("extra_params") or {}
         sampling = self._sampling(extra)
         head_num = int(extra.get("inference_head_num", 2))
         speed = float(extra.get("speed", 1.0))
         sr = self.engine.cfg.sample_rate
         segments = self.frontend.text_normalize(task["text"], split=True)
-        chunks = []
-        for i, segment in enumerate(segments):
-            feats = self.frontend.frontend_sft(segment, task["speaker_id"])
-            res = self.engine.synthesize(
-                text_tokens=feats["text_tokens"],
-                tts_text_len=feats["tts_text_len"],
+        if len(segments) > 1:
+            feats0 = self.frontend.frontend_sft(segments[0], task["speaker_id"])
+            wavs, _ = self.engine.synthesize_batch(
+                [self.frontend.extract_text_tokens(s) for s in segments],
                 sampling=sampling,
                 inference_head_num=head_num,
-                prompt_speech_tokens=feats.get("prompt_speech_tokens"),
-                prompt_mel=feats.get("prompt_mel"),
-                spk_embedding=feats.get("spk_embedding"),
-                speed=speed,
+                prompt_speech_tokens=feats0.get("prompt_speech_tokens"),
+                prompt_mel=feats0.get("prompt_mel"),
+                spk_embedding=feats0.get("spk_embedding"),
             )
-            chunks.append(res.audio)
-            if i < len(segments) - 1:
-                chunks.append(np.zeros(int(random.uniform(0.05, 0.15) * sr), np.float32))
-        audio = np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
-        return {"output_audio": audio, "sample_rate": sr}
+            return {"output_audio": _with_pauses(wavs, sr), "sample_rate": sr}
+        feats = self.frontend.frontend_sft(segments[0], task["speaker_id"])
+        res = self.engine.synthesize(
+            text_tokens=feats["text_tokens"],
+            tts_text_len=feats["tts_text_len"],
+            sampling=sampling,
+            inference_head_num=head_num,
+            prompt_speech_tokens=feats.get("prompt_speech_tokens"),
+            prompt_mel=feats.get("prompt_mel"),
+            spk_embedding=feats.get("spk_embedding"),
+            speed=speed,
+        )
+        return {"output_audio": res.audio, "sample_rate": sr}
 
     def submit(self, task: dict) -> str:
         tid = str(uuid.uuid4())
@@ -188,6 +332,7 @@ class _Handler(BaseHTTPRequestHandler):
             return
         extra = {**self.service.default_extra, **(body.get("extra_params") or {})}
         tid = self.service.submit({
+            "type": "tts",
             "text": body.get("text", ""),
             "speaker_id": body.get("speaker_id"),
             "extra_params": extra,
@@ -195,9 +340,10 @@ class _Handler(BaseHTTPRequestHandler):
         self._finish_audio(self.service.wait(tid))
 
 
-def make_server(host: str, port: int, engine: Engine, frontend,
-                request_timeout: float = 60.0) -> ThreadingHTTPServer:
-    service = TTSService(engine, frontend, request_timeout=request_timeout)
+def make_server(host: str, port: int, engine: Engine, frontend, request_timeout: float = 60.0,
+                batch_window: float = 0.03, max_batch: int = 8) -> ThreadingHTTPServer:
+    service = TTSService(engine, frontend, request_timeout=request_timeout,
+                         batch_window=batch_window, max_batch=max_batch)
     handler = type("Handler", (_Handler,), {"service": service})
     return ThreadingHTTPServer((host, port), handler)
 

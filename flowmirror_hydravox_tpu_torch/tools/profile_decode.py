@@ -8,10 +8,12 @@ synthesis, then traces one synthesis under torch.profiler (CPU + CUDA). For
 each engine stage span (`engine.llm`, `engine.synth`) it reports the host
 wall time, the device busy time (the union of the kernels that start inside
 the span) and the device's idle share, and for the LM the same per decode
-step. It also lists the ops that take the most host time, the kernels that
-take the most device time, the decode-attention kernel's share, and the host
-time of one decode-attention call at the serving shape. Device
-numbers are null when the profiler saw no device activity.
+step, and the kernel launches per decode step. It also lists the ops that
+take the most host time, the kernels that take the most device time, each
+hand-written kernel's device time and share of the LM stage (decode
+attention; the fused MLP GEMV), and the host time of one call of each at its
+serving shape. Device numbers are null when the profiler saw no device
+activity.
 
 Prints one JSON line and writes it to chiprun_out/profile_decode.json.
 """
@@ -32,7 +34,9 @@ from ..runtime.engine import SynthesisResult
 
 TEXT = "The quick brown fox jumps over the lazy dog and then keeps on running."
 OUT = os.path.join("chiprun_out", "profile_decode.json")
-ATTENTION_KERNELS = ("decode_attn_kernel", "merge_splits_kernel")
+KERNELS = {"decode_attention": ("decode_attn_kernel", "merge_splits_kernel"),
+           "mlp_gemv": ("swiglu_kernel", "down_kernel", "sum_splits_kernel")}
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx")
 STAGES = ("engine.llm", "engine.synth")
 
 
@@ -65,18 +69,24 @@ def analyse(prof, res: SynthesisResult, top: int = 15) -> dict:
                         "device_busy_ms": None if busy is None else busy / 1e3,
                         "device_idle_share": None if busy is None else 1.0 - busy / (s1 - s0)}
     llm = stages["engine.llm"]
+    span = next(e for e in events if e.name == "engine.llm" and e.device_type == DeviceType.CPU)
+    launches = sum(1 for e in events if e.device_type == DeviceType.CPU
+                   and e.name in LAUNCH_CALLS
+                   and span.time_range.start <= e.time_range.start < span.time_range.end)
     per_step = {"steps": res.steps, "tokens": len(res.speech_tokens),
                 "wall_ms": llm["wall_ms"] / max(res.steps, 1),
                 "device_busy_ms": (None if llm["device_busy_ms"] is None
-                                   else llm["device_busy_ms"] / max(res.steps, 1))}
+                                   else llm["device_busy_ms"] / max(res.steps, 1)),
+                "kernel_launches": launches / max(res.steps, 1)}
 
     avgs = prof.key_averages()
     host = sorted(avgs, key=lambda a: a.self_cpu_time_total, reverse=True)[:top]
     dev = sorted((a for a in avgs if a.device_type == DeviceType.CUDA and a.key not in STAGES
                   and a.self_device_time_total > 0),
                  key=lambda a: a.self_device_time_total, reverse=True)
-    attn_us = sum(a.self_device_time_total for a in dev
-                  if any(k in a.key for k in ATTENTION_KERNELS))
+    kernel_us = {name: sum(a.self_device_time_total for a in dev
+                           if any(k in a.key for k in names))
+                 for name, names in KERNELS.items()}
     all_dev_us = sum(a.self_device_time_total for a in dev)
     return {
         "stages": stages,
@@ -85,31 +95,42 @@ def analyse(prof, res: SynthesisResult, top: int = 15) -> dict:
                      for a in host],
         "device_top": [{"kernel": a.key[:120], "calls": a.count,
                         "device_ms": a.self_device_time_total / 1e3} for a in dev[:top]],
-        "decode_attention_device_ms": attn_us / 1e3 if dev else None,
         "device_total_ms": all_dev_us / 1e3 if dev else None,
-        # the kernel runs only in the LM stage
-        "decode_attention_share_of_llm_device": (attn_us / 1e3 / llm["device_busy_ms"]
-                                                 if llm["device_busy_ms"] else None),
+        # both kernels run only in the LM stage
+        **{f"{name}_device_ms": us / 1e3 if dev else None for name, us in kernel_us.items()},
+        **{f"{name}_share_of_llm_device": (us / 1e3 / llm["device_busy_ms"]
+                                           if llm["device_busy_ms"] else None)
+           for name, us in kernel_us.items()},
     }
 
 
-def wrapper_host_us(n: int = 200) -> float:
-    """Host time of one decode-attention call at the serving shape (bf16,
-    B 1, T 2, S_max 512), launches queued without waiting for the card."""
+def host_us(fn, n: int = 200) -> float:
+    """Host time of one call, launches queued without waiting for the card."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def wrapper_host_us() -> dict:
+    """Each kernel's host cost per call at its serving shape, bf16: decode
+    attention at B 1, T 2, S_max 512; the MLP at M 2, 896 x 4864."""
     from ..ops.attention import decode_attention_dispatch
+    from ..ops.mlp_gemv import mlp_gemv
 
     q = torch.randn(1, 2, 14, 64, device="cuda").to(torch.bfloat16)
     k = torch.randn(1, 512, 2, 64, device="cuda").to(torch.bfloat16)
     v = torch.randn(1, 512, 2, 64, device="cuda").to(torch.bfloat16)
     cl = torch.tensor([255], dtype=torch.int32, device="cuda")
-    decode_attention_dispatch(q, k, v, cl)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        decode_attention_dispatch(q, k, v, cl)
-    us = (time.perf_counter() - t0) / n * 1e6
-    torch.cuda.synchronize()
-    return us
+    x = torch.randn(2, 896, device="cuda").to(torch.bfloat16)
+    gate, up = (torch.randn(896, 4864, device="cuda").to(torch.bfloat16) for _ in range(2))
+    down = torch.randn(4864, 896, device="cuda").to(torch.bfloat16)
+    return {"decode_attention": host_us(lambda: decode_attention_dispatch(q, k, v, cl)),
+            "mlp_gemv": host_us(lambda: mlp_gemv(x, gate, up, down))}
 
 
 def main(argv=None):
@@ -141,7 +162,7 @@ def main(argv=None):
         "traced_wall_s": time.time() - t0,
         "llm_time_s": res.llm_time, "synth_time_s": res.synth_time,
         **analyse(prof, res),
-        "decode_attention_host_us_per_call": wrapper_host_us(),
+        "host_us_per_call": wrapper_host_us(),
     }
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:

@@ -1,10 +1,11 @@
-"""The decode-attention kernel's wrapper and split plan, and the kernel against
-its plain version on the card.
+"""The Hopper kernels' wrappers and split plans, and each kernel against its
+plain version on the card: decode attention and the fused SwiGLU-MLP GEMV.
 
 This file imports no JAX, so the card tests also run on a machine without
 it: `python -m pytest --noconftest tests/test_torch_kernels.py -q` (the
 tests' conftest imports JAX). Card tolerance: f32 1e-5, bf16 2e-2, absolute
-and relative; TF32 is off so f32 is full f32."""
+and relative (for the MLP: relative to 1 + max |plain|, as chip_smoke holds
+it); TF32 is off so f32 is full f32."""
 
 import numpy as np
 import pytest
@@ -12,6 +13,7 @@ import torch
 
 from flowmirror_hydravox_tpu_torch.ops import attention as tattn
 from flowmirror_hydravox_tpu_torch.ops import decode_attention as tkern
+from flowmirror_hydravox_tpu_torch.ops import mlp_gemv as tmlp
 
 # main-path head layout (Hq 14, Hkv 2, D 64); cache_len at and around the
 # 32-key tiles and 128-key splits; a prefill block; B 3 with per-row lengths
@@ -111,3 +113,70 @@ def test_kernel_wrapper_refuses_bad_inputs_on_card():
         tkern.decode_attention_cuda(q[..., :48].contiguous(), k[..., :48].contiguous(),
                                     v[..., :48].contiguous(), cl)
     assert np.isfinite(tkern.decode_attention_cuda(q, k, v, cl).cpu().numpy()).all()
+
+
+# (M, H, I): the backbone decode MLP (896 x 4864) at M = B x K rows, the MTP
+# heads (896 x 22016) at M = B, tiny_config()'s 64 x 128, and edges: more
+# rows than one block holds, and an I that the 16-byte vector does not divide
+MLP_CARD_CASES = [(1, 896, 4864), (2, 896, 4864), (5, 896, 4864), (10, 896, 4864),
+                  (40, 896, 4864), (1, 896, 22016), (4, 896, 22016), (8, 896, 22016),
+                  (3, 64, 128), (70, 64, 128), (3, 64, 100)]
+
+
+def _mlp_case(m, h, i, dtype=torch.float32, device="cpu", seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(m, h, generator=g, device=device)
+    ws = [torch.randn(shape, generator=g, device=device) * 0.05 for shape in ((h, i), (h, i), (i, h))]
+    return [t.to(dtype) for t in [x, *ws]]
+
+
+@pytest.mark.parametrize("m,h,i", [(1, 896, 4864), (40, 896, 4864), (8, 896, 22016),
+                                   (3, 64, 128), (70, 64, 128)])
+def test_mlp_split_plan_covers_i(m, h, i):
+    splits, chunk = tmlp.plan_splits(m, h, i, 32, 64, 64)
+    assert chunk % 64 == 0 and splits * chunk >= i > (splits - 1) * chunk
+    assert -(-h // 32) * -(-m // 64) * splits >= min(264, -(-h // 32) * (i // 64))
+
+
+def test_mlp_dispatch_takes_the_plain_version_on_cpu():
+    x, g, u, d = _mlp_case(6, 64, 128)
+    want = tmlp.mlp_gemv_ref(x, g, u, d)
+    got = tmlp.mlp_gemv(x.reshape(2, 3, 64), g, u, d)
+    assert got.shape == (2, 3, 64)
+    torch.testing.assert_close(got.reshape(6, 64), want, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mlp_kernel_matches_plain_version_on_card(dtype):
+    """Runs on the card only: the CUDA kernel has no CPU mode."""
+    _needs_card()
+    dt = getattr(torch, dtype)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for k, (m, h, i) in enumerate(MLP_CARD_CASES):
+        x, g, u, d = _mlp_case(m, h, i, dt, "cuda", seed=k)
+        before = tmlp.launch_count
+        got = tmlp.mlp_gemv_cuda(x, g, u, d)
+        torch.cuda.synchronize()
+        assert tmlp.launch_count == before + 1
+        assert got.dtype == dt and got.shape == x.shape
+        want = tmlp.mlp_gemv_ref(x, g, u, d).float()
+        err = (got.float() - want).abs().max().item()
+        assert err <= tol * (1.0 + want.abs().max().item()), (m, h, i, err)
+        # the same inputs give the same output on every run (no float atomics)
+        assert torch.equal(tmlp.mlp_gemv_cuda(x, g, u, d), got)
+
+
+@pytest.mark.cuda
+def test_mlp_kernel_wrapper_refuses_bad_inputs_on_card():
+    _needs_card()
+    x, g, u, d = _mlp_case(2, 64, 128, torch.float32, "cuda")
+    with pytest.raises(TypeError):  # mixed dtypes
+        tmlp.mlp_gemv_cuda(x, g.to(torch.bfloat16), u, d)
+    with pytest.raises(ValueError):  # not contiguous
+        tmlp.mlp_gemv_cuda(x, g.t().contiguous().t(), u, d)
+    with pytest.raises(ValueError):  # H not a multiple of 8
+        tmlp.mlp_gemv_cuda(x[:, :60].contiguous(), g[:60].contiguous(), u[:60].contiguous(),
+                           d[:, :60].contiguous())
+    with pytest.raises(ValueError):  # down of the wrong shape
+        tmlp.mlp_gemv_cuda(x, g, u, d[:64].contiguous())

@@ -1,5 +1,7 @@
 """The port's HTTP server on the CPU (tiny config, random weights): the SFT
-REST schema, its error codes, and the launcher's device rule."""
+REST schema, its error codes, the launcher's device rule, and the JAX
+server's routes: a multi-segment text as one flash batch, and window
+coalescing of concurrent requests."""
 
 import base64
 import io
@@ -9,18 +11,28 @@ import urllib.error
 import urllib.request
 import wave
 
+import contextlib
+
+import numpy as np
 import pytest
 import torch
 
 from flowmirror_hydravox_tpu_torch import __main__ as launcher
 from flowmirror_hydravox_tpu_torch.runtime.engine import Engine
-from flowmirror_hydravox_tpu_torch.runtime.server import make_server
+from flowmirror_hydravox_tpu_torch.runtime.server import TTSService, make_server
+
+TWO_SEGMENTS = "The first sentence is here! And a second one follows."
 
 
 @pytest.fixture(scope="module")
-def server_url():
+def tiny():
     args = launcher.parse_args(["--tiny", "--device", "cpu", "--max-tokens", "32"])
-    engine, frontend = launcher.build(args)
+    return launcher.build(args)
+
+
+@pytest.fixture(scope="module")
+def server_url(tiny):
+    engine, frontend = tiny
     server = make_server("127.0.0.1", 0, engine, frontend, request_timeout=300.0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -46,8 +58,7 @@ def test_health_and_speakers(server_url):
     assert code == 200 and body["success"] and body["data"]["speakers"] == ["default"]
 
 
-@pytest.mark.parametrize("text,heads", [("hello there world", 1),
-                                        ("The first sentence is here! And a second one follows.", 2)])
+@pytest.mark.parametrize("text,heads", [("hello there world", 1), (TWO_SEGMENTS, 2)])
 def test_tts_returns_24k_wav(server_url, text, heads):
     code, body = _call(f"{server_url}/api/v1/tts", {
         "text": text, "speaker_id": "default", "extra_params": {"inference_head_num": heads}})
@@ -75,3 +86,94 @@ def test_cuda_entry_point_raises_without_a_gpu():
         Engine(None, {}, {}, {}, device="cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         launcher.build(launcher.parse_args(["--tiny"]))
+
+
+@contextlib.contextmanager
+def _service(tiny, monkeypatch, batch_window, fail_batch=False):
+    """A TTSService on the tiny engine whose engine calls are recorded:
+    (method, rows or speed, result)."""
+    engine, frontend = tiny
+    calls = []
+    synthesize, synthesize_batch = engine.synthesize, engine.synthesize_batch
+
+    def record_one(**kwargs):
+        res = synthesize(**kwargs)
+        calls.append(("synthesize", kwargs["speed"], res))
+        return res
+
+    def record_batch(token_lists, **kwargs):
+        if fail_batch:
+            raise RuntimeError("the batch failed")
+        wavs, stats = synthesize_batch(token_lists, **kwargs)
+        calls.append(("synthesize_batch", [list(r) for r in token_lists], wavs))
+        return wavs, stats
+
+    monkeypatch.setattr(engine, "synthesize", record_one)
+    monkeypatch.setattr(engine, "synthesize_batch", record_batch)
+    service = TTSService(engine, frontend, request_timeout=300.0, batch_window=batch_window)
+    try:
+        yield service, calls
+    finally:
+        service.shutdown()
+
+
+def _task(text, speed=1.0, heads=2):
+    return {"type": "tts", "text": text, "speaker_id": "default",
+            "extra_params": {"inference_head_num": heads, "speed": speed}}
+
+
+@pytest.mark.parametrize("speed", [1.0, 1.2])
+def test_multi_segment_text_is_one_flash_batch(tiny, monkeypatch, speed):
+    """The JAX server's route (server.py:697-719): one synthesize_batch with a
+    row per segment and no synthesize call, at any speed (the flash batch
+    takes none)."""
+    _, frontend = tiny
+    with _service(tiny, monkeypatch, batch_window=0.0) as (service, calls):
+        result = service.wait(service.submit(_task(TWO_SEGMENTS, speed=speed)))
+    segments = frontend.text_normalize(TWO_SEGMENTS, split=True)
+    assert len(segments) == 2
+    assert [c[0] for c in calls] == ["synthesize_batch"]
+    assert calls[0][1] == [list(frontend.extract_text_tokens(s)) for s in segments]
+    wavs = calls[0][2]
+    audio = result["output_audio"]
+    assert len(audio) > sum(len(w) for w in wavs)  # a pause between the segments
+    np.testing.assert_array_equal(audio[:len(wavs[0])], wavs[0])
+    np.testing.assert_array_equal(audio[-len(wavs[1]):], wavs[1])
+
+
+def test_window_coalesces_concurrent_requests(tiny, monkeypatch):
+    """Three requests queued within the window are one flash batch of three
+    rows; each gets its own row back."""
+    _, frontend = tiny
+    texts = ["hello there world", "a second short request", "and the third one"]
+    with _service(tiny, monkeypatch, batch_window=1.0) as (service, calls):
+        tids = [service.submit(_task(text)) for text in texts]
+        results = [service.wait(tid) for tid in tids]
+        assert service.batched_requests == 3
+    assert [c[0] for c in calls] == ["synthesize_batch"]
+    assert calls[0][1] == [list(frontend.extract_text_tokens(x)) for x in texts]
+    for res, wav in zip(results, calls[0][2]):
+        assert res["sample_rate"] == 24000 and len(wav) > 0
+        np.testing.assert_array_equal(res["output_audio"], wav)
+
+
+def test_speed_request_is_not_coalesced(tiny, monkeypatch):
+    """A speed != 1 request ends the window and runs right after the group,
+    in arrival order; the request behind it runs on its own."""
+    with _service(tiny, monkeypatch, batch_window=0.5) as (service, calls):
+        tids = [service.submit(_task(text, speed=speed)) for text, speed in
+                (("hello there world", 1.0), ("a slower request", 1.2), ("the last one", 1.0))]
+        results = [service.wait(tid) for tid in tids]
+        assert service.batched_requests == 0
+    assert [(c[0], c[1]) for c in calls] == [("synthesize", 1.0), ("synthesize", 1.2),
+                                             ("synthesize", 1.0)]
+    assert all(len(r["output_audio"]) > 0 for r in results)
+
+
+def test_failed_group_answers_each_request_with_the_error(tiny, monkeypatch):
+    with _service(tiny, monkeypatch, batch_window=1.0, fail_batch=True) as (service, calls):
+        tids = [service.submit(_task(text)) for text in ("one request", "two", "three")]
+        results = [service.wait(tid) for tid in tids]
+        assert service.batched_requests == 0
+    assert results == [{"error": "the batch failed"}] * 3
+    assert calls == []

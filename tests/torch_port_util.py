@@ -7,6 +7,9 @@ key chain and hands the port the exact numbers JAX draws:
   - each decode step: llm.py:369 splits (rng, rng_step); sampling.py:201
     splits rng_step into per-head keys; sampling.py:89 splits each head key
     into (rng_nuc, rng_flat); sampling.py:47 draws the Gumbel noise;
+  - each flash-batch step: llm.py:463 splits (rng, rng_step); llm.py:465
+    splits rng_step into per-row keys; each row's key then goes through the
+    per-head chain above (the vmap at llm.py:466-471);
   - the vocoder: hift.py:228 splits the key into (rng_ini, rng_noise).
 
 The JAX engine feeds one key to both the LM and HiFT (engine.py:1151, :1170),
@@ -40,6 +43,22 @@ def _step_draws(rng, k, kmax, vocab):
     return rng, nuc, flat
 
 
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4))
+def _batch_step_draws(rng, b, k, kmax, vocab):
+    rng, rng_step = jax.random.split(rng)
+
+    def head(key):
+        rng_nuc, rng_flat = jax.random.split(key)
+        return (jax.random.gumbel(rng_nuc, (kmax,), jnp.float32),
+                jax.random.gumbel(rng_flat, (vocab,), jnp.float32))
+
+    def row(key):
+        return jax.vmap(head)(jax.random.split(key, k))
+
+    nuc, flat = jax.vmap(row)(jax.random.split(rng_step, b))
+    return rng, nuc, flat
+
+
 @functools.partial(jax.jit, static_argnums=(1, 2, 3))
 def _vocoder_draws(rng, b, t, nh):
     rng_ini, rng_noise = jax.random.split(rng)
@@ -58,6 +77,11 @@ class JaxReplayNoise:
 
     def sampling(self, k: int, vocab: int):
         self._rng, nuc, flat = _step_draws(self._rng, k, min(64, vocab), vocab)
+        self.steps += 1
+        return t(nuc).to(self.device), t(flat).to(self.device)
+
+    def sampling_batch(self, b: int, k: int, vocab: int):
+        self._rng, nuc, flat = _batch_step_draws(self._rng, b, k, min(64, vocab), vocab)
         self.steps += 1
         return t(nuc).to(self.device), t(flat).to(self.device)
 
