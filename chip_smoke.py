@@ -9,13 +9,17 @@ exits non-zero without either. Phases, each fatal on failure:
   1. census: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds every kernel of the main path from the checkout, one
      process per source, all started together; each one's ptxas lines;
-  3. decode attention against its plain version at the main path's shapes,
-     with times (CUDA events, L2 flushed before each launch), the plain
-     version's and one library call's (SDPA with the same additive mask, a
-     yardstick only), and the byte/operation bound;
+  3. decode attention against its plain version at the main path's shapes
+     and at the edges of its design (split boundaries, row tiles, a row with
+     cache_len 0), each twice (the two calls must be bit-equal), with times
+     (CUDA events, L2 flushed before each launch), the plain version's and
+     one library call's (SDPA with the same additive mask, a yardstick
+     only), and the byte/operation bound; before it, the launch floor: a
+     one-element zero_() timed the same way;
   3b. the fused SwiGLU-MLP GEMV against its plain version at the decode
      MLP's shapes (backbone 896 x 4864 at M = B x K rows, MTP heads
-     896 x 22016 at M = B), bf16 and f32, timed the same way; its yardstick
+     896 x 22016 at M = B) and at edges (M 9, 16, 65; a ragged I), bf16 and
+     f32, twice each (bit-equal), timed the same way; its yardstick
      is the torch.matmul form (three cuBLAS products and two elementwise
      ops: no single PyTorch call computes this function);
   4. the full-width backbone on the card (both kernels) against the CPU
@@ -111,24 +115,34 @@ def attention_bound(q, k, cache_len):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# (B, T, S_max, cache_len, Hq): the main path's shapes (Hq 14, Hkv 2, D 64;
+# decode T in {1, 2, 5}, prefill blocks of ~130 and of the requests' prompt
+# bucket; B 1, 3 and 4 for flash batches; cache_len around the 32-key
+# tiles and 128-key splits), then the edges of the kernel's design: G * T
+# of 16 (Hq 16); the last key at the end of a split of a 1024-key cache
+# and one past it; rows with no key in the next split; the last key at
+# S_max - T; a row with cache_len 0 in a batch of 3
+ATTENTION_CASES = [(1, 1, 512, [0], 14), (1, 1, 512, [127], 14), (1, 2, 512, [128], 14),
+                   (1, 2, 512, [255], 14), (1, 5, 512, [383], 14), (1, 66, 512, [0], 14),
+                   (1, 130, 512, [0], 14), (3, 1, 768, [31, 256, 700], 14),
+                   (3, 5, 768, [32, 511, 600], 14), (4, 2, 512, [40, 129, 300, 509], 14),
+                   (1, 2, 512, [200], 16), (1, 2, 1024, [511], 14), (1, 1, 1024, [512], 14),
+                   (1, 5, 1024, [509], 14), (1, 2, 512, [510], 14), (3, 2, 512, [0, 300, 77], 14)]
+# tolerance relative to 1 + max |plain|, by dtype
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
 def check_decode_attention(da, flush):
-    """Phase 3. Returns the per-case records."""
+    """Phase 3: every case against the plain version, twice (the two calls
+    must be bit-equal), timed. Returns the per-case records."""
     import torch
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    # main-path shapes: Hq 14, Hkv 2, D 64; decode T in {1, 2, 5}, prefill
-    # blocks of ~130 and of the requests' prompt bucket; cache_len at and
-    # around the 32-key tiles and 128-key splits; B 1, 3 and 4 (flash batches)
-    cases = [(1, 1, 512, [0]), (1, 1, 512, [127]), (1, 2, 512, [128]), (1, 2, 512, [255]),
-             (1, 5, 512, [383]), (1, 66, 512, [0]), (1, 130, 512, [0]),
-             (3, 1, 768, [31, 256, 700]), (3, 5, 768, [32, 511, 600]),
-             (4, 2, 512, [40, 129, 300, 509])]
-    tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
     records = []
     for dtype in (torch.bfloat16, torch.float32):
-        for b, t, s_max, lens in cases:
-            q = torch.randn(b, t, 14, 64, generator=g, device="cuda").to(dtype)
+        for b, t, s_max, lens, hq in ATTENTION_CASES:
+            q = torch.randn(b, t, hq, 64, generator=g, device="cuda").to(dtype)
             k = torch.randn(b, s_max, 2, 64, generator=g, device="cuda").to(dtype)
             v = torch.randn(b, s_max, 2, 64, generator=g, device="cuda").to(dtype)
             cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -136,21 +150,26 @@ def check_decode_attention(da, flush):
             torch.cuda.synchronize()
             ref = da.decode_attention_ref(q, k, v, cl)
             err = (out.float() - ref.float()).abs().max().item()
-            lim = tol[dtype] * (1.0 + ref.float().abs().max().item())
+            lim = TOL[str(dtype).replace("torch.", "")] * (1.0 + ref.float().abs().max().item())
             if not err <= lim:
-                fail(f"decode_attention {dtype} B{b} T{t} S{s_max} {lens}: err {err} > {lim}")
+                fail(f"decode_attention {dtype} B{b} T{t} S{s_max} Hq{hq} {lens}: "
+                     f"err {err} > {lim}")
+            if not torch.equal(da.decode_attention_cuda(q, k, v, cl), out):
+                fail(f"decode_attention {dtype} B{b} T{t} S{s_max} Hq{hq} {lens}: "
+                     f"two calls differ")
             pos = torch.arange(s_max, device="cuda")[None, None, :]
             bias = torch.where(pos <= cl[:, None, None] + torch.arange(t, device="cuda")[None, :, None],
                                0.0, da.NEG_INF).to(dtype)[:, None]
             qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
             rec = dict(
-                dtype=str(dtype).replace("torch.", ""), B=b, T=t, S_max=s_max, cache_len=lens,
-                max_abs_err=err,
+                dtype=str(dtype).replace("torch.", ""), B=b, T=t, S_max=s_max, Hq=hq,
+                cache_len=lens, max_abs_err=err,
                 kernel_ms=time_ms(lambda: da.decode_attention_cuda(q, k, v, cl), flush),
                 ref_ms=time_ms(lambda: da.decode_attention_ref(q, k, v, cl), flush),
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=bias, enable_gqa=True), flush),
             )
+            rec["library_ratio"] = rec["kernel_ms"] / rec["library_ms"]
             rec["bound_ms"], rec["bound_by"] = attention_bound(q, k, cl)
             records.append(rec)
             print("decode_attention", json.dumps(rec), flush=True)
@@ -174,6 +193,11 @@ def mlp_bound(m: int, h: int, i: int, dtype) -> tuple:
 # 10 and 40 for B 2 and 8 at heads 5) and the MTP heads' at M = B
 MLP_CASES = [(m, 896, 4864) for m in (1, 2, 4, 5, 6, 8, 10, 40)] + \
             [(m, 896, 22016) for m in (1, 2, 3, 4, 8)]
+# the edges of the kernel's design, checked and timed beside them: one row
+# past a row group (9), two groups (16), more rows than one block holds
+# (65), a ragged I (4864 + 8, odd 4863)
+MLP_EDGE_CASES = [(9, 896, 4864), (16, 896, 4864), (65, 896, 4864), (2, 896, 4872),
+                  (3, 896, 4863)]
 
 
 def check_mlp_gemv(mg, flush):
@@ -182,10 +206,9 @@ def check_mlp_gemv(mg, flush):
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(2)
-    tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
     records = []
     for dtype in (torch.bfloat16, torch.float32):
-        for m, h, i in MLP_CASES:
+        for m, h, i in MLP_CASES + MLP_EDGE_CASES:
             x = torch.randn(m, h, generator=g, device="cuda").to(dtype)
             gate, up, down = (
                 (torch.randn(shape, generator=g, device="cuda") * 0.05).to(dtype)
@@ -194,17 +217,21 @@ def check_mlp_gemv(mg, flush):
             torch.cuda.synchronize()
             ref = mg.mlp_gemv_ref(x, gate, up, down).float()
             err = (out.float() - ref).abs().max().item()
-            lim = tol[dtype] * (1.0 + ref.abs().max().item())
+            lim = TOL[str(dtype).replace("torch.", "")] * (1.0 + ref.abs().max().item())
             if not err <= lim:
                 fail(f"mlp_gemv {dtype} M{m} H{h} I{i}: err {err} > {lim}")
+            if not torch.equal(mg.mlp_gemv_cuda(x, gate, up, down), out):
+                fail(f"mlp_gemv {dtype} M{m} H{h} I{i}: two calls differ")
             rec = dict(
-                dtype=str(dtype).replace("torch.", ""), M=m, H=h, I=i, max_abs_err=err,
+                dtype=str(dtype).replace("torch.", ""), M=m, H=h, I=i,
+                serving=(m, h, i) in MLP_CASES, max_abs_err=err,
                 kernel_ms=time_ms(lambda: mg.mlp_gemv_cuda(x, gate, up, down), flush),
                 ref_ms=time_ms(lambda: mg.mlp_gemv_ref(x, gate, up, down), flush),
                 # a yardstick, not one call: no single PyTorch call computes
                 # this function
                 library_ms=time_ms(lambda: (F.silu(x @ gate) * (x @ up)) @ down, flush),
             )
+            rec["library_ratio"] = rec["kernel_ms"] / rec["library_ms"]
             rec["bound_ms"], rec["bound_by"] = mlp_bound(m, h, i, dtype)
             records.append(rec)
             print("mlp_gemv", json.dumps(rec), flush=True)
@@ -461,6 +488,11 @@ def main():
         print(f"ptxas {op.KERNEL_SOURCE.name}:", " | ".join(regs), flush=True)
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")  # 256 MB > L2
+    # the least time of one launch through the same timing loop: a
+    # one-element zero_(), beside each kernel's bound
+    one = torch.empty(1, device="cuda")
+    launch_floor_ms = time_ms(lambda: one.zero_(), flush)
+    print(f"launch floor: one-element zero_() {launch_floor_ms:.6f} ms", flush=True)
     attention_cases = check_decode_attention(da, flush)
     mlp_cases = check_mlp_gemv(mg, flush)
 
@@ -495,6 +527,7 @@ def main():
         "plain_ms": att["ref_ms"],
         "bound_ms": att["bound_ms"],
         "bound_by": att["bound_by"],
+        "launch_floor_ms": launch_floor_ms,
         "library_ms": att["library_ms"],
     }, {
         "name": "mlp_gemv",
@@ -507,13 +540,15 @@ def main():
         "plain_ms": mlp["ref_ms"],
         "bound_ms": mlp["bound_ms"],
         "bound_by": mlp["bound_by"],
+        "launch_floor_ms": launch_floor_ms,
         "library_ms": mlp["library_ms"],  # the torch.matmul form, a yardstick
     }]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "attention_cases": attention_cases, "mlp_cases": mlp_cases,
-         "backbone_rel_err": backbone_rel, "requests": requests, **kernels}, indent=1))
+        {"card": card, "launch_floor_ms": launch_floor_ms, "attention_cases": attention_cases,
+         "mlp_cases": mlp_cases, "backbone_rel_err": backbone_rel, "requests": requests,
+         **kernels}, indent=1))
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

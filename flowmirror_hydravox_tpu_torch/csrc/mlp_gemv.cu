@@ -13,284 +13,530 @@
 // operations per bf16 byte, far below the H100's ~295 balance point. The
 // least time is the weights' 3*H*I elements over 3.35 TB/s: 7.8 us for one
 // backbone layer (896 x 4864, bf16) and 35.3 us for one MTP head
-// (896 x 22016).
+// (896 x 22016). Reaching it takes several MB of loads in flight across the
+// card and a read pattern that uses whole 128-byte lines.
 //
-// Design (a simple, right first version). The TPU kernel carried one f32
-// accumulator (M, H) across a sequential grid over I tiles; blocks on the
-// card run in parallel and carry nothing between them, so the work is cut
-// into passes:
-//   - pass 1 (`swiglu_kernel`): one block per TN columns of I. It walks H in
-//     chunks of KC: the chunk of x's rows and of gate's and up's columns goes
-//     to shared memory as f32, and each thread accumulates RPT (row, column)
-//     outputs of both products in registers. The epilogue applies silu, the
-//     product, and the rounding to T, into an (M, ldh) scratch the wrapper
-//     allocates.
-//   - pass 2 (`down_kernel`): one block per (TN columns of H, split of I),
-//     the same chunk loop over its share of I. It writes f32 partials
-//     (splits, M, H), or the output itself when there is one split.
-//   - pass 3 (`sum_splits_kernel`): sums the partials in split order and
-//     rounds to T. No float atomics anywhere: the same inputs give the same
-//     output on every run.
-//   - Rows: a block holds up to MR = 64 rows of x (or h) and loops over them,
-//     so each weight byte is read from memory once per call for M <= 64 (a
-//     coalesced decode step has at most B 8 x K 5 = 40 rows). Larger M takes
-//     further row blocks (gridDim.y of pass 1, gridDim.z of pass 2), and each
-//     of them reads the weights again.
-//   - Loads are 16 bytes wide with neighbouring threads on neighbouring
-//     columns; gate and up fall back to element loads when I is not a
-//     multiple of the vector width (I only has to be >= 1).
-//   - Enough blocks: pass 1 has I / TN = 152 blocks at I = 4864; the wrapper
-//     splits I in pass 2 until ~264 blocks are in flight.
-// Later work: tensor-core (mma / wgmma) tiles, TMA, and a pipelined weight
-// stream; here each chunk is loaded, then consumed, with no overlap.
+// Design. The weights are read as they are, in JAX's (in, out) layout:
+//   - Warp tile: 64 output columns x 16 rows of the reduction (a k-step).
+//     A lane reads 16 contiguous bytes of a weight row (bf16: 8 columns of
+//     4 rows per k-step; f32: 2 columns of 16 rows), so eight lanes cover a
+//     row's 128-byte segment. The loads go straight to registers, KU k-steps
+//     a round (2-4: what the accumulators leave), the first round requested
+//     before x is staged; with 8-16 warps a block, several MB are in flight
+//     across the card.
+//   - bf16 math on the tensor cores: mma.sync m16n8k16 with the weight
+//     tile as the 16-row operand and up to 8 rows of x as the 8-wide one.
+//     The 16 "rows" of one mma are the columns 8g + 2j and 8g + 2j + 1
+//     (g = lane / 4) of the warp tile, so the registers of a lane's four
+//     16-byte loads (rows 2t, 2t+1, 2t+8, 2t+9 of the k-step, t = lane % 4)
+//     become the four A fragments of mma j = 0..3 by two byte permutes
+//     each; the weights never pass through shared memory. x rows are
+//     zero-padded to 8, 16 or 40 (row groups MG = 1, 2, 5); at 40 the
+//     accumulators leave room for 8-byte loads only, so the warp tile is
+//     32 columns (two mma a k-step). f32 math on the CUDA cores (FMA, full
+//     f32), 8 or 16 rows.
+//   - x stays put: a block stages its rows of x (or of h) in shared memory
+//     once, by cp.async all in flight together, padded by 16 bytes a row so
+//     the mma's B fragments come from distinct banks.
+//   - Pass 1 (`swiglu_kernel`): one block per column tile of I, 16 warps
+//     (8 at 40 rows, so that two blocks fit an SM and the 152 blocks of
+//     I 4864 run in one wave); the first half of the warps reduce x @ gate
+//     and the second x @ up, each over its share of the k-steps of H. The
+//     block adds the shares in warp order, applies silu and the product,
+//     and rounds h to T into an (M, ldh) scratch (ldh = I rounded up to 8,
+//     the pad written as 0).
+//   - Pass 2 (`down_kernel`): one block per (column tile of H, split of I);
+//     its 8 warps share the split's k-steps. It is launched as pass 1's
+//     programmatic dependent: its blocks start once every pass-1 block
+//     runs, request their first round of `down`, and wait for pass 1 to
+//     complete (griddepcontrol.wait) only before they read h, so `down`
+//     streams while pass 1 finishes. With one split the block writes the
+//     output; otherwise it writes f32 partials, and the last block of its
+//     column tile, elected by an integer ticket, sums the partials in split
+//     order, rounds to T and resets the ticket. No float atomics: the same
+//     inputs give bit-equal outputs. Two launches a call.
+//   - Any M >= 1 (more than 40 rows in bf16, 16 in f32, take further row
+//     blocks, each reading the weights again), any I >= 1 (element loads
+//     for gate and up when I is not a multiple of 8), H a multiple of 8.
 //
 // Plain C interface (bound with ctypes): the wrapper allocates h, the
-// partials and the output, passes PyTorch's current stream, and raises on a
-// non-zero return (a refused launch).
+// partials, the output and the zeroed ticket buffer (reused across calls
+// on one stream), passes PyTorch's current stream, and raises on a non-zero
+// return (a refused launch).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int TN = 32;               // output columns per block: one warp wide
-constexpr int KC = 64;               // reduction depth of one shared-memory chunk
-constexpr int MR = 64;               // rows per block
-constexpr int WARPS = THREADS / TN;  // a warp owns rows r0, r0 + WARPS, ...
-constexpr int RPT = MR / WARPS;      // rows per thread
+using bf16 = __nv_bfloat16;
 
+constexpr int W2 = 8;   // warps of a pass-2 block
+constexpr int KS = 16;  // rows of the reduction per k-step
+// dynamic shared memory a block may use: the H100's 227 KB opt-in less 1 KB
+// for the static shared memory of the ticket
+constexpr int MAX_SMEM = 232448 - 1024;
+
+__host__ __device__ constexpr int round_up(int a, int b) { return (a + b - 1) / b * b; }
+
+// Row stride (elements) of the staged x or h rows: the k-steps' extent,
+// plus 16 bytes for bf16 so that the 8 rows of a B fragment hit 8
+// different bank quads.
 template <typename T>
-struct Vec;
+__host__ __device__ constexpr int staged_ld(int k) {
+  return round_up(k, KS) + (sizeof(T) == 2 ? 8 : 0);
+}
 
-template <>
-struct Vec<float> {
-  static constexpr int N = 4;  // 16 bytes
-  __device__ __forceinline__ static void load(const float* p, float* dst) {
-    float4 x = *reinterpret_cast<const float4*>(p);
-    dst[0] = x.x; dst[1] = x.y; dst[2] = x.z; dst[3] = x.w;
+template <typename T, int MG>
+struct WarpTile;
+
+// bf16: tensor cores. A lane loads CW columns of a weight row (16 bytes
+// at 1-2 row groups, 8 at 5, where the accumulators take the registers),
+// so the warp tile is TN = 8 CW columns and a k-step J = CW / 2 mma per row
+// group. acc[gr][j][c]: x row gr * 8 + 2 t + (c & 1), column
+// CW g + 2 j + (c >> 1) of the warp tile.
+template <int MG>
+struct WarpTile<bf16, MG> {
+  static constexpr int CW = MG <= 2 ? 8 : 4;
+  static constexpr int J = CW / 2;
+  static constexpr int TN = 8 * CW;
+  struct Frag {
+    uint32_t r[4][J];  // rows 2t, 2t+1, 2t+8, 2t+9 of the k-step; columns CW g ..
+  };
+  float acc[MG][J][4];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int gr = 0; gr < MG; ++gr)
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[gr][j][c] = 0.f;
   }
-};
 
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;  // 16 bytes
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* dst) {
-    uint4 x = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+  // Load this lane's part of one k-step: rows krow + 2t, +1, +8, +9,
+  // columns col0 + CW g .. + CW - 1, one load a row where the columns come
+  // in whole 16-byte vectors, else element by element (a ragged I). Rows
+  // and columns out of range read as 0.
+  __device__ __forceinline__ static void load(Frag& f, const bf16* __restrict__ w, int ldw,
+                                              int n_cols, int col0, int krow, int k_lim,
+                                              bool vec) {
+    const int lane = threadIdx.x % 32;
+    const int col = col0 + (lane / 4) * CW;
+    const int t = lane % 4;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      float2 f = __bfloat1622float2(h[i]);
-      dst[2 * i] = f.x;
-      dst[2 * i + 1] = f.y;
+      const int row = krow + 2 * t + (i & 1) + (i >> 1) * 8;
+      const bf16* p = w + (size_t)row * ldw + col;
+      const bool in = row < k_lim && col < n_cols;
+      if (vec && CW == 8) {
+        const uint4 u = in ? __ldg(reinterpret_cast<const uint4*>(p)) : make_uint4(0, 0, 0, 0);
+        f.r[i][0] = u.x;
+        f.r[i][1 % J] = u.y;
+        f.r[i][2 % J] = u.z;
+        f.r[i][3 % J] = u.w;
+      } else if (vec) {
+        const uint2 u = in ? __ldg(reinterpret_cast<const uint2*>(p)) : make_uint2(0, 0);
+        f.r[i][0] = u.x;
+        f.r[i][1 % J] = u.y;
+      } else {
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const uint32_t lo =
+              row < k_lim && col + 2 * j < n_cols ? __bfloat16_as_ushort(p[2 * j]) : 0;
+          const uint32_t hi =
+              row < k_lim && col + 2 * j + 1 < n_cols ? __bfloat16_as_ushort(p[2 * j + 1]) : 0;
+          f.r[i][j] = lo | hi << 16;
+        }
+      }
+    }
+  }
+
+  // xs: the block's staged rows (row stride ldx); xk: the k-step's first
+  // column in them
+  __device__ __forceinline__ void step(const Frag& f, const bf16* xs, int ldx, int xk) {
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    uint32_t b0[MG], b1[MG];
+#pragma unroll
+    for (int gr = 0; gr < MG; ++gr) {
+      const bf16* xp = xs + (gr * 8 + g) * ldx + xk + 2 * t;
+      b0[gr] = *reinterpret_cast<const uint32_t*>(xp);
+      b1[gr] = *reinterpret_cast<const uint32_t*>(xp + 8);
+    }
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      // A row g: column CW g + 2j at k 2t, 2t+1 (low halves of rows 2t,
+      // 2t+1); A row g + 8: column CW g + 2j + 1 (high halves); a2/a3 at k + 8
+      const uint32_t a0 = __byte_perm(f.r[0][j], f.r[1][j], 0x5410);
+      const uint32_t a1 = __byte_perm(f.r[0][j], f.r[1][j], 0x7632);
+      const uint32_t a2 = __byte_perm(f.r[2][j], f.r[3][j], 0x5410);
+      const uint32_t a3 = __byte_perm(f.r[2][j], f.r[3][j], 0x7632);
+#pragma unroll
+      for (int gr = 0; gr < MG; ++gr)
+        hv::mma_bf16_16816(acc[gr][j], a0, a1, a2, a3, b0[gr], b1[gr]);
+    }
+  }
+
+  // red: this warp's [8 MG][TN] f32 tile
+  __device__ __forceinline__ void store(float* red) const {
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+#pragma unroll
+    for (int gr = 0; gr < MG; ++gr)
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          red[(gr * 8 + 2 * t + (c & 1)) * TN + CW * g + 2 * j + (c >> 1)] = acc[gr][j][c];
+  }
+};
+
+// f32: CUDA cores. acc[m][c]: x row m, column 2 lane + c of the warp tile.
+template <int MG>
+struct WarpTile<float, MG> {
+  static constexpr int TN = 64;
+  struct Frag {
+    float2 w[KS];
+  };
+  float acc[MG * 8][2];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int m = 0; m < MG * 8; ++m) acc[m][0] = acc[m][1] = 0.f;
+  }
+
+  __device__ __forceinline__ static void load(Frag& f, const float* __restrict__ w, int ldw,
+                                              int n_cols, int col0, int krow, int k_lim,
+                                              bool vec) {
+    const int col = col0 + 2 * (threadIdx.x % 32);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const int row = krow + kk;
+      const float* p = w + (size_t)row * ldw + col;
+      if (vec) {
+        f.w[kk] = (row < k_lim && col < n_cols) ? __ldg(reinterpret_cast<const float2*>(p))
+                                                : make_float2(0.f, 0.f);
+      } else {
+        f.w[kk] = make_float2((row < k_lim && col < n_cols) ? p[0] : 0.f,
+                              (row < k_lim && col + 1 < n_cols) ? p[1] : 0.f);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void step(const Frag& f, const float* xs, int ldx, int xk) {
+#pragma unroll
+    for (int m = 0; m < MG * 8; ++m) {
+#pragma unroll
+      for (int kk = 0; kk < KS; kk += 4) {
+        const float4 xv = *reinterpret_cast<const float4*>(xs + m * ldx + xk + kk);
+        acc[m][0] = fmaf(xv.x, f.w[kk].x, acc[m][0]);
+        acc[m][1] = fmaf(xv.x, f.w[kk].y, acc[m][1]);
+        acc[m][0] = fmaf(xv.y, f.w[kk + 1].x, acc[m][0]);
+        acc[m][1] = fmaf(xv.y, f.w[kk + 1].y, acc[m][1]);
+        acc[m][0] = fmaf(xv.z, f.w[kk + 2].x, acc[m][0]);
+        acc[m][1] = fmaf(xv.z, f.w[kk + 2].y, acc[m][1]);
+        acc[m][0] = fmaf(xv.w, f.w[kk + 3].x, acc[m][0]);
+        acc[m][1] = fmaf(xv.w, f.w[kk + 3].y, acc[m][1]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(float* red) const {
+    const int c0 = 2 * (threadIdx.x % 32);
+#pragma unroll
+    for (int m = 0; m < MG * 8; ++m) {
+      red[m * TN + c0] = acc[m][0];
+      red[m * TN + c0 + 1] = acc[m][1];
     }
   }
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void from_float(float* p, float x) { *p = x; }
-__device__ __forceinline__ void from_float(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+// k-steps of loads in flight per warp, as registers allow next to the
+// accumulators: bf16 4 at 1 and 5 row groups (8-byte loads at 5), 2 at 2;
+// f32 2
+template <typename T, int MG>
+__host__ __device__ constexpr int k_unroll() {
+  return sizeof(T) == 2 && MG != 2 ? 4 : 2;
+}
 
-// acc[nb][j] += sum_{k0 <= k < k1} a[m, k] * b_nb[k, col0 + c] for this
-// thread's column c = tid % TN and rows m = tid / TN + j * WARPS < m_cnt.
-// `a` points at the block's first row (row stride lda, a multiple of the
-// vector width, readable up to the next multiple of it past k1); b_nb are
-// (K, n_cols) with row stride ldb. Out-of-range rows and columns read as 0.
-template <typename T, int NB>
-__device__ __forceinline__ void gemm_rows(const T* __restrict__ a, int lda, int m_cnt,
-                                          const T* __restrict__ b0, const T* __restrict__ b1,
-                                          int ldb, int n_cols, bool b_vec, int col0, int k0,
-                                          int k1, float (&a_s)[MR][KC],
-                                          float (&b_s)[NB][KC][TN], float (&acc)[NB][RPT]) {
-  constexpr int VN = Vec<T>::N;
-  const int tid = threadIdx.x;
-  const int c = tid % TN;
-  const int r0 = tid / TN;
-  for (int kc = k0; kc < k1; kc += KC) {
-    __syncthreads();  // the previous chunk is fully consumed
-    for (int e = tid; e < m_cnt * (KC / VN); e += THREADS) {
-      const int m = e / (KC / VN);
-      const int kk = (e % (KC / VN)) * VN;
-      float tmp[VN];
-      if (kc + kk < k1) {
-        Vec<T>::load(a + (size_t)m * lda + kc + kk, tmp);
+// warps of a pass-1 block: 16 (8 slices of H for each of gate and up); 8
+// at 5 row groups, so that two blocks fit an SM and the 152 blocks of
+// I 4864 run in one wave
+template <int MG>
+__host__ __device__ constexpr int w1() {
+  return MG <= 2 ? 16 : 8;
+}
+
+// Shared memory of a block: the staged rows (8 MG x ld elements), later
+// reused for the warps' [warps][8 MG][TN] f32 tiles.
+template <typename T, int MG>
+__host__ __device__ constexpr int smem_bytes(int ld, int warps) {
+  constexpr int TN = WarpTile<T, MG>::TN;
+  return MG * 8 * ld * (int)sizeof(T) > warps * MG * 8 * TN * 4 ? MG * 8 * ld * (int)sizeof(T)
+                                                                : warps * MG * 8 * TN * 4;
+}
+
+// One warp's share of a product: k-steps first, first + stride, ... (n of
+// them) of weight rows starting at krow0, against the staged rows xs whose
+// column 0 is weight row krow0. The loads go to registers, KU k-steps a
+// round; the first round is issued before `stage` (which stages xs and
+// syncs the block, and which every warp calls), so it is in flight while x
+// or h is staged, and each later round is issued as soon as the previous
+// one is used.
+template <typename T, int MG, typename Stage>
+__device__ __forceinline__ void warp_product(WarpTile<T, MG>& tile, const T* __restrict__ w,
+                                             int ldw, int n_cols, int col0, int krow0,
+                                             int k_lim, bool vec, int first, int stride, int n,
+                                             const T* xs, int ldx, Stage stage) {
+  constexpr int KU = k_unroll<T, MG>();
+  typename WarpTile<T, MG>::Frag f[KU];
+  auto load_round = [&](int i) {
 #pragma unroll
-        for (int i = 0; i < VN; ++i)
-          if (kc + kk + i >= k1) tmp[i] = 0.f;
-      } else {
+    for (int u = 0; u < KU; ++u)
+      if (i + u < n)
+        WarpTile<T, MG>::load(f[u], w, ldw, n_cols, col0, krow0 + (first + (i + u) * stride) * KS,
+                              k_lim, vec);
+  };
+  load_round(0);
+  stage();
+  tile.zero();
+  for (int i = 0; i < n; i += KU) {
 #pragma unroll
-        for (int i = 0; i < VN; ++i) tmp[i] = 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < VN; ++i) a_s[m][kk + i] = tmp[i];
-    }
-    for (int e = tid; e < KC * (TN / VN); e += THREADS) {
-      const int kk = e / (TN / VN);
-      const int cc = (e % (TN / VN)) * VN;
-      const int k = kc + kk;
-      const int col = col0 + cc;
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        const T* bp = nb == 0 ? b0 : b1;
-        float tmp[VN];
-        if (k < k1 && b_vec && col + VN <= n_cols) {
-          Vec<T>::load(bp + (size_t)k * ldb + col, tmp);
-        } else {
-#pragma unroll
-          for (int i = 0; i < VN; ++i)
-            tmp[i] = (k < k1 && col + i < n_cols) ? to_float(bp[(size_t)k * ldb + col + i]) : 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < VN; ++i) b_s[nb][kk][cc + i] = tmp[i];
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < KC; k += 4) {
-      float bv[NB][4];
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) bv[nb][q] = b_s[nb][k + q][c];
-#pragma unroll
-      for (int j = 0; j < RPT; ++j) {
-        const int m = r0 + j * WARPS;  // the same for the whole warp
-        if (m < m_cnt) {
-          const float4 av = *reinterpret_cast<const float4*>(&a_s[m][k]);
-#pragma unroll
-          for (int nb = 0; nb < NB; ++nb) {
-            float s = acc[nb][j];
-            s = fmaf(av.x, bv[nb][0], s);
-            s = fmaf(av.y, bv[nb][1], s);
-            s = fmaf(av.z, bv[nb][2], s);
-            s = fmaf(av.w, bv[nb][3], s);
-            acc[nb][j] = s;
-          }
-        }
-      }
-    }
+    for (int u = 0; u < KU; ++u)
+      if (i + u < n) tile.step(f[u], xs, ldx, (first + (i + u) * stride) * KS);
+    if (i + KU < n) load_round(i + KU);
   }
 }
 
-// Pass 1: h[m, i] = round_T(silu(x @ gate) * (x @ up)) for one tile of I.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+// Copy rows [m0, m0 + m_cnt) x columns [k0, k0 + k_cnt) of src (row stride
+// ld) into xs (8 MG rows, stride ldx), zero elsewhere up to the k-steps'
+// extent, and sync the block. k0 and ld are multiples of 8 elements, and
+// src is readable up to the next multiple of 8 past k0 + k_cnt. The copies
+// are cp.async, all in flight at once: one memory round trip.
+template <typename T, int MG>
+__device__ __forceinline__ void stage_rows(T* xs, int ldx, const T* __restrict__ src, int ld,
+                                           int m0, int m_cnt, int k0, int k_cnt) {
+  constexpr int VN = 16 / sizeof(T);
+  const int kpad = round_up(k_cnt, KS);
+  for (int e = threadIdx.x * VN; e < MG * 8 * kpad; e += blockDim.x * VN) {
+    const int m = e / kpad;
+    const int k = e % kpad;
+    const bool in = m < m_cnt && k < k_cnt;
+    hv::cp_async16(xs + m * ldx + k, in ? src + (size_t)(m0 + m) * ld + k0 + k : src, in);
+  }
+  hv::cp_async_commit();
+  hv::cp_async_wait<0>();
+  __syncthreads();
+}
+
+// Pass 1: h[m, i] = round_T(silu(x @ gate) * (x @ up)) for 64 columns of I.
+// Warps [0, W1/2) reduce x @ gate, the others x @ up, each over every
+// (W1/2)-th k-step of H.
+template <typename T, int MG>
+__global__ void __launch_bounds__(w1<MG>() * 32)
 swiglu_kernel(const T* __restrict__ x, const T* __restrict__ gate, const T* __restrict__ up,
-              T* __restrict__ h, int m_total, int hdim, int idim, int ldh, int b_vec) {
-  __shared__ __align__(16) float a_s[MR][KC];
-  __shared__ __align__(16) float b_s[2][KC][TN];
-  const int m0 = blockIdx.y * MR;
-  const int m_cnt = min(MR, m_total - m0);
+              T* __restrict__ h, int m_total, int hdim, int idim, int ldh, int vec) {
+  // pass 2 may launch now: it streams `down` while this pass runs, and
+  // waits for this grid to finish before it reads h
+  asm volatile("griddepcontrol.launch_dependents;\n" ::);
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* xs = reinterpret_cast<T*>(smem);           // [8 MG][ldx], then reused as
+  float* red = reinterpret_cast<float*>(smem);  // [W1][8 MG][TN]
+  constexpr int W1 = w1<MG>();
+  constexpr int TN = WarpTile<T, MG>::TN;
+  constexpr int Q = W1 / 2;
+  const int ldx = staged_ld<T>(hdim);
+  const int m0 = blockIdx.y * MG * 8;
+  const int m_cnt = min(MG * 8, m_total - m0);
   const int col0 = blockIdx.x * TN;
-  float acc[2][RPT];
+  const int warp = threadIdx.x / 32;
+  const int slice = warp % Q;
+  const int n_steps = (hdim + KS - 1) / KS;
+  const int n = slice < n_steps ? (n_steps - slice + Q - 1) / Q : 0;
+
+  WarpTile<T, MG> tile;
+  warp_product(tile, warp < Q ? gate : up, idim, idim, col0, 0, hdim, vec != 0, slice, Q, n,
+               xs, ldx, [&] { stage_rows<T, MG>(xs, ldx, x, hdim, m0, m_cnt, 0, hdim); });
+  __syncthreads();  // xs is consumed; its space becomes red
+  tile.store(red + warp * MG * 8 * TN);
+  __syncthreads();
+
+  for (int e = threadIdx.x; e < m_cnt * TN; e += W1 * 32) {
+    const int m = e / TN;
+    const int c = e % TN;
+    const int col = col0 + c;
+    if (col >= ldh) continue;
+    float val = 0.f;  // the pad columns [I, ldh) of h are written as 0
+    if (col < idim) {
+      float g = 0.f, u = 0.f;
 #pragma unroll
-  for (int j = 0; j < RPT; ++j) acc[0][j] = acc[1][j] = 0.f;
-  gemm_rows<T, 2>(x + (size_t)m0 * hdim, hdim, m_cnt, gate, up, idim, idim, b_vec != 0, col0,
-                  0, hdim, a_s, b_s, acc);
-  const int col = col0 + threadIdx.x % TN;
-  if (col >= idim) return;
-#pragma unroll
-  for (int j = 0; j < RPT; ++j) {
-    const int m = threadIdx.x / TN + j * WARPS;
-    if (m < m_cnt) {
-      const float g = acc[0][j];
-      from_float(h + (size_t)(m0 + m) * ldh + col, g / (1.f + expf(-g)) * acc[1][j]);
+      for (int w = 0; w < Q; ++w) {
+        g += red[(w * MG * 8 + m) * TN + c];
+        u += red[((w + Q) * MG * 8 + m) * TN + c];
+      }
+      val = g / (1.f + expf(-g)) * u;
     }
+    hv::from_float(h + (size_t)(m0 + m) * ldh + col, val);
   }
 }
 
-// Pass 2: h @ down over one split [k0, k1) of I, for one tile of H.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+// Pass 2: out = round_T(h @ down), I cut into splits of `chunk` rows;
+// partials summed in split order by the last block of each column tile.
+template <typename T, int MG>
+__global__ void __launch_bounds__(W2 * 32)
 down_kernel(const T* __restrict__ h, const T* __restrict__ down, T* __restrict__ out,
-            float* __restrict__ part, int m_total, int hdim, int idim, int ldh, int chunk) {
-  __shared__ __align__(16) float a_s[MR][KC];
-  __shared__ __align__(16) float b_s[1][KC][TN];
+            float* __restrict__ part, int* __restrict__ tickets, int m_total, int hdim, int idim,
+            int ldh, int chunk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* xs = reinterpret_cast<T*>(smem);
+  float* red = reinterpret_cast<float*>(smem);
+  constexpr int TN = WarpTile<T, MG>::TN;
   const int col0 = blockIdx.x * TN;
   const int split = blockIdx.y;
-  const int m0 = blockIdx.z * MR;
-  const int m_cnt = min(MR, m_total - m0);
+  const int splits = gridDim.y;
+  const int m0 = blockIdx.z * MG * 8;
+  const int m_cnt = min(MG * 8, m_total - m0);
   const int k0 = split * chunk;
   const int k1 = min(k0 + chunk, idim);
-  float acc[1][RPT];
+  const int ldx = staged_ld<T>(chunk);
+  const int warp = threadIdx.x / 32;
+  const int n_steps = (k1 - k0 + KS - 1) / KS;
+  const int n = warp < n_steps ? (n_steps - warp + W2 - 1) / W2 : 0;
+
+  WarpTile<T, MG> tile;
+  warp_product(tile, down, hdim, hdim, col0, k0, k1, true, warp, W2, n, xs, ldx, [&] {
+    // h is pass 1's output: wait for that grid (launched as its programmatic
+    // dependent, this block may have started while it ran)
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+    stage_rows<T, MG>(xs, ldx, h, ldh, m0, m_cnt, k0, k1 - k0);
+  });
+  __syncthreads();
+  tile.store(red + warp * MG * 8 * TN);
+  __syncthreads();
+
+  for (int e = threadIdx.x; e < m_cnt * TN; e += W2 * 32) {
+    const int m = e / TN;
+    const int col = col0 + e % TN;
+    if (col >= hdim) continue;
+    float s = 0.f;
 #pragma unroll
-  for (int j = 0; j < RPT; ++j) acc[0][j] = 0.f;
-  gemm_rows<T, 1>(h + (size_t)m0 * ldh, ldh, m_cnt, down, nullptr, hdim, hdim, true, col0, k0,
-                  k1, a_s, b_s, acc);
-  const int col = col0 + threadIdx.x % TN;
-  if (col >= hdim) return;
-#pragma unroll
-  for (int j = 0; j < RPT; ++j) {
-    const int m = threadIdx.x / TN + j * WARPS;
-    if (m < m_cnt) {
-      const size_t row = (size_t)(m0 + m);
-      if (part != nullptr) {
-        part[((size_t)split * m_total + row) * hdim + col] = acc[0][j];
-      } else {
-        from_float(out + row * hdim + col, acc[0][j]);
-      }
+    for (int w = 0; w < W2; ++w) s += red[(w * MG * 8 + m) * TN + e % TN];
+    const size_t row = (size_t)(m0 + m);
+    if (splits == 1) {
+      hv::from_float(out + row * hdim + col, s);
+    } else {
+      part[((size_t)split * m_total + row) * hdim + col] = s;
     }
   }
-}
+  if (splits == 1) return;
 
-// Pass 3: out = round_T(sum over splits, in split order).
-template <typename T>
-__global__ void sum_splits_kernel(const float* __restrict__ part, T* __restrict__ out, int n,
-                                  int splits) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  float s = 0.f;
-  for (int sp = 0; sp < splits; ++sp) s += part[(size_t)sp * n + idx];
-  from_float(out + idx, s);
-}
-
-template <typename T>
-void launch(const void* x, const void* gate, const void* up, const void* down, void* h,
-            float* part, void* out, int m, int hdim, int idim, int ldh, int splits, int chunk,
-            cudaStream_t stream) {
-  const int row_blocks = (m + MR - 1) / MR;
-  dim3 grid1((idim + TN - 1) / TN, row_blocks);
-  swiglu_kernel<T><<<grid1, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(gate), static_cast<const T*>(up),
-      static_cast<T*>(h), m, hdim, idim, ldh, idim % Vec<T>::N == 0);
-  dim3 grid2((hdim + TN - 1) / TN, splits, row_blocks);
-  down_kernel<T><<<grid2, THREADS, 0, stream>>>(
-      static_cast<const T*>(h), static_cast<const T*>(down), static_cast<T*>(out),
-      splits > 1 ? part : nullptr, m, hdim, idim, ldh, chunk);
-  if (splits > 1) {
-    const int n = m * hdim;
-    sum_splits_kernel<T><<<(n + 255) / 256, 256, 0, stream>>>(part, static_cast<T*>(out), n,
-                                                              splits);
+  int* ticket = tickets + blockIdx.z * gridDim.x + blockIdx.x;
+  if (!hv::last_of_group(ticket, splits)) return;
+  constexpr int U = 8;  // partials loaded together, so their latencies overlap
+  for (int e = threadIdx.x; e < m_cnt * TN; e += W2 * 32) {
+    const int col = col0 + e % TN;
+    if (col >= hdim) continue;
+    const size_t row = (size_t)(m0 + e / TN);
+    float s = 0.f;
+    for (int s0 = 0; s0 < splits; s0 += U) {
+      float pv[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        pv[u] = s0 + u < splits ? __ldcg(part + ((size_t)(s0 + u) * m_total + row) * hdim + col)
+                                : 0.f;
+#pragma unroll
+      for (int u = 0; u < U; ++u) s += pv[u];
+    }
+    hv::from_float(out + row * hdim + col, s);
   }
+  hv::release_ticket(ticket);
+}
+
+template <typename T, int MG>
+int launch(const void* x, const void* gate, const void* up, const void* down, void* h,
+           float* part, int* tickets, void* out, int m, int hdim, int idim, int ldh, int splits,
+           int chunk, cudaStream_t stream) {
+  static bool configured = false;  // the attributes are set once per instantiation
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(swiglu_kernel<T, MG>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(down_kernel<T, MG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 MAX_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  constexpr int W1 = w1<MG>();
+  constexpr int TN = WarpTile<T, MG>::TN;
+  const int rows = MG * 8;
+  const int row_blocks = (m + rows - 1) / rows;
+  const int smem1 = smem_bytes<T, MG>(staged_ld<T>(hdim), W1);
+  const int smem2 = smem_bytes<T, MG>(staged_ld<T>(chunk), W2);
+  if (smem1 > MAX_SMEM || smem2 > MAX_SMEM) return -2;
+  dim3 grid1((idim + TN - 1) / TN, row_blocks);
+  swiglu_kernel<T, MG><<<grid1, W1 * 32, smem1, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(gate), static_cast<const T*>(up),
+      static_cast<T*>(h), m, hdim, idim, ldh, idim % 8 == 0);
+  // pass 2 is pass 1's programmatic dependent: its blocks may start (and
+  // stream `down`) once every pass-1 block runs; griddepcontrol.wait in it
+  // holds the reads of h until pass 1 is complete
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((hdim + TN - 1) / TN, splits, row_blocks);
+  cfg.blockDim = dim3(W2 * 32);
+  cfg.dynamicSmemBytes = smem2;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, down_kernel<T, MG>, static_cast<const T*>(h),
+                                 static_cast<const T*>(down), static_cast<T*>(out), part,
+                                 tickets, m, hdim, idim, ldh, chunk);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Tile sizes, read by the wrapper to plan the split of I and the scratch.
-int hv_mlp_gemv_cols_per_block() { return TN; }
-int hv_mlp_gemv_chunk() { return KC; }
-int hv_mlp_gemv_rows_per_block() { return MR; }
+// Tile sizes, read once by the wrapper to plan row blocks, the split of I
+// and the scratch.
+int hv_mlp_gemv_cols_per_block(int dtype, int row_groups) {
+  if (dtype == 1) return row_groups <= 2 ? WarpTile<bf16, 1>::TN : WarpTile<bf16, 5>::TN;
+  return WarpTile<float, 1>::TN;
+}
+int hv_mlp_gemv_k_step() { return KS; }
 
-// dtype: 0 = float32, 1 = bfloat16. h is (m, ldh) of the dtype, ldh a
-// multiple of 8 and >= idim; part is (splits, m, hdim) f32 when splits > 1.
-// Returns 0, -1 for an unsupported dtype, or the cudaError_t of the launches.
+// dtype: 0 = float32 (row_groups 1 or 2), 1 = bfloat16 (row_groups 1, 2
+// or 5): a block holds 8 * row_groups rows of x. h is (m, ldh) of the
+// dtype, ldh = I rounded up to 8; part is (splits, m, hdim) f32 when
+// splits > 1; tickets (row blocks * H / 64,) int32 are zero and left zero.
+// Returns 0, -1 for an unsupported dtype or row_groups, -2 when the staged
+// rows do not fit in shared memory, or the cudaError_t of the launches.
 int hv_mlp_gemv(int dtype, const void* x, const void* gate, const void* up, const void* down,
-                void* h, float* part, void* out, int m, int hdim, int idim, int ldh, int splits,
-                int chunk, void* stream) {
+                void* h, float* part, int* tickets, void* out, int m, int hdim, int idim,
+                int ldh, int row_groups, int splits, int chunk, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    launch<float>(x, gate, up, down, h, part, out, m, hdim, idim, ldh, splits, chunk, st);
-  } else if (dtype == 1) {
-    launch<__nv_bfloat16>(x, gate, up, down, h, part, out, m, hdim, idim, ldh, splits, chunk,
-                          st);
-  } else {
-    return -1;
+  int rc = -1;
+  if (dtype == 0 && row_groups == 1) {
+    rc = launch<float, 1>(x, gate, up, down, h, part, tickets, out, m, hdim, idim, ldh, splits,
+                          chunk, st);
+  } else if (dtype == 0 && row_groups == 2) {
+    rc = launch<float, 2>(x, gate, up, down, h, part, tickets, out, m, hdim, idim, ldh, splits,
+                          chunk, st);
+  } else if (dtype == 1 && row_groups == 1) {
+    rc = launch<bf16, 1>(x, gate, up, down, h, part, tickets, out, m, hdim, idim, ldh, splits,
+                         chunk, st);
+  } else if (dtype == 1 && row_groups == 2) {
+    rc = launch<bf16, 2>(x, gate, up, down, h, part, tickets, out, m, hdim, idim, ldh, splits,
+                         chunk, st);
+  } else if (dtype == 1 && row_groups == 5) {
+    rc = launch<bf16, 5>(x, gate, up, down, h, part, tickets, out, m, hdim, idim, ldh, splits,
+                         chunk, st);
   }
+  if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }
 

@@ -7,8 +7,12 @@ replacement for the TPU kernel
 It takes `decode_attention`'s batched contract
 (`flowmirror_hydravox_tpu/ops/attention.py:103-124`): q (B, T, Hq, D), k/v
 (B, S_max, Hkv, D), per-row `cache_len` (B,). Query t of row b attends to key
-positions <= cache_len[b] + t. It is bound by bytes on the card (q, the valid
-K/V rows and the output over 3.35 TB/s); see the note in the source.
+positions <= cache_len[b] + t. Its byte bound (q, the valid K/V rows and the
+output over 3.35 TB/s) is far below one launch, so on the card it is bound
+by latency; see the note in the source. One launch per call: the splits of S
+are merged by the last block of each group, elected by an integer ticket in
+a per-device buffer that the kernel leaves zeroed, so calls on one device
+must share one stream (the port's do).
 
 The kernel is built with `nvcc -gencode arch=compute_90a,code=sm_90a` into a
 shared library with a plain C interface at first use, under `build/` in this
@@ -20,6 +24,7 @@ path and the on-card check use it.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 
@@ -33,14 +38,14 @@ KERNEL_SOURCE = nvcc_build.CSRC_DIR / "decode_attention.cu"
 LIBRARY = nvcc_build.BUILD_DIR / "libhv_decode_attention.so"
 SUPPORTED_HEAD_DIMS = (16, 64)  # tiny_config(), HydraVoxConfig()
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# Enough blocks to fill the H100's 132 SMs twice; decode steps with few row
-# tiles split S to get there.
-_TARGET_BLOCKS = 264
-_MIN_SPLIT_KEYS = 128
+# Decode steps split S until B * Hkv * row tiles * splits fills the H100's
+# 132 SMs once.
+_TARGET_BLOCKS = 132
 
 launch_count = 0  # kernel launches through decode_attention_cuda
 _lib = None
 _lib_lock = threading.Lock()
+_SCALE_LOG2 = {d: float(d ** -0.5 * math.log2(math.e)) for d in SUPPORTED_HEAD_DIMS}
 
 
 def masked_gqa(q, k, v, bias, scale=None):
@@ -79,33 +84,37 @@ def build_library(force: bool = False):
 
 
 def _library():
+    """The loaded library and its tile sizes (rows per tile, keys per tile),
+    read once."""
     global _lib
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build_library()))
             lib.hv_decode_attention.restype = ctypes.c_int
             lib.hv_decode_attention.argtypes = (
-                [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                 + [ctypes.c_float, ctypes.c_void_p]
             )
-            lib.hv_decode_attention_rows_per_block.restype = ctypes.c_int
-            lib.hv_decode_attention_keys_per_tile.restype = ctypes.c_int
-            _lib = lib
+            tiles = []
+            for name in ("hv_decode_attention_rows_per_tile", "hv_decode_attention_keys_per_round"):
+                getattr(lib, name).restype = ctypes.c_int
+                tiles.append(getattr(lib, name)())
+            _lib = lib, tuple(tiles)
         return _lib
 
 
+@functools.lru_cache(maxsize=256)
 def plan_splits(batch: int, n_tok: int, hq: int, hkv: int, s_max: int,
-                rows_per_block: int, keys_per_tile: int):
-    """(splits, chunk): S is cut into `splits` chunks of `chunk` keys (a
-    multiple of the key tile) when the row tiles alone leave SMs idle."""
-    row_tiles = -(-(hq // hkv) * n_tok // rows_per_block)
-    base = batch * hkv * row_tiles
-    splits = 1
-    if base < _TARGET_BLOCKS:
-        splits = min(-(-_TARGET_BLOCKS // base), max(1, s_max // _MIN_SPLIT_KEYS))
-    chunk = -(-s_max // splits)
-    chunk = -(-chunk // keys_per_tile) * keys_per_tile
-    return -(-s_max // chunk), chunk
+                rows_per_tile: int, keys_per_round: int):
+    """(row_tiles, splits, chunk): the G * T rows of a KV head go in tiles of
+    `rows_per_tile`, and S_max is cut into `splits` chunks of `chunk` keys
+    (whole rounds of a block) so that B * Hkv * row_tiles * splits
+    approaches one wave of SMs where S_max allows."""
+    row_tiles = -(-(hq // hkv) * n_tok // rows_per_tile)
+    want = -(-_TARGET_BLOCKS // (batch * hkv * row_tiles))
+    chunk = -(-s_max // want)
+    chunk = -(-chunk // keys_per_round) * keys_per_round
+    return row_tiles, -(-s_max // chunk), chunk
 
 
 def decode_attention_cuda(q, k_cache, v_cache, cache_len):
@@ -140,23 +149,23 @@ def decode_attention_cuda(q, k_cache, v_cache, cache_len):
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
 
-    lib = _library()
-    splits, chunk = plan_splits(b, t, hq, hkv, s_max,
-                                lib.hv_decode_attention_rows_per_block(),
-                                lib.hv_decode_attention_keys_per_tile())
+    lib, tiles = _library()
+    row_tiles, splits, chunk = plan_splits(b, t, hq, hkv, s_max, *tiles)
+    groups = b * hkv * row_tiles
     out = torch.empty_like(q)
     part_acc = part_ml = None
     if splits > 1:
-        part_acc = torch.empty((splits, b, t, hq, d), dtype=torch.float32, device=dev)
-        part_ml = torch.empty((splits, b, t, hq, 2), dtype=torch.float32, device=dev)
+        part_acc = torch.empty((groups, splits, tiles[0], d), dtype=torch.float32, device=dev)
+        part_ml = torch.empty((groups, splits, tiles[0], 2), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.hv_decode_attention(
         _DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         cache_len.data_ptr(), out.data_ptr(),
         part_acc.data_ptr() if part_acc is not None else None,
         part_ml.data_ptr() if part_ml is not None else None,
+        nvcc_build.ticket_buffer(dev, groups).data_ptr(),
         b, t, hq, hkv, d, s_max, splits, chunk,
-        float(d ** -0.5 * math.log2(math.e)), stream,
+        _SCALE_LOG2[d], stream,
     )
     if rc != 0:
         raise RuntimeError(f"decode-attention kernel launch failed (code {rc})")

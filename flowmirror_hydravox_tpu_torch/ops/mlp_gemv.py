@@ -12,7 +12,10 @@ one dtype (float32 or bfloat16) for all four. Both products of x are
 accumulated in f32, `h` is rounded to x's dtype before the down product,
 which is accumulated in f32, and the output is cast to x's dtype. It is
 bound by bytes on the card (the weights over 3.35 TB/s); see the note in the
-source.
+source. Two launches per call; the splits of I are summed by the last block
+of each column tile, elected by an integer ticket in a per-device buffer that
+the kernel leaves zeroed, so calls on one device must share one stream (the
+port's do).
 
 `mlp_gemv` is the decode MLP of the port (every decode-step backbone block and
 every MTP head): the kernel for a CUDA tensor, the plain version for a CPU
@@ -23,6 +26,7 @@ The kernel is built at first use (ops/nvcc_build.py) and loaded with ctypes.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import torch
@@ -33,8 +37,15 @@ from . import nvcc_build
 KERNEL_SOURCE = nvcc_build.CSRC_DIR / "mlp_gemv.cu"
 LIBRARY = nvcc_build.BUILD_DIR / "libhv_mlp_gemv.so"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# Enough blocks to fill the H100's 132 SMs twice; pass 2 splits I to get there.
-_TARGET_BLOCKS = 264
+# rows of x a block holds, in groups of 8 (the kernel's instantiations):
+# bf16 up to 40 rows (B 8 x K 5), f32 up to 16; more take further row blocks
+_ROW_GROUPS = {torch.float32: (1, 2), torch.bfloat16: (1, 2, 5)}
+# pass 2 splits I until its blocks fill the H100's 132 SMs about once (at
+# 5 row groups, whose blocks take 32 columns, about 1.5 times: 7 splits of
+# I 4864 rather than 5 ran faster at M 24-40 on the H100), and into pieces
+# of at most _MAX_CHUNK rows (the staged h rows)
+_TARGET_BLOCKS = {1: 132, 2: 132, 5: 196}
+_MAX_CHUNK = 1024
 
 launch_count = 0  # kernel launches through mlp_gemv_cuda
 _lib = None
@@ -55,33 +66,43 @@ def build_library(force: bool = False):
 
 
 def _library():
+    """The loaded library and its tile sizes, read once: per dtype, the
+    columns a block takes at each of its row-group counts; the rows of a
+    k-step."""
     global _lib
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build_library()))
             lib.hv_mlp_gemv.restype = ctypes.c_int
             lib.hv_mlp_gemv.argtypes = (
-                [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+                [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
             )
-            for name in ("hv_mlp_gemv_cols_per_block", "hv_mlp_gemv_chunk",
-                         "hv_mlp_gemv_rows_per_block"):
-                getattr(lib, name).restype = ctypes.c_int
-            _lib = lib
+            lib.hv_mlp_gemv_cols_per_block.restype = ctypes.c_int
+            lib.hv_mlp_gemv_cols_per_block.argtypes = [ctypes.c_int, ctypes.c_int]
+            lib.hv_mlp_gemv_k_step.restype = ctypes.c_int
+            cols = {dt: tuple(lib.hv_mlp_gemv_cols_per_block(code, g) for g in _ROW_GROUPS[dt])
+                    for dt, code in _DTYPES.items()}
+            _lib = lib, cols, lib.hv_mlp_gemv_k_step()
         return _lib
 
 
-def plan_splits(m: int, hdim: int, idim: int, cols_per_block: int, chunk_rows: int,
-                rows_per_block: int):
-    """(splits, chunk): pass 2 cuts I into `splits` pieces of `chunk` rows of
-    `down` (a multiple of the kernel's chunk depth) when the column tiles
-    alone leave SMs idle."""
-    base = -(-hdim // cols_per_block) * -(-m // rows_per_block)
-    splits = 1
-    if base < _TARGET_BLOCKS:
-        splits = min(-(-_TARGET_BLOCKS // base), max(1, idim // chunk_rows))
-    chunk = -(-idim // splits)
-    chunk = -(-chunk // chunk_rows) * chunk_rows
-    return -(-idim // chunk), chunk
+@functools.lru_cache(maxsize=256)
+def plan_splits(m: int, hdim: int, idim: int, row_groups: tuple, cols_per_block: tuple,
+                k_step: int):
+    """(row_groups, row_blocks, splits, chunk): a block holds 8 * g rows of
+    x, g the fewest of `row_groups` that hold min(M, the most), and the
+    matching entry of `cols_per_block` columns; pass 2 cuts I into `splits`
+    pieces of `chunk` rows of `down` (a multiple of the k-step, at most
+    _MAX_CHUNK) until its column tiles times splits reach the target number
+    of blocks."""
+    rows = min(m, 8 * row_groups[-1])
+    k = next(k for k, g in enumerate(row_groups) if 8 * g >= rows)
+    row_blocks = -(-m // (8 * row_groups[k]))
+    base = -(-hdim // cols_per_block[k]) * row_blocks
+    splits = max(-(-_TARGET_BLOCKS[row_groups[k]] // base), -(-idim // _MAX_CHUNK))
+    chunk = -(-idim // min(splits, -(-idim // k_step)))
+    chunk = -(-chunk // k_step) * k_step
+    return row_groups[k], row_blocks, -(-idim // chunk), chunk
 
 
 def mlp_gemv_cuda(x, gate, up, down):
@@ -114,9 +135,10 @@ def mlp_gemv_cuda(x, gate, up, down):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
 
-    lib = _library()
-    splits, chunk = plan_splits(m, hdim, idim, lib.hv_mlp_gemv_cols_per_block(),
-                                lib.hv_mlp_gemv_chunk(), lib.hv_mlp_gemv_rows_per_block())
+    lib, cols, k_step = _library()
+    groups, cols = _ROW_GROUPS[x.dtype], cols[x.dtype]
+    mg, row_blocks, splits, chunk = plan_splits(m, hdim, idim, groups, cols, k_step)
+    tiles = -(-hdim // cols[groups.index(mg)])  # pass 2's column tiles, one ticket each
     ldh = -(-idim // 8) * 8
     h = torch.empty((m, ldh), dtype=x.dtype, device=x.device)
     part = (torch.empty((splits, m, hdim), dtype=torch.float32, device=x.device)
@@ -125,8 +147,9 @@ def mlp_gemv_cuda(x, gate, up, down):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.hv_mlp_gemv(
         _DTYPES[x.dtype], x.data_ptr(), gate.data_ptr(), up.data_ptr(), down.data_ptr(),
-        h.data_ptr(), part.data_ptr() if part is not None else None, out.data_ptr(),
-        m, hdim, idim, ldh, splits, chunk, stream,
+        h.data_ptr(), part.data_ptr() if part is not None else None,
+        nvcc_build.ticket_buffer(x.device, row_blocks * tiles).data_ptr(), out.data_ptr(),
+        m, hdim, idim, ldh, mg, splits, chunk, stream,
     )
     if rc != 0:
         raise RuntimeError(f"mlp-gemv kernel launch failed (code {rc})")

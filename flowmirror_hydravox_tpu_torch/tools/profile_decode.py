@@ -34,8 +34,8 @@ from ..runtime.engine import SynthesisResult
 
 TEXT = "The quick brown fox jumps over the lazy dog and then keeps on running."
 OUT = os.path.join("chiprun_out", "profile_decode.json")
-KERNELS = {"decode_attention": ("decode_attn_kernel", "merge_splits_kernel"),
-           "mlp_gemv": ("swiglu_kernel", "down_kernel", "sum_splits_kernel")}
+KERNELS = {"decode_attention": ("decode_attn_kernel",),
+           "mlp_gemv": ("swiglu_kernel", "down_kernel")}
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx")
 STAGES = ("engine.llm", "engine.synth")
 

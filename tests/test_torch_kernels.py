@@ -7,6 +7,9 @@ tests' conftest imports JAX). Card tolerance: f32 1e-5, bf16 2e-2, absolute
 and relative (for the MLP: relative to 1 + max |plain|, as chip_smoke holds
 it); TF32 is off so f32 is full f32."""
 
+import os
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -14,11 +17,22 @@ import torch
 from flowmirror_hydravox_tpu_torch.ops import attention as tattn
 from flowmirror_hydravox_tpu_torch.ops import decode_attention as tkern
 from flowmirror_hydravox_tpu_torch.ops import mlp_gemv as tmlp
+from flowmirror_hydravox_tpu_torch.ops import nvcc_build
 
 # main-path head layout (Hq 14, Hkv 2, D 64); cache_len at and around the
 # 32-key tiles and 128-key splits; a prefill block; B 3 with per-row lengths
 CARD_CASES = [(1, 1, 256, [63]), (1, 2, 512, [255]), (1, 5, 512, [300]), (1, 130, 256, [0]),
               (3, 2, 768, [5, 256, 700])]
+# (B, T, S_max, cache_len, Hq) at the edges of the key-parallel design: G * T
+# of 7, 14, 16 (Hq 16), 35 (4-row tiles, the last one partial) and a
+# prefill of 130; the last key at the end of a 128-key split (a block's
+# round) and one past it; rows with no key in the next split (T 5 at
+# cache_len 509); the last key at S_max - T; a row with cache_len 0 in a
+# batch of 3
+EDGE_CASES = [(1, 1, 512, [200], 14), (1, 2, 1024, [511], 14), (1, 2, 512, [200], 16),
+              (1, 5, 1024, [509], 14), (1, 130, 512, [0], 14), (1, 1, 512, [127], 14),
+              (1, 1, 512, [128], 14), (1, 1, 1024, [512], 14), (1, 2, 512, [510], 14),
+              (3, 2, 512, [0, 300, 77], 14)]
 
 
 def _case(b, kblk, s_max, lens, dtype=torch.float32, device="cpu", seed=0, hq=14, d=64):
@@ -57,13 +71,21 @@ def test_plain_version_masks_past_each_query():
 
 
 @pytest.mark.parametrize("b,t_blk,hq,hkv,s_max", [
-    (1, 1, 14, 2, 512), (1, 5, 14, 2, 768), (1, 2050, 14, 2, 2304), (3, 2, 14, 2, 256)])
+    (1, 1, 14, 2, 512), (1, 5, 14, 2, 768), (1, 2050, 14, 2, 2304), (3, 2, 14, 2, 256),
+    (1, 2, 14, 2, 512), (1, 130, 14, 2, 512), (8, 5, 14, 2, 512), (1, 1, 4, 2, 100),
+    (1, 2, 14, 2, 2304), (1, 1, 14, 2, 4096)])
 def test_split_plan_covers_the_cache(b, t_blk, hq, hkv, s_max):
-    splits, chunk = tkern.plan_splits(b, t_blk, hq, hkv, s_max, 64, 32)
-    assert chunk % 32 == 0 and splits * chunk >= s_max > (splits - 1) * chunk
-    rows = -(-(hq // hkv) * t_blk // 64)
-    if b * hkv * rows >= 264:
+    row_tiles, splits, chunk = tkern.plan_splits(b, t_blk, hq, hkv, s_max, 4, 128)
+    assert row_tiles * 4 >= (hq // hkv) * t_blk > (row_tiles - 1) * 4
+    assert chunk % 128 == 0 and splits * chunk >= s_max > (splits - 1) * chunk
+    blocks = b * hkv * row_tiles
+    want = -(-132 // blocks)  # splits that would fill the SMs once
+    if blocks >= 132:
         assert splits == 1
+    else:  # the shortest chunk of whole rounds that gives at most `want` splits
+        assert chunk == 128 or (chunk - 128) * want < s_max
+    if (b, t_blk, s_max) == (1, 2, 512):  # the serving shape: 4 splits of 128
+        assert (row_tiles, splits, chunk) == (4, 4, 128)
 
 
 @pytest.mark.cuda
@@ -99,6 +121,57 @@ def test_kernel_matches_plain_version_at_tiny_head_dim_on_card(dtype):
         torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+def test_build_is_stale_when_a_header_changes(tmp_path):
+    """A library is rebuilt when its source or a header beside it is newer."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(nvcc_build.CSRC_DIR, csrc)
+    source, header = csrc / "decode_attention.cu", csrc / "common.cuh"
+    library = tmp_path / "lib.so"
+    assert nvcc_build.is_stale(source, library)  # no library yet
+    library.write_bytes(b"")
+    now = max(source.stat().st_mtime, header.stat().st_mtime)
+    os.utime(library, (now + 10, now + 10))
+    assert not nvcc_build.is_stale(source, library)
+    os.utime(header, (now + 20, now + 20))
+    assert nvcc_build.is_stale(source, library)
+    os.utime(library, (now + 30, now + 30))
+    os.utime(source, (now + 40, now + 40))
+    assert nvcc_build.is_stale(source, library)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_edge_cases_on_card(dtype):
+    """The key-parallel design's edges: row tiles, split boundaries, a
+    cache_len 0 row, a prefill; the card only."""
+    _needs_card()
+    dt = getattr(torch, dtype)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for i, (b, kblk, s_max, lens, hq) in enumerate(EDGE_CASES):
+        q, k, v, cl = _case(b, kblk, s_max, lens, dt, "cuda", seed=10 + i, hq=hq)
+        got = tkern.decode_attention_cuda(q, k, v, cl)
+        want = tkern.decode_attention_ref(q, k, v, cl).float()
+        err = (got.float() - want).abs().max().item()
+        assert err <= tol * (1.0 + want.abs().max().item()), (b, kblk, s_max, lens, hq, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernels_are_bit_reproducible_on_card(dtype):
+    """Two calls on the same inputs give identical outputs (no float
+    atomics; the ticketed merges sum in split order), for both kernels."""
+    _needs_card()
+    dt = getattr(torch, dtype)
+    for b, kblk, s_max, lens, hq in EDGE_CASES:
+        q, k, v, cl = _case(b, kblk, s_max, lens, dt, "cuda", hq=hq)
+        first = tkern.decode_attention_cuda(q, k, v, cl)
+        assert torch.equal(tkern.decode_attention_cuda(q, k, v, cl), first)
+    for m, h, i in MLP_CARD_CASES:
+        x, g, u, d = _mlp_case(m, h, i, dt, "cuda")
+        first = tmlp.mlp_gemv_cuda(x, g, u, d)
+        assert torch.equal(tmlp.mlp_gemv_cuda(x, g, u, d), first)
+
+
 @pytest.mark.cuda
 def test_kernel_wrapper_refuses_bad_inputs_on_card():
     _needs_card()
@@ -116,11 +189,13 @@ def test_kernel_wrapper_refuses_bad_inputs_on_card():
 
 
 # (M, H, I): the backbone decode MLP (896 x 4864) at M = B x K rows, the MTP
-# heads (896 x 22016) at M = B, tiny_config()'s 64 x 128, and edges: more
-# rows than one block holds, and an I that the 16-byte vector does not divide
+# heads (896 x 22016) at M = B, tiny_config()'s 64 x 128, and edges: each
+# row-group size and one past it (8, 9, 16, 40, 65: more rows than one
+# block holds), a ragged I (4864 + 8, odd 4863, 100)
 MLP_CARD_CASES = [(1, 896, 4864), (2, 896, 4864), (5, 896, 4864), (10, 896, 4864),
                   (40, 896, 4864), (1, 896, 22016), (4, 896, 22016), (8, 896, 22016),
-                  (3, 64, 128), (70, 64, 128), (3, 64, 100)]
+                  (3, 64, 128), (70, 64, 128), (3, 64, 100), (8, 896, 4864), (9, 896, 4864),
+                  (16, 896, 4864), (65, 896, 4864), (2, 896, 4872), (3, 896, 4863)]
 
 
 def _mlp_case(m, h, i, dtype=torch.float32, device="cpu", seed=0):
@@ -131,11 +206,24 @@ def _mlp_case(m, h, i, dtype=torch.float32, device="cpu", seed=0):
 
 
 @pytest.mark.parametrize("m,h,i", [(1, 896, 4864), (40, 896, 4864), (8, 896, 22016),
-                                   (3, 64, 128), (70, 64, 128)])
-def test_mlp_split_plan_covers_i(m, h, i):
-    splits, chunk = tmlp.plan_splits(m, h, i, 32, 64, 64)
-    assert chunk % 64 == 0 and splits * chunk >= i > (splits - 1) * chunk
-    assert -(-h // 32) * -(-m // 64) * splits >= min(264, -(-h // 32) * (i // 64))
+                                   (3, 64, 128), (70, 64, 128), (65, 896, 4864),
+                                   (2, 896, 4872), (3, 896, 4863), (1, 896, 22016)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mlp_split_plan_covers_i(m, h, i, dtype):
+    groups = tmlp._ROW_GROUPS[getattr(torch, dtype)]
+    cols = tuple(64 if g <= 2 else 32 for g in groups)  # the kernel's column tiles
+    mg, row_blocks, splits, chunk = tmlp.plan_splits(m, h, i, groups, cols, 16)
+    assert mg in groups and row_blocks * 8 * mg >= m > (row_blocks - 1) * 8 * mg
+    if m <= 8 * groups[-1]:
+        assert row_blocks == 1  # the weights are read once
+    assert chunk % 16 == 0 and chunk <= 1024
+    assert splits * chunk >= i > (splits - 1) * chunk
+    tiles = -(-h // cols[groups.index(mg)]) * row_blocks
+    # about the target: rounding the chunk to the k-step costs at most a split
+    target = tmlp._TARGET_BLOCKS[mg]
+    assert tiles * (splits + 1) >= min(target, tiles * -(-i // 16))
+    if (m, h, i, dtype) == (40, 896, 4864, "bfloat16"):  # 7 splits, as measured best
+        assert (mg, splits) == (5, 7)
 
 
 def test_mlp_dispatch_takes_the_plain_version_on_cpu():
