@@ -36,7 +36,23 @@ exits non-zero without either. Phases, each fatal on failure:
      must equal the count the code predicts (decode attention: n_layers x
      backbone forwards; MLP GEMV: n_layers x decode-step forwards + heads x
      steps);
-  6. the kernels line, the card line, and the final JSON line.
+  5b. continuous batching: six one-sentence requests sent 0.15 s apart to a
+     window-mode server (the default 0.03 s window), then the same six to a
+     server with 4 continuous slots at heads 2 (the launcher's default
+     mode), followed there by a four-segment text (four slot requests) and,
+     on its own, a request at top_p 0.5 and heads 1, which the worker must
+     serve. Each WAV is checked as in phase 5; /api/v1/metrics must count 7
+     more continuous requests and report admission_ms_p50; some request
+     must take a slot while another slot is decoding (the requests' own
+     admit and decode-done times); the slots' launches must equal the
+     prediction from the batcher's stats (attention: n_layers x (admits +
+     forwards); MLP: n_layers x forwards + heads x steps), the window
+     load's and the worker request's as in phase 5. Both modes' p50/p95
+     latency, tokens/s over the load and ms per decode step are printed:
+     a smoke check of both modes on one seeded burst, not a comparison
+     (tools/serve_load.py compares them under a sustained load);
+  6. the kernels line (launches: phases 5 and 5b), the card line, and the
+     final JSON line.
 
 TF32 is off for matmuls and cuDNN convs throughout, so f32 is full f32 in
 every comparison. Measurements also go to chiprun_out/chip_smoke.json.
@@ -121,13 +137,18 @@ def attention_bound(q, k, cache_len):
 # tiles and 128-key splits), then the edges of the kernel's design: G * T
 # of 16 (Hq 16); the last key at the end of a split of a 1024-key cache
 # and one past it; rows with no key in the next split; the last key at
-# S_max - T; a row with cache_len 0 in a batch of 3
+# S_max - T; a row with cache_len 0 in a batch of 3. Last, the continuous
+# slots' shapes: a slot step (B 4 slots, T 2, an empty slot at cache_len 0)
+# against the cache of --max-tokens 300 (768 rows) and of the default 1024
+# (1536 rows), and the admission prefill of a 128-token text at B 1
 ATTENTION_CASES = [(1, 1, 512, [0], 14), (1, 1, 512, [127], 14), (1, 2, 512, [128], 14),
                    (1, 2, 512, [255], 14), (1, 5, 512, [383], 14), (1, 66, 512, [0], 14),
                    (1, 130, 512, [0], 14), (3, 1, 768, [31, 256, 700], 14),
                    (3, 5, 768, [32, 511, 600], 14), (4, 2, 512, [40, 129, 300, 509], 14),
                    (1, 2, 512, [200], 16), (1, 2, 1024, [511], 14), (1, 1, 1024, [512], 14),
-                   (1, 5, 1024, [509], 14), (1, 2, 512, [510], 14), (3, 2, 512, [0, 300, 77], 14)]
+                   (1, 5, 1024, [509], 14), (1, 2, 512, [510], 14), (3, 2, 512, [0, 300, 77], 14),
+                   (4, 2, 768, [0, 37, 300, 700], 14), (4, 2, 1536, [0, 130, 900, 1500], 14),
+                   (1, 130, 768, [0], 14)]
 # tolerance relative to 1 + max |plain|, by dtype
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
@@ -296,87 +317,124 @@ BURST = ["A short burst request arrives first.", "Another burst request comes ri
          "The third burst request completes the group."]
 
 
+def http_call(base, path, body=None):
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data, {"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=900) as r:
+        return r.status, json.load(r)
+
+
+def tts(base, text, heads, **extra):
+    """POST /api/v1/tts; the WAV must be 24 kHz, non-empty and finite.
+    Returns (samples, peak)."""
+    code, body = http_call(base, "/api/v1/tts", {
+        "text": text, "speaker_id": "default",
+        "extra_params": {"inference_head_num": heads, **extra}})
+    if code != 200 or not body.get("success"):
+        raise RuntimeError(f"/api/v1/tts heads={heads}: {code} {body.get('error')}")
+    with wave.open(io.BytesIO(base64.b64decode(body["data"]["audio_base64"]))) as w:
+        rate, frames = w.getframerate(), w.readframes(w.getnframes())
+    pcm = np.frombuffer(frames, np.int16).astype(np.float32) / 32768.0
+    if rate != 24000 or pcm.size == 0 or not np.isfinite(pcm).all():
+        raise RuntimeError(f"bad WAV for heads={heads}: rate {rate}, {pcm.size} samples")
+    return pcm.size, float(np.abs(pcm).max())
+
+
+def predicted_launches(recs, cfg):
+    """(attention, MLP) launches of the engine calls `recs`: every step runs
+    the MTP heads (one MLP launch per head) and every step but the last a
+    decode-step forward (the stopping step runs none, llm.py); with the
+    prefill, `steps` backbone forwards in all, each one attention launch per
+    layer, the decode-step ones one MLP launch per layer."""
+    n_layers = cfg.backbone.num_layers
+    heads = [max(1, min(int(r["heads"]), cfg.head_num)) for r in recs]
+    attention = sum(n_layers * r["steps"] for r in recs)
+    mlp = sum(n_layers * (r["steps"] - 1) + k * r["steps"] for r, k in zip(recs, heads))
+    return attention, mlp
+
+
+class EngineCalls:
+    """While entered, records each call of `Engine.synthesize` and
+    `Engine.synthesize_batch` (the worker's routes) in `records`."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.records = []
+
+    def __enter__(self):
+        synthesize, synthesize_batch = self.engine.synthesize, self.engine.synthesize_batch
+        self.saved = synthesize, synthesize_batch
+
+        def record_one(**kwargs):
+            res = synthesize(**kwargs)
+            self.records.append(dict(route="synthesize", rows=1,
+                                     heads=kwargs["inference_head_num"],
+                                     tokens=len(res.speech_tokens), steps=res.steps,
+                                     llm_time=res.llm_time, synth_time=res.synth_time,
+                                     total_time=res.total_time))
+            return res
+
+        def record_batch(token_lists, **kwargs):
+            wavs, stats = synthesize_batch(token_lists, **kwargs)
+            self.records.append(dict(route="synthesize_batch", rows=len(token_lists),
+                                     heads=kwargs["inference_head_num"],
+                                     tokens=sum(stats["tokens"]), steps=stats["steps"],
+                                     llm_time=stats["llm_time"], synth_time=stats["synth_time"],
+                                     total_time=stats["total_time"]))
+            return wavs, stats
+
+        self.engine.synthesize, self.engine.synthesize_batch = record_one, record_batch
+        return self
+
+    def __exit__(self, *exc):
+        self.engine.synthesize, self.engine.synthesize_batch = self.saved
+
+
+def start_servers(engine, frontend, **kwargs_list):
+    """One HTTP server on 127.0.0.1 per keyword (its make_server kwargs),
+    each serving on its own thread. Returns {name: (server, thread, url)}."""
+    from flowmirror_hydravox_tpu_torch.runtime.server import make_server
+
+    out = {}
+    for name, kwargs in kwargs_list.items():
+        server = make_server("127.0.0.1", 0, engine, frontend, request_timeout=600.0, **kwargs)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        out[name] = (server, thread, f"http://127.0.0.1:{server.server_address[1]}")
+    return out
+
+
+def stop_servers(servers):
+    for server, thread, _ in servers.values():
+        server.shutdown()
+        server.RequestHandlerClass.service.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+
+
 def drive_main_path(engine, frontend, da, mg):
     """Phase 5: the requests through two servers, one with the default
     window and one with BURST_WINDOW. Returns (requests, launches)."""
-    from flowmirror_hydravox_tpu_torch.runtime.server import make_server
-
     cfg = engine.cfg.llm
-    n_layers = cfg.backbone.num_layers
-    records = []
-    synthesize, synthesize_batch = engine.synthesize, engine.synthesize_batch
-
-    def record_one(**kwargs):
-        res = synthesize(**kwargs)
-        records.append(dict(route="synthesize", rows=1, heads=kwargs["inference_head_num"],
-                            tokens=len(res.speech_tokens), steps=res.steps,
-                            llm_time=res.llm_time, synth_time=res.synth_time,
-                            total_time=res.total_time))
-        return res
-
-    def record_batch(token_lists, **kwargs):
-        wavs, stats = synthesize_batch(token_lists, **kwargs)
-        records.append(dict(route="synthesize_batch", rows=len(token_lists),
-                            heads=kwargs["inference_head_num"], tokens=sum(stats["tokens"]),
-                            steps=stats["steps"], llm_time=stats["llm_time"],
-                            synth_time=stats["synth_time"], total_time=stats["total_time"]))
-        return wavs, stats
-
-    def predicted(recs):
-        """Launches per synthesis of `steps` decode steps: every step runs the
-        MTP heads (one MLP launch per head) and every step but the last a
-        decode-step forward (the stopping step runs none, llm.py); with the
-        prefill, `steps` backbone forwards in all, each one attention launch
-        per layer, the decode-step ones one MLP launch per layer."""
-        heads = [max(1, min(int(r["heads"]), cfg.head_num)) for r in recs]
-        attention = sum(n_layers * r["steps"] for r in recs)
-        mlp = sum(n_layers * (r["steps"] - 1) + k * r["steps"] for r, k in zip(recs, heads))
-        return attention, mlp
-
-    engine.synthesize, engine.synthesize_batch = record_one, record_batch
-    servers = [make_server("127.0.0.1", 0, engine, frontend, request_timeout=600.0),
-               make_server("127.0.0.1", 0, engine, frontend, request_timeout=600.0,
-                           batch_window=BURST_WINDOW)]
-    threads = [threading.Thread(target=sv.serve_forever, daemon=True) for sv in servers]
-    for th in threads:
-        th.start()
-    url, burst_url = (f"http://127.0.0.1:{sv.server_address[1]}" for sv in servers)
-
-    def call(base, path, body=None):
-        data = None if body is None else json.dumps(body).encode()
-        req = urllib.request.Request(base + path, data, {"Content-Type": "application/json"})
-        with urllib.request.urlopen(req, timeout=900) as r:
-            return r.status, json.load(r)
-
-    def tts(base, text, heads):
-        code, body = call(base, "/api/v1/tts", {"text": text, "speaker_id": "default",
-                                                "extra_params": {"inference_head_num": heads}})
-        if code != 200 or not body.get("success"):
-            raise RuntimeError(f"/api/v1/tts heads={heads}: {code} {body.get('error')}")
-        with wave.open(io.BytesIO(base64.b64decode(body["data"]["audio_base64"]))) as w:
-            rate, frames = w.getframerate(), w.readframes(w.getnframes())
-        pcm = np.frombuffer(frames, np.int16).astype(np.float32) / 32768.0
-        if rate != 24000 or pcm.size == 0 or not np.isfinite(pcm).all():
-            raise RuntimeError(f"bad WAV for heads={heads}: rate {rate}, {pcm.size} samples")
-        return pcm.size, float(np.abs(pcm).max())
 
     def measure(name, run, routes, heads):
         """Run one request (or the burst), check its routes and both
         kernels' launch counts, and return its record."""
-        before = (da.launch_count, mg.launch_count, len(records))
+        before = (da.launch_count, mg.launch_count, len(calls.records))
         t0 = time.time()
         try:
             wavs = run()
         except (RuntimeError, OSError) as e:
             fail(f"{name}: {e}")
         wall = time.time() - t0
-        recs = records[before[2]:]
+        recs = calls.records[before[2]:]
         if [(r["route"], r["rows"]) for r in recs] != routes:
             fail(f"{name}: engine calls {[(r['route'], r['rows']) for r in recs]}, "
                  f"expected {routes}")
         launched = (da.launch_count - before[0], mg.launch_count - before[1])
-        if launched != predicted(recs) or 0 in launched:
-            fail(f"{name}: (attention, mlp) launches {launched}, predicted {predicted(recs)}")
+        if launched != predicted_launches(recs, cfg) or 0 in launched:
+            fail(f"{name}: (attention, mlp) launches {launched}, "
+                 f"predicted {predicted_launches(recs, cfg)}")
         audio_s = sum(n for n, _ in wavs) / 24000.0
         req = dict(
             name=name, heads=heads, route=routes[0][0], rows=routes[0][1],
@@ -409,39 +467,194 @@ def drive_main_path(engine, frontend, da, mg):
             raise RuntimeError("; ".join(errors) or "a burst request did not finish")
         return out
 
+    servers = start_servers(engine, frontend, window={}, burst={"batch_window": BURST_WINDOW})
+    url, burst_url = servers["window"][2], servers["burst"][2]
     requests = []
     try:
-        if call(url, "/health") != (200, {"status": "ok"}):
-            fail("/health")
-        code, body = call(url, "/api/v1/speakers")
-        if code != 200 or body["data"]["speakers"] != ["default"]:
-            fail(f"/api/v1/speakers: {code} {body}")
-        # first-use cost (cuBLAS, cuDNN) of both routes outside the counted run
-        for text in ("Warm up the card.", "Warm up the card! And the flash batch as well."):
-            tts(url, text, 2)
-        burst_service = servers[1].RequestHandlerClass.service
-        da.launch_count = mg.launch_count = 0  # counts from here are the main path's
-        for name, (text, heads, route, rows) in TEXTS.items():
-            requests.append(measure(name, lambda: [tts(url, text, heads)], [(route, rows)],
-                                    heads))
-        batched = burst_service.batched_requests
-        requests.append(measure("burst", burst, [("synthesize_batch", len(BURST))], 2))
-        if burst_service.batched_requests - batched != len(BURST):
-            fail(f"the burst was not one coalesced group: batched_requests rose by "
-                 f"{burst_service.batched_requests - batched}")
-        launches = (da.launch_count, mg.launch_count)
-        if launches != (sum(r["attention_launches"] for r in requests),
-                        sum(r["mlp_launches"] for r in requests)):
-            fail("launch counts changed outside the requests")
-        return requests, launches
+        with EngineCalls(engine) as calls:
+            if http_call(url, "/health") != (200, {"status": "ok"}):
+                fail("/health")
+            code, body = http_call(url, "/api/v1/speakers")
+            if code != 200 or body["data"]["speakers"] != ["default"]:
+                fail(f"/api/v1/speakers: {code} {body}")
+            # first-use cost (cuBLAS, cuDNN) of both routes outside the counted run
+            for text in ("Warm up the card.", "Warm up the card! And the flash batch as well."):
+                tts(url, text, 2)
+            burst_service = servers["burst"][0].RequestHandlerClass.service
+            da.launch_count = mg.launch_count = 0  # counts from here are the main path's
+            for name, (text, heads, route, rows) in TEXTS.items():
+                requests.append(measure(name, lambda: [tts(url, text, heads)], [(route, rows)],
+                                        heads))
+            batched = burst_service.batched_requests
+            requests.append(measure("burst", burst, [("synthesize_batch", len(BURST))], 2))
+            if burst_service.batched_requests - batched != len(BURST):
+                fail(f"the burst was not one coalesced group: batched_requests rose by "
+                     f"{burst_service.batched_requests - batched}")
+            launches = (da.launch_count, mg.launch_count)
+            if launches != (sum(r["attention_launches"] for r in requests),
+                            sum(r["mlp_launches"] for r in requests)):
+                fail("launch counts changed outside the requests")
+            return requests, launches
     finally:
-        engine.synthesize, engine.synthesize_batch = synthesize, synthesize_batch
-        for sv in servers:
-            sv.shutdown()
-            sv.RequestHandlerClass.service.shutdown()
-            sv.server_close()
-        for th in threads:
-            th.join(timeout=10)
+        stop_servers(servers)
+
+
+# phase 5b: one-sentence requests sent STAGGER_GAP s apart, more than the
+# slots hold
+STAGGER = ["The first caller asks for a short weather report.",
+           "A second caller wants the opening hours of the library.",
+           "The third request reads a line from a story for children.",
+           "Here the fourth caller orders a taxi to the station.",
+           "A fifth voice announces that the train is running late.",
+           "The sixth and last request says goodbye to everyone."]
+STAGGER_GAP = 0.15
+SLOTS = 4
+
+
+def staggered(base, texts):
+    """One request per text, STAGGER_GAP s apart, each on its own thread;
+    request i carries seed 1000 + i, so both modes decode the same draws.
+    Returns ([(latency s, samples, peak)], wall s from the first send to the
+    last answer)."""
+    out, errors = [None] * len(texts), []
+
+    def one(i):
+        t0 = time.time()
+        try:
+            n, peak = tts(base, texts[i], 2, seed=1000 + i)
+            out[i] = (time.time() - t0, n, peak)
+        except Exception as e:  # reported below
+            errors.append(f"request {i}: {e}")
+
+    workers = [threading.Thread(target=one, args=(i,)) for i in range(len(texts))]
+    t0 = time.time()
+    for i, w in enumerate(workers):
+        if i:
+            time.sleep(STAGGER_GAP)
+        w.start()
+    for w in workers:
+        w.join(timeout=900)
+    if errors or any(w.is_alive() for w in workers):
+        fail("staggered load: " + ("; ".join(errors) or "a request did not finish"))
+    return out, time.time() - t0
+
+
+def load_summary(mode, out, wall, tokens, steps, step_s, synth_s, launched):
+    """One load's figures: per-request latency, tokens/s over the load, ms
+    per decode step (decode time / steps), and the seconds spent in flow +
+    HiFT."""
+    lat = [o[0] for o in out]
+    rec = dict(mode=mode, requests=len(out), latency_p50_s=float(np.percentile(lat, 50)),
+               latency_p95_s=float(np.percentile(lat, 95)), latencies_s=lat, wall_s=wall,
+               audio_s=sum(o[1] for o in out) / 24000.0, tokens=tokens,
+               tokens_per_s=tokens / wall, steps=steps, ms_per_step=1e3 * step_s / steps,
+               synth_s=synth_s, attention_launches=launched[0], mlp_launches=launched[1])
+    print("load", json.dumps(rec), flush=True)
+    return rec
+
+
+def drive_continuous(engine, frontend, da, mg):
+    """Phase 5b: the STAGGER load against a window-mode server, then against
+    a server with SLOTS continuous slots at heads 2 (the launcher's default),
+    followed there by a four-segment text (four slot requests) and, on its
+    own, a request at top_p 0.5 and heads 1, which the worker serves. Holds
+    the launches of each part to the code's prediction. Returns
+    (results, launches)."""
+    cfg = engine.cfg.llm
+    n_layers = cfg.backbone.num_layers
+    servers = start_servers(engine, frontend, window={},
+                            continuous={"continuous_slots": SLOTS, "continuous_head_num": 2})
+    window_url, cont_url = servers["window"][2], servers["continuous"][2]
+    service = servers["continuous"][0].RequestHandlerClass.service
+    batcher = service.batcher
+    submitted = []
+    submit = batcher.submit
+
+    def record_submit(*args, **kwargs):
+        req = submit(*args, **kwargs)
+        submitted.append(req)
+        return req
+
+    batcher.submit = record_submit
+    try:
+        with EngineCalls(engine) as calls:
+            tts(cont_url, "Warm up the decode slots.", 2)  # the slots' state is made here
+
+            # the window mode, for comparison
+            del calls.records[:]
+            da.launch_count = mg.launch_count = 0
+            out, wall = staggered(window_url, STAGGER)
+            launched = (da.launch_count, mg.launch_count)
+            recs = list(calls.records)
+            if launched != predicted_launches(recs, cfg) or 0 in launched:
+                fail(f"window load: launches {launched}, predicted "
+                     f"{predicted_launches(recs, cfg)}")
+            window = load_summary("window", out, wall, sum(r["tokens"] for r in recs),
+                                  sum(r["steps"] for r in recs),
+                                  sum(r["llm_time"] for r in recs),
+                                  sum(r["synth_time"] for r in recs), launched)
+            window["engine_calls"] = [(r["route"], r["rows"]) for r in recs]
+
+            # the continuous slots: the load, then a four-segment text
+            del calls.records[:], submitted[:]
+            before = dict(batcher.stats)
+            served = service.continuous_requests
+            da.launch_count = mg.launch_count = 0
+            out, wall = staggered(cont_url, STAGGER)
+            after_load = dict(batcher.stats)
+            load_reqs = list(submitted)
+            four = tts(cont_url, TEXTS["four_segments"][0], 2)
+            launched = (da.launch_count, mg.launch_count)
+            done = {k: batcher.stats[k] - before[k] for k in before}
+            prediction = (n_layers * (done["admits"] + done["forwards"]),
+                          n_layers * done["forwards"] + batcher.head_k * done["steps"])
+            if launched != prediction or 0 in launched:
+                fail(f"continuous: launches {launched}, predicted {prediction} from {done}")
+            if calls.records:
+                fail(f"continuous: the worker served {calls.records}")
+            if len(submitted) != len(STAGGER) + 4 or done["admits"] != len(submitted):
+                fail(f"continuous: {len(submitted)} slot requests, {done['admits']} admits")
+            code, body = http_call(cont_url, "/api/v1/metrics")
+            metrics = body["data"]
+            if code != 200 or metrics["continuous_requests"] - served != len(STAGGER) + 1:
+                fail(f"continuous: /api/v1/metrics {code} {metrics}")
+            if "admission_ms_p50" not in metrics:
+                fail("continuous: /api/v1/metrics has no admission_ms_p50")
+            joins = [(a.t_admit, b.t_admit, a.t_decoded) for a in submitted for b in submitted
+                     if a is not b and a.t_admit < b.t_admit < a.t_decoded]
+            if not joins:
+                fail("continuous: no request was admitted while another slot was decoding")
+            cont = load_summary(
+                "continuous", out, wall, sum(len(r.stats["tokens"]) for r in load_reqs),
+                after_load["steps"] - before["steps"],
+                after_load["decode_s"] - before["decode_s"],
+                sum(r.stats["synth_time"] for r in load_reqs), launched)
+            cont.update(four_segment_samples=four[0], joins_in_flight=len(joins),
+                        batcher_stats=done, admission_ms_p50=metrics["admission_ms_p50"],
+                        admission_ms_p95=metrics["admission_ms_p95"],
+                        admission_s=[r.t_admit - r.t_submit for r in submitted])
+            print("continuous", json.dumps({k: cont[k] for k in (
+                "joins_in_flight", "batcher_stats", "admission_ms_p50", "admission_ms_p95")}),
+                flush=True)
+
+            # a request the slots do not serve goes through the worker
+            da.launch_count = mg.launch_count = 0
+            tts(cont_url, STAGGER[0], 1, top_p=0.5)
+            worker_launched = (da.launch_count, mg.launch_count)
+            recs = list(calls.records)
+            if [(r["route"], r["rows"]) for r in recs] != [("synthesize", 1)]:
+                fail(f"worker request: engine calls {recs}")
+            if worker_launched != predicted_launches(recs, cfg) or 0 in worker_launched:
+                fail(f"worker request: launches {worker_launched}, predicted "
+                     f"{predicted_launches(recs, cfg)}")
+            if service.continuous_requests - served != len(STAGGER) + 1:
+                fail("worker request: continuous_requests changed")
+        total = tuple(a + b + c for a, b, c in zip(
+            (window["attention_launches"], window["mlp_launches"]), launched, worker_launched))
+        return dict(window=window, continuous=cont, worker_launches=worker_launched), total
+    finally:
+        batcher.submit = submit
+        stop_servers(servers)
 
 
 def main():
@@ -505,7 +718,9 @@ def main():
           f"built in {time.time() - t0:.1f} s", flush=True)
     backbone_rel = check_backbone(engine)
 
-    requests, (attention_launches, mlp_launches) = drive_main_path(engine, frontend, da, mg)
+    requests, launches = drive_main_path(engine, frontend, da, mg)
+    serving, more = drive_continuous(engine, frontend, da, mg)
+    attention_launches, mlp_launches = (a + b for a, b in zip(launches, more))
     del flush
 
     # the kernels line: each kernel at its serving shape (bf16; decode
@@ -548,7 +763,7 @@ def main():
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "launch_floor_ms": launch_floor_ms, "attention_cases": attention_cases,
          "mlp_cases": mlp_cases, "backbone_rel_err": backbone_rel, "requests": requests,
-         **kernels}, indent=1))
+         "serving": serving, **kernels}, indent=1))
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

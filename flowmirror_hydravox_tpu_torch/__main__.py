@@ -1,7 +1,8 @@
 """Server launcher (port of flowmirror_hydravox_tpu/__main__.py, SFT subset).
 
   python -m flowmirror_hydravox_tpu_torch --api-port 8080 \
-      [--tiny] [--model-dir DIR] [--max-tokens N] [--device cuda|cpu]
+      [--tiny] [--model-dir DIR] [--max-tokens N] [--device cuda|cpu] \
+      [--continuous-batching SLOTS] [--continuous-heads K]
 
 --model-dir holds llm.npz / flow.npz / hift.npz in the JAX package's flat npz
 format; a missing file means random weights from seed 0 (structure and
@@ -10,11 +11,21 @@ the tokenizer's, padded to a multiple of 128. Serving dtypes: bf16 for the
 LLM and flow, f32 for HiFT. A `default` speaker (zero embedding) is
 registered.
 
-Batching: a multi-segment text decodes as one flash batch, and concurrent
-batchable requests are coalesced by the server's 0.03 s window into one
-flash batch of up to 8 requests (runtime/server.py). That is the JAX
-launcher's `--continuous-batching 0` mode, and the port's only one until the
-continuous batcher is ported, so the launcher has no batching flag.
+Batching, as the JAX launcher's flags set it (:66-76):
+  - `--continuous-batching N` (default 4): continuous in-flight batching.
+    Default-config SFT requests (default sampling, `--continuous-heads`
+    heads, default 2) decode in N shared slots and join a decode in flight
+    at a chunk boundary (runtime/continuous.py); other requests go through
+    the worker. Every slot takes /api/v1/tts traffic: the JAX launcher's
+    `--continuous-reserve` stream slot comes with streaming. On an H100
+    neither mode has shown lower p50 or p95 latency than the other under
+    a sustained load (tools/serve_load.py; PERF.md §5): the slots
+    synthesise each finished row alone on their decode thread, while the
+    window synthesises a coalesced group at once.
+  - `--continuous-batching 0`: window coalescing. A multi-segment text
+    decodes as one flash batch, and concurrent batchable requests are
+    coalesced by the server's 0.03 s window into one flash batch of up to 8
+    requests (runtime/server.py).
 """
 
 from __future__ import annotations
@@ -45,6 +56,11 @@ def parse_args(argv=None):
     p.add_argument("--tiny", action="store_true", help="tiny random config (smoke)")
     p.add_argument("--max-tokens", type=int, default=1024)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--continuous-batching", type=int, default=4, metavar="SLOTS",
+                   help="continuous (in-flight) batching over N decode slots; "
+                        "0 = window coalescing")
+    p.add_argument("--continuous-heads", type=int, default=2,
+                   help="inference_head_num served by the continuous slots")
     return p.parse_args(argv)
 
 
@@ -88,7 +104,8 @@ def main(argv=None):
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     engine, frontend = build(args)
-    serve(args.api_host, args.api_port, engine, frontend)
+    serve(args.api_host, args.api_port, engine, frontend,
+          continuous_slots=args.continuous_batching, continuous_head_num=args.continuous_heads)
 
 
 if __name__ == "__main__":

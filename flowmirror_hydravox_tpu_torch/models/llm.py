@@ -8,7 +8,8 @@ flowmirror_hydravox_tpu/models/llm.py on the SFT path.
     against the same history, accepts them up to the first stop id, and runs
     one backbone forward over the K accepted tokens.
   - The flash batch (`generate_batched`): B utterances decode together with
-    per-row lengths and stops, sharing each weight read.
+    per-row lengths and stops, sharing each weight read; its step,
+    `decode_step_batched`, is also the continuous batcher's.
 
 Every decode-step MLP (the MTP heads' and the backbone's) goes through
 `ops.mlp_gemv.mlp_gemv`, the fused SwiGLU GEMV kernel on the card; the
@@ -177,15 +178,8 @@ def generate_batched(params: dict, cfg: LLMConfig, prompt_embeds, prompt_len, mi
     prompt_embeds (B, T, H) padded; prompt_len, min_len, max_len: B ints.
     `noise.sampling_batch(b, k, vocab)` gives each step's Gumbel noise.
     Returns tokens (B, max_tokens), num_tokens (list of B ints), steps.
-
-    Per step: the MTP heads and the batched RAS draw for all B rows (finished
-    rows draw too and accept nothing, as the JAX vmap does); one host read of
-    the (B, K) ids; per row, the stop-inside-group rule and the `max_len`
-    budget; then one backbone forward over the (B, K) block, in which
-    finished rows advance 0 and keep their `last_hidden`. The step in which
-    the last row finishes runs no forward: the JAX loop runs it (:489), but
-    its hidden states and cache are never read, so skipping it changes no
-    result (the same rule as `generate_until`)."""
+    Each step is `decode_step_batched`; the step in which the last row
+    finishes runs no forward (the same rule as `generate_until`)."""
     head_k = max(1, min(int(inference_head_num), cfg.head_num))
     b, t_prompt, _ = prompt_embeds.shape
     if cache_len_cap is None:
@@ -195,10 +189,7 @@ def generate_batched(params: dict, cfg: LLMConfig, prompt_embeds, prompt_len, mi
         raise ValueError(f"prompt block of {t_prompt} exceeds the cache of {cap}")
     bb = cfg.backbone
     dev = prompt_embeds.device
-    speech_table = params["speech_embedding"]
     prompt_len = [int(n) for n in prompt_len]
-    min_len = [int(n) for n in min_len]
-    max_len = [int(n) for n in max_len]
 
     cache = qwen2.init_kv_cache(bb, b, cap, dtype=prompt_embeds.dtype, device=dev)
     hidden, cache = qwen2.forward_block_with_cache(
@@ -206,40 +197,66 @@ def generate_batched(params: dict, cfg: LLMConfig, prompt_embeds, prompt_len, mi
         advance=torch.tensor(prompt_len, dtype=torch.int32, device=dev),
     )
     rows = torch.arange(b, device=dev)
-    last_hidden = hidden[rows, torch.tensor(prompt_len, device=dev) - 1]  # (B, H)
-    tokens = torch.full((b, max_tokens + head_k), -1, dtype=torch.int32, device=dev)
-    min_len_t = torch.tensor(min_len, device=dev)
-    num = [0] * b
-    finished = [False] * b
-    num_t = torch.zeros(b, dtype=torch.int64, device=dev)
+    state = dict(
+        cache=cache,
+        last_hidden=hidden[rows, torch.tensor(prompt_len, device=dev) - 1],  # (B, H)
+        tokens=torch.full((b, max_tokens + head_k), -1, dtype=torch.int32, device=dev),
+        num=[0] * b, finished=[False] * b, max_len=[int(n) for n in max_len],
+        num_t=torch.zeros(b, dtype=torch.int64, device=dev),
+        min_len_t=torch.tensor([int(n) for n in min_len], device=dev),
+    )
     steps = 0
-    while not all(finished):
+    while not all(state["finished"]):
         gumbel_nuc, gumbel_flat = noise.sampling_batch(b, head_k, cfg.vocab_size)
-        logits = mtp_logits(params, cfg, last_hidden, head_k).transpose(0, 1)  # (B, K, V)
-        sampled = ras_sample_heads_batched(
-            logits, tokens, num_t, sampling, min_len_t, cfg.speech_token_size,
-            gumbel_nuc, gumbel_flat,
-        )
-        ids = sampled.tolist()  # the step's one host read
-        for r in range(b):
-            n_ok = next((j for j, tok in enumerate(ids[r]) if tok >= cfg.speech_token_size),
-                        head_k)
-            n_accept = 0 if finished[r] else min(n_ok, max(max_len[r] - num[r], 0))
-            if n_accept:
-                tokens[r, num[r]:num[r] + n_accept] = sampled[r, :n_accept].to(torch.int32)
-            num[r] += n_accept
-            finished[r] = (finished[r] or n_ok < head_k or num[r] >= max_len[r]
-                           or n_accept == 0)
+        decode_step_batched(params, cfg, state, sampling, gumbel_nuc, gumbel_flat, head_k=head_k)
         steps += 1
-        if all(finished):
-            break
-        # the row state goes back in one copy, while the device is idle after
-        # the read above
-        num_t, done = torch.tensor([num, finished], dtype=torch.int64, device=dev)
-        done = done.bool()
-        hidden, cache = qwen2.forward_block_with_cache(
-            params["backbone"], bb, speech_table[sampled], cache,
-            advance=torch.where(done, 0, head_k).to(torch.int32), decode_step=True,
-        )
-        last_hidden = torch.where(done[:, None], last_hidden, hidden[:, head_k - 1])
-    return GenerateResult(tokens=tokens[:, :max_tokens], num_tokens=num, steps=steps)
+    return GenerateResult(tokens=state["tokens"][:, :max_tokens], num_tokens=state["num"],
+                          steps=steps)
+
+
+def decode_step_batched(params: dict, cfg: LLMConfig, state: dict, sampling: SamplingParams,
+                        gumbel_nuc, gumbel_flat, *, head_k: int) -> bool:
+    """One group-decode step over the B rows of `state`, the body of the flash
+    batch's loop and of a continuous-batching chunk (runtime/continuous.py).
+
+    state: cache (KVCache of B rows), last_hidden (B, H), tokens (B, L) int32,
+    num_t (B,) and min_len_t (B,) integer tensors on the device; num,
+    finished, max_len: B host ints/bools, the host's copy of the row state.
+    Updated in place. gumbel_nuc (B, K, KMAX), gumbel_flat (B, K, V).
+
+    The MTP heads and the batched RAS draw run for all rows (finished rows
+    draw too and accept nothing, as the JAX vmap does); one host read of the
+    (B, K) ids; per row, the stop-inside-group rule and the `max_len` budget;
+    then one backbone forward over the (B, K) block, in which finished rows
+    advance 0 and keep their `last_hidden`. A step after which every row has
+    finished runs no forward: the JAX loops run it (llm.py:489,
+    continuous.py:394), but its hidden states and cache rows are never read,
+    so skipping it changes no result. Returns whether the forward ran."""
+    sts = cfg.speech_token_size
+    logits = mtp_logits(params, cfg, state["last_hidden"], head_k).transpose(0, 1)  # (B, K, V)
+    sampled = ras_sample_heads_batched(
+        logits, state["tokens"], state["num_t"], sampling, state["min_len_t"], sts,
+        gumbel_nuc, gumbel_flat,
+    )
+    ids = sampled.tolist()  # the step's one host read
+    num, finished, max_len = state["num"], state["finished"], state["max_len"]
+    for r, row in enumerate(ids):
+        n_ok = next((j for j, tok in enumerate(row) if tok >= sts), head_k)
+        n_accept = 0 if finished[r] else min(n_ok, max(max_len[r] - num[r], 0))
+        if n_accept:
+            state["tokens"][r, num[r]:num[r] + n_accept] = sampled[r, :n_accept].to(torch.int32)
+        num[r] += n_accept
+        finished[r] = finished[r] or n_ok < head_k or num[r] >= max_len[r] or n_accept == 0
+    if all(finished):
+        return False
+    # the row state goes back in one copy, while the device is idle after the
+    # read above
+    num_t, done = torch.tensor([num, finished], dtype=torch.int64, device=sampled.device)
+    done = done.bool()
+    hidden, state["cache"] = qwen2.forward_block_with_cache(
+        params["backbone"], cfg.backbone, params["speech_embedding"][sampled], state["cache"],
+        advance=torch.where(done, 0, head_k).to(torch.int32), decode_step=True,
+    )
+    state["num_t"] = num_t
+    state["last_hidden"] = torch.where(done[:, None], state["last_hidden"], hidden[:, head_k - 1])
+    return True

@@ -12,7 +12,9 @@ hands them out in the order the JAX package draws it:
 
 `TorchNoise` draws from a `torch.Generator` on the device, for serving. Tests
 use a source that replays the JAX key chain instead, so that both packages see
-the same numbers.
+the same numbers. `RowNoise` gives each row of a flash batch a source of its
+own, so that a row draws what the same source would give it on a continuous
+slot.
 """
 
 from __future__ import annotations
@@ -43,3 +45,24 @@ class TorchNoise:
         rand_ini = torch.rand((b, nh), generator=self.generator, device=self.device)
         noise = torch.randn((b, t, nh), generator=self.generator, device=self.device)
         return rand_ini, noise
+
+
+class RowNoise:
+    """One source per batch row: row r's draws are `sources[r]`'s one-row
+    draws, stacked."""
+
+    def __init__(self, sources):
+        self.sources = list(sources)
+
+    def _rows(self, b: int):
+        if b != len(self.sources):
+            raise ValueError(f"{len(self.sources)} row sources for a batch of {b}")
+        return self.sources
+
+    def sampling_batch(self, b: int, k: int, vocab: int):
+        nuc, flat = zip(*(s.sampling(k, vocab) for s in self._rows(b)))
+        return torch.stack(nuc), torch.stack(flat)
+
+    def vocoder(self, b: int, t: int, nh: int):
+        rand_ini, noise = zip(*(s.vocoder(1, t, nh) for s in self._rows(b)))
+        return torch.cat(rand_ini), torch.cat(noise)

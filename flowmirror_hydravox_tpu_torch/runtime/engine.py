@@ -12,7 +12,9 @@ batch of several (`synthesize_batch`):
     the mel edge-replicated past the valid end and the wav quantised to int16.
 
 The bucket ladders are the JAX package's: HiFT's convs are non-causal, so the
-padded tail changes the last samples, and the same buckets give the same wav.
+padded tail changes the last samples, and the same buckets give the same wav
+(the continuous batcher's synthesis, `synthesize_tokens`, takes TOKEN_BUCKETS
+as the JAX batcher does).
 
 Metrics follow the reference definitions (infer_speech_model.py:563-604):
 tps = tokens / llm_time, rtf = total_time / audio seconds. The two stages are
@@ -52,8 +54,11 @@ def _bucket(n: int, buckets) -> int:
 
 PROMPT_BUCKETS = (32, 64, 128, 256, 512, 1024)
 MEL_BUCKETS = (128, 256, 512, 1024, 2048)
-# finer ladder for the flow + HiFT stage, whose cost is linear in the padded
-# bucket
+# the coarse token ladder, which the JAX continuous batcher's synthesis takes
+# (continuous.py:1344, `Engine._bucket_token`)
+TOKEN_BUCKETS = (32, 64, 128, 256, 512, 1024)
+# finer ladder for the flow + HiFT stage of the two-stage paths, whose cost is
+# linear in the padded bucket
 SYNTH_BUCKETS = (32, 64, 96, 128, 160, 192, 256, 384, 512, 768, 1024)
 # speech-token length bounds per text token (infer_speech_model.py)
 MIN_TOKEN_TEXT_RATIO = 2.0
@@ -93,6 +98,12 @@ class Engine:
             seed = int(torch.randint(0, 2 ** 62, (1,), generator=self._generator,
                                      device=self.device).item())
         return TorchNoise(torch.Generator(device=self.device).manual_seed(seed))
+
+    def noise_for(self, seed: Optional[int]) -> TorchNoise:
+        """The noise source of `seed`, or `next_noise()` for None."""
+        if seed is None:
+            return self.next_noise()
+        return TorchNoise(torch.Generator(device=self.device).manual_seed(int(seed)))
 
     def _tensor(self, arr, dtype):
         return torch.as_tensor(np.asarray(arr), dtype=dtype, device=self.device)
@@ -151,6 +162,25 @@ class Engine:
         wav_i16 = (torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)
         return wav_i16, mel_gen
 
+    def _row_prompts(self, prompt_speech_tokens, prompt_mel):
+        """One row's prompt buffers at their buckets: (sp_pad (sbkt,) int32
+        over PROMPT_BUCKETS, lp, pm (1, pm_bucket, 80) f32 over MEL_BUCKETS,
+        pm_len). Prompt tokens past the largest bucket are cut off."""
+        sp = (np.zeros((0,), np.int32) if prompt_speech_tokens is None
+              else np.asarray(prompt_speech_tokens, np.int32))
+        sbkt = _bucket(len(sp), PROMPT_BUCKETS) if len(sp) else 0
+        sp = sp[:sbkt]
+        sp_pad = np.zeros((sbkt,), np.int32)
+        sp_pad[:len(sp)] = sp
+        n_mel = self.cfg.flow.output_size
+        if prompt_mel is not None and len(prompt_mel) > 0:
+            pm_len = len(prompt_mel)
+            pm = np.zeros((1, _bucket(pm_len, MEL_BUCKETS), n_mel), np.float32)
+            pm[0, :pm_len] = prompt_mel
+        else:
+            pm, pm_len = np.zeros((1, 0, n_mel), np.float32), 0
+        return sp_pad, len(sp), pm, pm_len
+
     def _resample_and_vocode(self, mel_gen, n_frames: int, speed: float, noise) -> np.ndarray:
         """speed != 1: resample the mel linearly on the host, then re-vocode
         (infer_speech_model.py:586-587)."""
@@ -194,41 +224,26 @@ class Engine:
         sampling = sampling or cfg.tts_sampling
         head_num = inference_head_num or cfg.llm.inference_head_num
         noise = noise if noise is not None else self.next_noise()
-        sp_tokens = (np.zeros((0,), np.int32) if prompt_speech_tokens is None
-                     else np.asarray(prompt_speech_tokens, np.int32))
         if spk_embedding is None:
             spk_embedding = np.zeros((192,), np.float32)
 
         # ---- shared padding/bucketing ----
         text_tokens = np.asarray(text_tokens, np.int32)
-        lt, lp = len(text_tokens), len(sp_tokens)
+        lt = len(text_tokens)
         tbkt = _bucket(lt, PROMPT_BUCKETS)
         if lt > tbkt:
             logger.warning("text of %d tokens exceeds the largest prompt bucket %d; truncating",
                            lt, tbkt)
             text_tokens, lt = text_tokens[:tbkt], tbkt
             tts_text_len = min(int(tts_text_len), tbkt)
-        sbkt = _bucket(lp, PROMPT_BUCKETS) if lp else 0
-        if lp > sbkt:
-            sp_tokens, lp = sp_tokens[:sbkt], sbkt
         text_pad = np.zeros((tbkt,), np.int32)
         text_pad[:lt] = text_tokens
-        sp_pad = np.zeros((sbkt,), np.int32)
-        sp_pad[:lp] = sp_tokens
+        sp_pad, lp, pm, pm_len = self._row_prompts(prompt_speech_tokens, prompt_mel)
+        sbkt, pm_bucket = len(sp_pad), pm.shape[1]
 
         min_len = int(tts_text_len * MIN_TOKEN_TEXT_RATIO)
         max_len = min(int(tts_text_len * MAX_TOKEN_TEXT_RATIO), self.max_tokens)
         sp = SamplingParams.make(sampling.top_p, sampling.top_k, sampling.win_size, sampling.tau_r)
-
-        if prompt_mel is not None and len(prompt_mel) > 0:
-            lm = len(prompt_mel)
-            pm_bucket = _bucket(lm, MEL_BUCKETS)
-            pm = np.zeros((1, pm_bucket, cfg.flow.output_size), np.float32)
-            pm[0, :lm] = prompt_mel
-            pm_len = lm
-        else:
-            pm = np.zeros((1, 0, cfg.flow.output_size), np.float32)
-            pm_bucket, pm_len = 0, 0
 
         ratio = cfg.flow.token_mel_ratio
         up = cfg.hift.upsample_scale
@@ -272,6 +287,28 @@ class Engine:
         logger.info("synth: %d tokens in %d steps, tps=%.1f rtf=%.4f (llm %.3fs flow+hift %.3fs)",
                     n_tok, steps, result.tps, result.rtf, llm_time, synth_time)
         return result
+
+    @torch.inference_mode()
+    def synthesize_tokens(self, tokens, num: int, noise, prompt_speech_tokens=None,
+                          prompt_mel=None, spk_embedding=None) -> np.ndarray:
+        """Stage 2 alone for one row of generated tokens, as the JAX continuous
+        batcher synthesises a finished slot (continuous.py:1339-1379): the
+        tokens in a (max_tokens,) buffer, -1 past `num`, padded to a bucket of
+        the coarse TOKEN_BUCKETS. tokens: a (>= max_tokens,) int32 tensor on
+        the engine's device. Returns the float32 wav."""
+        sp_pad, lp, pm, pm_len = self._row_prompts(prompt_speech_tokens, prompt_mel)
+        emb = (np.zeros((192,), np.float32) if spk_embedding is None
+               else np.asarray(spk_embedding, np.float32).reshape(-1)[:192])
+        tok_bkt = _bucket(max(lp + num, 1), TOKEN_BUCKETS)
+        flow_dtype = self.flow_params["input_embedding"].dtype
+        with torch.profiler.record_function("engine.synth"):
+            wav_dev, _ = self._synth_body(
+                tok_bkt, pm.shape[1], len(sp_pad), tokens[None, :self.max_tokens], [num],
+                self._tensor(sp_pad[None], torch.int32), [lp], self._tensor(pm, flow_dtype),
+                [pm_len], self._tensor(emb[None], torch.float32), noise,
+            )
+            n_samples = num * self.cfg.flow.token_mel_ratio * self.cfg.hift.upsample_scale
+            return wav_dev[0, :n_samples].cpu().numpy().astype(np.float32) / 32767.0
 
     @torch.inference_mode()
     def synthesize_batch(

@@ -3,24 +3,40 @@ with the reference's REST schema (server/router.py):
 
   GET  /health            -> {"status": "ok"}
   GET  /api/v1/speakers   -> {success, message, data: {speakers}, error}
+  GET  /api/v1/metrics    -> {success, message, data: {requests, latency_*,
+                             batched_requests, continuous_requests,
+                             admission_ms_p50/p95, queue_wait_ms_p50/p95}, error}
   POST /api/v1/tts        {text, speaker_id, extra_params}
        -> {success, message, data: {audio_base64, sample_rate, duration}, error}
 
 Errors: unknown speaker -> 500 naming the speakers; bad JSON -> 400; unknown
-route -> 404; timeout -> 408. Requests run on one worker thread (one device
-program stream), and take the JAX server's routes:
+route -> 404; timeout -> 408. Requests take the JAX server's routes:
 
-  - a single-segment text goes through `Engine.synthesize`, with its speed;
-  - a multi-segment text goes through one flash batch,
-    `Engine.synthesize_batch`, whatever its speed (the JAX server passes no
-    speed there either), with 50-150 ms pauses between segments;
-  - window coalescing: when the worker takes a batchable request (SFT tts,
-    speed 1, no rolling prompt), it pulls further requests of the same
-    sampling and head count for up to `batch_window` s, `max_batch` in all,
-    and serves the group as one flash batch with per-row speaker
-    embeddings. A request that does not match ends the window and runs
-    right after the group, in arrival order. This is the JAX launcher's
-    `--continuous-batching 0` mode; the continuous batcher is not ported.
+  - continuous batching (`continuous_slots` > 0, the launcher's default): a
+    tts request at the default sampling and the slots' head count bypasses
+    the worker queue; each of its segments becomes one request of the
+    `ContinuousBatcher` (runtime/continuous.py), which joins a decode in
+    flight at the next chunk boundary, and the segments' wavs are joined
+    with 50-150 ms pauses. A segment longer than the slots' ladders sends
+    the whole request to the worker before anything is admitted;
+  - every other request goes through the queue to one worker thread:
+    - a single-segment text goes through `Engine.synthesize`, with its
+      speed;
+    - a multi-segment text goes through one flash batch,
+      `Engine.synthesize_batch`, whatever its speed (the JAX server passes
+      no speed there either), with 50-150 ms pauses between segments;
+    - window coalescing: when the worker takes a batchable request (SFT
+      tts, speed 1, no rolling prompt), it pulls further requests of the
+      same sampling and head count for up to `batch_window` s, `max_batch`
+      in all, and serves the group as one flash batch with per-row speaker
+      embeddings. A request that does not match ends the window and runs
+      right after the group, in arrival order. With `continuous_slots=0`
+      this is the JAX launcher's `--continuous-batching 0` mode.
+
+An integer `seed` in extra_params (an addition to the JAX schema) makes a
+request reproducible: segment j draws its sampling and vocoder noise from
+`seed + j`, on a slot or as a row of a flash batch (`noise.RowNoise`), so the
+same seeded load decodes the same draws in both modes.
 """
 
 from __future__ import annotations
@@ -32,14 +48,20 @@ import random
 import threading
 import time
 import uuid
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional
 
 import numpy as np
 
 from ..config import SamplingConfig
+from ..noise import RowNoise
+from ..ops.sampling import SamplingParams
 from ..utils.wavio import audio_to_base64
+from .continuous import ContinuousBatcher
 from .engine import Engine
+from .profiling import MetricsAggregator
 
 logger = logging.getLogger("hydravox.server")
 
@@ -58,28 +80,55 @@ def _with_pauses(wavs, sr: int) -> np.ndarray:
 
 
 class TTSService:
-    """Queue + worker thread around the Engine.
+    """Queue + worker thread around the Engine, and the continuous slots.
 
     `batch_window` / `max_batch`: cross-request coalescing of batchable
     requests into one flash batch (see the module docstring); 0 turns it
     off. Left out from the JAX service: the power-of-two row padding, the
     warm-shape keys and the cold-batch fallback (server.py:310-335,
     :363-412), which exist to reuse XLA compile shapes; PyTorch runs
-    eagerly, so a group is served at its own row count."""
+    eagerly, so a group is served at its own row count.
+
+    `continuous_slots` > 0 turns on continuous batching (server.py:100-140):
+    a `ContinuousBatcher` of that many slots at the default sampling and
+    `continuous_head_num` heads, which becomes the service's default head
+    count (the HTTP handler merges the defaults under the client's values,
+    so otherwise no request would match the slots). Its requests run on a
+    pool of max(8, 2 x slots) threads that featurise, submit and wait."""
 
     def __init__(self, engine: Engine, frontend, request_timeout: float = 60.0,
-                 batch_window: float = 0.03, max_batch: int = 8):
+                 batch_window: float = 0.03, max_batch: int = 8,
+                 continuous_slots: int = 0, continuous_head_num: int = 2):
         self.engine = engine
         self.frontend = frontend
         self.timeout = request_timeout
         self.batch_window = batch_window
         self.max_batch = max_batch
         self.batched_requests = 0  # requests served through a coalesced group
+        self.continuous_requests = 0  # requests served through the continuous slots
+        self.metrics = MetricsAggregator()
+        # submit -> worker dequeue (the slots report admission_lat_s instead)
+        self.queue_wait_s: deque = deque(maxlen=512)
         self.default_extra = dict(DEFAULT_TTS_EXTRA)
         self.tasks: "queue.Queue" = queue.Queue()
         self.results: Dict[str, Any] = {}
         self.results_lock = threading.Lock()
         self._stop = threading.Event()
+        self.batcher = None
+        self._continuous_key = None
+        self._cont_pool = None
+        if continuous_slots > 0:
+            self.default_extra["inference_head_num"] = int(continuous_head_num)
+            default = self._sampling(self.default_extra)
+            self._continuous_key = (default, int(continuous_head_num))
+            self.batcher = ContinuousBatcher(
+                engine, slots=continuous_slots, head_num=continuous_head_num,
+                sampling=SamplingParams.make(default.top_p, default.top_k, default.win_size,
+                                             default.tau_r))
+            self._cont_pool = ThreadPoolExecutor(max_workers=max(8, 2 * continuous_slots),
+                                                 thread_name_prefix="continuous")
+        # the worker launches on the device's default stream, as the
+        # batcher's threads do (see ContinuousBatcher.submit)
         self.worker = threading.Thread(target=self._worker_loop, daemon=True)
         self.worker.start()
 
@@ -89,6 +138,7 @@ class TTSService:
                 task = self.tasks.get(timeout=0.1)
             except queue.Empty:
                 continue
+            self.queue_wait_s.append(time.time() - task["t_submit"])
             group, leftover = [task], None
             if self.batch_window > 0 and self._batchable(task) is not None:
                 more, leftover = self._coalesce_more(task)
@@ -159,6 +209,22 @@ class TTSService:
                 return group, cand
         return group, None
 
+    def _noises(self, task: dict, n_rows: int) -> list:
+        """The noise sources of a task's n_rows segments: seed + j for
+        segment j when its extra_params carry a seed, else None (the
+        engine's next source)."""
+        seed = (task.get("extra_params") or {}).get("seed")
+        if seed is None:
+            return [None] * n_rows
+        return [self.engine.noise_for(int(seed) + j) for j in range(n_rows)]
+
+    def _batch_noise(self, noises: list):
+        """One flash batch's noise: a source per row if any row is seeded,
+        else None (one source for the batch, as the JAX flash batch has)."""
+        if all(n is None for n in noises):
+            return None
+        return RowNoise([self.engine.next_noise() if n is None else n for n in noises])
+
     def _sft_rows(self, task: dict):
         """(text token rows, speaker embedding, prompt tokens, prompt mel) of
         one tts task, one row per segment (server.py:827-846)."""
@@ -176,10 +242,11 @@ class TTSService:
         task whose featurisation fails gets its error; if the batch fails,
         every task in it gets the batch's error."""
         extra = group[0].get("extra_params") or {}
-        spans, token_rows, embs, sp_rows, pm_rows = [], [], [], [], []
+        spans, token_rows, embs, sp_rows, pm_rows, noises = [], [], [], [], [], []
         for task in group:
             try:
                 rows, emb, sp_t, pm_t = self._sft_rows(task)
+                noises += self._noises(task, len(rows))
             except Exception as e:
                 logger.exception("task %s failed", task["task_id"])
                 self._set_result(task, {"error": str(e)})
@@ -196,6 +263,7 @@ class TTSService:
                 token_rows, sampling=self._sampling(extra),
                 inference_head_num=int(extra.get("inference_head_num", 2)),
                 prompt_speech_tokens=sp_rows, prompt_mel=pm_rows, spk_embedding=np.stack(embs),
+                noise=self._batch_noise(noises),
             )
         except Exception as e:
             logger.exception("coalesced batch failed")
@@ -229,6 +297,7 @@ class TTSService:
                 prompt_speech_tokens=feats0.get("prompt_speech_tokens"),
                 prompt_mel=feats0.get("prompt_mel"),
                 spk_embedding=feats0.get("spk_embedding"),
+                noise=self._batch_noise(self._noises(task, len(segments))),
             )
             return {"output_audio": _with_pauses(wavs, sr), "sample_rate": sr}
         feats = self.frontend.frontend_sft(segments[0], task["speaker_id"])
@@ -241,14 +310,46 @@ class TTSService:
             prompt_mel=feats.get("prompt_mel"),
             spk_embedding=feats.get("spk_embedding"),
             speed=speed,
+            noise=self._noises(task, 1)[0],
         )
+        self.metrics.record(res)
         return {"output_audio": res.audio, "sample_rate": sr}
 
     def submit(self, task: dict) -> str:
         tid = str(uuid.uuid4())
         task["task_id"] = tid
-        self.tasks.put(task)
+        task.setdefault("t_submit", time.time())
+        if self.batcher is not None and self._batchable(task) == self._continuous_key:
+            # featurisation, admission and the wait run on a pool thread, so
+            # concurrent requests join the shared decode instead of queueing
+            # behind the worker
+            self._cont_pool.submit(self._run_continuous, task)
+        else:
+            self.tasks.put(task)
         return tid
+
+    def _run_continuous(self, task: dict):
+        """Each segment of a tts task as one slot request, the wavs joined
+        with pauses (server.py:896-944). A segment outside the slots' ladders
+        sends the task to the worker before anything is admitted."""
+        try:
+            rows, emb, sp_t, pm_t = self._sft_rows(task)
+            if any(len(tt) > self.batcher.prompt_buckets[-1] for tt in rows) or (
+                    sp_t is not None and len(sp_t) > self.batcher.sp_buckets[-1]):
+                self.tasks.put(task)
+                return
+            reqs = [self.batcher.submit(tt, emb, noise=noise, prompt_speech_tokens=sp_t,
+                                        prompt_mel=pm_t)
+                    for tt, noise in zip(rows, self._noises(task, len(rows)))]
+            wavs = [self.batcher.result(req, timeout=self.timeout)[0] for req in reqs]
+            result = {"output_audio": _with_pauses(wavs, self.engine.cfg.sample_rate),
+                      "sample_rate": self.engine.cfg.sample_rate}
+            with self.results_lock:
+                self.continuous_requests += 1
+        except Exception as e:  # the error flows back through the result
+            logger.exception("continuous task %s failed", task["task_id"])
+            result = {"error": str(e)}
+        self._set_result(task, result)
 
     def wait(self, tid: str) -> dict:
         """Poll for the result (router.py:248-295: 50 ms poll, timeout)."""
@@ -262,7 +363,26 @@ class TTSService:
 
     def shutdown(self):
         self._stop.set()
+        # cancel queued continuous tasks before the batcher goes, so that no
+        # pool thread submits into a stopped batcher (server.py:1007-1014)
+        if self._cont_pool is not None:
+            self._cont_pool.shutdown(wait=False, cancel_futures=True)
+        if self.batcher is not None:
+            self.batcher.shutdown()
         self.worker.join(timeout=5)
+
+    def metrics_summary(self) -> dict:
+        """The data of GET /api/v1/metrics (server.py:1049-1063)."""
+        data = self.metrics.summary()
+        data["batched_requests"] = self.batched_requests
+        data["continuous_requests"] = self.continuous_requests
+        for name, window in (("admission_ms", self.batcher and self.batcher.admission_lat_s),
+                             ("queue_wait_ms", self.queue_wait_s)):
+            if window:
+                lat = np.asarray(window)
+                data[f"{name}_p50"] = round(float(np.percentile(lat, 50)) * 1000, 1)
+                data[f"{name}_p95"] = round(float(np.percentile(lat, 95)) * 1000, 1)
+        return data
 
 
 def _response(success: bool, message: str, data=None, error=None) -> dict:
@@ -287,6 +407,8 @@ class _Handler(BaseHTTPRequestHandler):
         if self.path == "/api/v1/speakers":
             speakers = self.service.frontend.available_speakers()
             self._send(200, _response(True, "ok", data={"speakers": speakers}))
+        elif self.path == "/api/v1/metrics":
+            self._send(200, _response(True, "ok", data=self.service.metrics_summary()))
         elif self.path in ("/health", "/"):
             self._send(200, {"status": "ok"})
         else:
@@ -341,16 +463,22 @@ class _Handler(BaseHTTPRequestHandler):
 
 
 def make_server(host: str, port: int, engine: Engine, frontend, request_timeout: float = 60.0,
-                batch_window: float = 0.03, max_batch: int = 8) -> ThreadingHTTPServer:
+                batch_window: float = 0.03, max_batch: int = 8, continuous_slots: int = 0,
+                continuous_head_num: int = 2) -> ThreadingHTTPServer:
     service = TTSService(engine, frontend, request_timeout=request_timeout,
-                         batch_window=batch_window, max_batch=max_batch)
+                         batch_window=batch_window, max_batch=max_batch,
+                         continuous_slots=continuous_slots,
+                         continuous_head_num=continuous_head_num)
     handler = type("Handler", (_Handler,), {"service": service})
     return ThreadingHTTPServer((host, port), handler)
 
 
-def serve(host: str, port: int, engine: Engine, frontend, request_timeout: float = 60.0):
-    server = make_server(host, port, engine, frontend, request_timeout=request_timeout)
-    logger.info("serving on %s:%d", host, port)
+def serve(host: str, port: int, engine: Engine, frontend, request_timeout: float = 60.0,
+          continuous_slots: int = 0, continuous_head_num: int = 2):
+    server = make_server(host, port, engine, frontend, request_timeout=request_timeout,
+                         continuous_slots=continuous_slots,
+                         continuous_head_num=continuous_head_num)
+    logger.info("serving on %s:%d (continuous_slots=%d)", host, port, continuous_slots)
     try:
         server.serve_forever()
     finally:

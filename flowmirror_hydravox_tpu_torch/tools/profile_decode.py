@@ -1,6 +1,7 @@
 """Where one full-width SFT synthesis spends its time on the card.
 
-    python -m flowmirror_hydravox_tpu_torch.tools.profile_decode [--heads 2] [--max-tokens 200]
+    python -m flowmirror_hydravox_tpu_torch.tools.profile_decode [--heads 2] [--max-tokens 200] \
+        [--synth-overlap REPS]
 
 Needs a CUDA GPU. Builds the engine as the server's launcher does (default
 HydraVoxConfig(), random weights: LLM and flow bf16, HiFT f32), runs one warm-up
@@ -15,6 +16,14 @@ attention; the fused MLP GEMV), and the host time of one call of each at its
 serving shape. Device numbers are null when the profiler saw no device
 activity.
 
+`--synth-overlap REPS` adds why the continuous batcher synthesises on its
+decode thread, between chunks, where the JAX batcher has a synthesis thread:
+per rep, four seeded one-sentence requests decode on a 4-slot
+`ContinuousBatcher` at heads 2 twice, alone and while a second thread runs
+`Engine.synthesize_tokens` (flow + HiFT of SYNTH_TOKENS tokens) in a loop.
+It reports ms per slot step (the batcher's decode time over its steps) and
+the time of one synthesis, alone and overlapped.
+
 Prints one JSON line and writes it to chiprun_out/profile_decode.json.
 """
 
@@ -24,12 +33,15 @@ import argparse
 import json
 import os
 import subprocess
+import threading
 import time
 
 import torch
 from torch.autograd import DeviceType
 
 from .. import __main__ as launcher
+from ..ops.sampling import SamplingParams
+from ..runtime.continuous import ContinuousBatcher
 from ..runtime.engine import SynthesisResult
 
 TEXT = "The quick brown fox jumps over the lazy dog and then keeps on running."
@@ -38,6 +50,11 @@ KERNELS = {"decode_attention": ("decode_attn_kernel",),
            "mlp_gemv": ("swiglu_kernel", "down_kernel")}
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx")
 STAGES = ("engine.llm", "engine.synth")
+SLOT_TEXTS = ["The first caller asks for a short weather report.",
+              "A second caller wants the opening hours of the library.",
+              "The third request reads a line from a story for children.",
+              "Here the fourth caller orders a taxi to the station."]
+SYNTH_TOKENS = 100
 
 
 def _union_us(intervals):
@@ -133,10 +150,53 @@ def wrapper_host_us() -> dict:
             "mlp_gemv": host_us(lambda: mlp_gemv(x, gate, up, down))}
 
 
+def synth_overlap(engine, frontend, reps: int) -> dict:
+    """The --synth-overlap experiment (module docstring)."""
+    rows = [frontend.extract_text_tokens(t) for t in SLOT_TEXTS]
+    tokens = torch.randint(0, engine.cfg.llm.speech_token_size, (engine.max_tokens,),
+                           dtype=torch.int32, device=engine.device)
+
+    def synth() -> float:
+        t0 = time.perf_counter()
+        engine.synthesize_tokens(tokens, SYNTH_TOKENS, engine.noise_for(0))
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    def decode(overlap: bool) -> dict:
+        synth_ms, stop = [], threading.Event()
+
+        def synth_loop():
+            while not stop.is_set():
+                synth_ms.append(synth())
+
+        side = threading.Thread(target=synth_loop, daemon=True)
+        batcher = ContinuousBatcher(engine, slots=4, head_num=2,
+                                    sampling=SamplingParams.make(0.9, 10, 24, 0.2))
+        if overlap:
+            side.start()
+        try:
+            reqs = [batcher.submit(r, noise=engine.noise_for(i)) for i, r in enumerate(rows)]
+            outs = [batcher.result(r, timeout=600.0)[1] for r in reqs]
+        finally:
+            stop.set()
+            if overlap:
+                side.join(timeout=60)
+            batcher.shutdown()
+        st = batcher.stats
+        return dict(overlap=overlap, steps=st["steps"], tokens=[len(o["tokens"]) for o in outs],
+                    ms_per_step=1e3 * st["decode_s"] / st["steps"], synth_ms_overlapped=synth_ms)
+
+    decode(False)  # warm-up
+    synth_alone = [synth() for _ in range(3)]
+    runs = [decode(overlap) for _ in range(reps) for overlap in (False, True)]
+    return dict(synth_tokens=SYNTH_TOKENS, synth_ms_alone=synth_alone, runs=runs)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser("profile_decode")
     p.add_argument("--heads", type=int, default=2)
     p.add_argument("--max-tokens", type=int, default=200)
+    p.add_argument("--synth-overlap", type=int, default=0, metavar="REPS")
     args = p.parse_args(argv)
 
     engine, frontend = launcher.build(launcher.parse_args(
@@ -164,6 +224,8 @@ def main(argv=None):
         **analyse(prof, res),
         "host_us_per_call": wrapper_host_us(),
     }
+    if args.synth_overlap:
+        report["synth_overlap"] = synth_overlap(engine, frontend, args.synth_overlap)
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
         json.dump(report, f, indent=1)

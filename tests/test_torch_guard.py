@@ -43,7 +43,8 @@ def test_package_imports_with_jax_blocked():
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "assert 'flowmirror_hydravox_tpu_torch.runtime.server' in mods\n"
+        "for name in ('server', 'continuous', 'profiling'):\n"
+        "    assert 'flowmirror_hydravox_tpu_torch.runtime.' + name in mods, name\n"
         "print(len(mods))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

@@ -73,7 +73,8 @@ def test_plain_version_masks_past_each_query():
 @pytest.mark.parametrize("b,t_blk,hq,hkv,s_max", [
     (1, 1, 14, 2, 512), (1, 5, 14, 2, 768), (1, 2050, 14, 2, 2304), (3, 2, 14, 2, 256),
     (1, 2, 14, 2, 512), (1, 130, 14, 2, 512), (8, 5, 14, 2, 512), (1, 1, 4, 2, 100),
-    (1, 2, 14, 2, 2304), (1, 1, 14, 2, 4096)])
+    (1, 2, 14, 2, 2304), (1, 1, 14, 2, 4096), (4, 2, 14, 2, 768), (4, 2, 14, 2, 1536),
+    (1, 130, 14, 2, 768)])
 def test_split_plan_covers_the_cache(b, t_blk, hq, hkv, s_max):
     row_tiles, splits, chunk = tkern.plan_splits(b, t_blk, hq, hkv, s_max, 4, 128)
     assert row_tiles * 4 >= (hq // hkv) * t_blk > (row_tiles - 1) * 4
@@ -153,6 +154,28 @@ def test_kernel_edge_cases_on_card(dtype):
         want = tkern.decode_attention_ref(q, k, v, cl).float()
         err = (got.float() - want).abs().max().item()
         assert err <= tol * (1.0 + want.abs().max().item()), (b, kblk, s_max, lens, hq, err)
+
+
+# (B, T, S_max, cache_len): a continuous-batching slot step, 4 slots at K 2,
+# against the cache of --max-tokens 300 (768 rows) and of the default 1024
+# (1536 rows), with an empty slot (cache_len 0) and a slot at S_max - T
+SLOT_CASES = [(4, 2, 768, [0, 37, 300, 766]), (4, 2, 1536, [0, 130, 900, 1534])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_slot_shapes_on_card(dtype):
+    """The continuous slots' decode step; the card only."""
+    _needs_card()
+    dt = getattr(torch, dtype)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for i, (b, kblk, s_max, lens) in enumerate(SLOT_CASES):
+        q, k, v, cl = _case(b, kblk, s_max, lens, dt, "cuda", seed=30 + i)
+        got = tkern.decode_attention_cuda(q, k, v, cl)
+        want = tkern.decode_attention_ref(q, k, v, cl).float()
+        err = (got.float() - want).abs().max().item()
+        assert err <= tol * (1.0 + want.abs().max().item()), (b, kblk, s_max, lens, err)
+        assert torch.equal(tkern.decode_attention_cuda(q, k, v, cl), got)
 
 
 @pytest.mark.cuda
