@@ -51,11 +51,32 @@ exits non-zero without either. Phases, each fatal on failure:
      latency, tokens/s over the load and ms per decode step are printed:
      a smoke check of both modes on one seeded burst, not a comparison
      (tools/serve_load.py compares them under a sustained load);
-  6. the kernels line (launches: phases 5 and 5b), the card line, and the
-     final JSON line.
+  5c. streaming, POST /api/v1/tts/stream, every stream seeded: against a
+     window-mode server (every stream on the stream lane) a one-sentence
+     stream twice on one seed (the PCM must be identical) and a two-segment
+     stream; against a server with 4 slots, one reserved for streams (the
+     launcher's default), three concurrent /api/v1/tts requests and then the
+     one-sentence stream on the same seed, which must take the reserved slot
+     within one chunk plus the syntheses queued ahead of it; two concurrent
+     streams on the slots; a stream at top_p 0.5, which must take the stream
+     lane. Each stream's header must be the JAX server's bytes (24 kHz), its
+     PCM non-empty, a one-segment stream's length a multiple of
+     token_mel_ratio x upsampling (960); continuous_requests must count the
+     slot streams; launches must equal the prediction (the lane's from each
+     session's steps, the slots' from the batcher's stats). Printed per
+     stream, not gated: time to first audio and the gaps between chunks,
+     timed at the service's chunk queue; each chunk's synthesis seconds
+     against its audio seconds; underruns (a chunk arriving after the audio
+     before it has finished playing); whether the slot stream's tokens equal
+     the lane stream's on the same seed (bf16 may round a one-row burst and
+     a four-row step apart);
+  6. the kernels line (launches: phases 5, 5b and 5c), the card line, and
+     the final JSON line.
 
 TF32 is off for matmuls and cuDNN convs throughout, so f32 is full f32 in
-every comparison. Measurements also go to chiprun_out/chip_smoke.json.
+every comparison, and cuDNN takes deterministic algorithms, so a seeded
+request repeats bit for bit. Measurements also go to
+chiprun_out/chip_smoke.json.
 """
 
 import base64
@@ -148,7 +169,7 @@ ATTENTION_CASES = [(1, 1, 512, [0], 14), (1, 1, 512, [127], 14), (1, 2, 512, [12
                    (1, 2, 512, [200], 16), (1, 2, 1024, [511], 14), (1, 1, 1024, [512], 14),
                    (1, 5, 1024, [509], 14), (1, 2, 512, [510], 14), (3, 2, 512, [0, 300, 77], 14),
                    (4, 2, 768, [0, 37, 300, 700], 14), (4, 2, 1536, [0, 130, 900, 1500], 14),
-                   (1, 130, 768, [0], 14)]
+                   (1, 130, 768, [0], 14), (1, 2, 768, [140], 14)]
 # tolerance relative to 1 + max |plain|, by dtype
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
@@ -657,6 +678,337 @@ def drive_continuous(engine, frontend, da, mg):
         stop_servers(servers)
 
 
+# phase 5c: streams
+STREAM_TEXT = "Streaming speech starts to play before the whole sentence is ready."
+STREAM_TWO = "The stream speaks this first sentence! Then it goes on with a second one."
+STREAM_PAIR = ["Two streams can share the decode slots at once.",
+               "The second of them arrives at the very same moment."]
+STREAM_SEED = 4242
+SAMPLE_RATE = 24000
+SAMPLES_PER_TOKEN = 2 * 480  # token_mel_ratio x HiFT upsampling, HydraVoxConfig()
+
+
+def jax_stream_header(sr: int) -> bytes:
+    """The JAX server's live-WAV header (server.py:1335-1339), spelled out."""
+    return (b"RIFF" + (0xFFFFFFFF).to_bytes(4, "little") + b"WAVEfmt "
+            + (16).to_bytes(4, "little") + (1).to_bytes(2, "little") + (1).to_bytes(2, "little")
+            + sr.to_bytes(4, "little") + (2 * sr).to_bytes(4, "little")
+            + (2).to_bytes(2, "little") + (16).to_bytes(2, "little")
+            + b"data" + (0xFFFFFFFF).to_bytes(4, "little"))
+
+
+def tts_stream(base, text, seed, heads=2, **extra):
+    """POST /api/v1/tts/stream; the header must be the JAX server's bytes,
+    the PCM non-empty. Returns the s16 PCM."""
+    body = json.dumps({"text": text, "speaker_id": "default",
+                       "extra_params": {"inference_head_num": heads, "seed": seed, **extra}})
+    req = urllib.request.Request(base + "/api/v1/tts/stream", body.encode(),
+                                 {"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=900) as r:
+        if r.status != 200 or r.headers["Content-Type"] != "audio/wav":
+            raise RuntimeError(f"/api/v1/tts/stream: {r.status} {r.headers['Content-Type']}")
+        data = r.read()
+    if data[:44] != jax_stream_header(SAMPLE_RATE):
+        raise RuntimeError(f"stream header {data[:44]!r} is not the JAX server's")
+    pcm = np.frombuffer(data[44:], "<i2")
+    if pcm.size == 0 or not np.isfinite(pcm.astype(np.float32)).all():
+        raise RuntimeError(f"bad stream PCM: {pcm.size} samples")
+    return pcm
+
+
+class StreamWatch:
+    """While entered, records every stream: for each stream task a service
+    receives, its seed, its submit time, the time and samples of each item put
+    on its chunk queue and the slot requests submitted for it (`streams`); the
+    slot requests in order (`slot_requests`); and each lane session's record
+    (tokens, steps, chunks) in `sessions`."""
+
+    def __init__(self, engine, services):
+        self.streamer = engine.streaming()
+        self.services = services
+        self.sessions, self.streams, self.slot_requests = [], [], []
+        self._last_req = {}  # thread -> the slot request it submitted last
+
+    def __enter__(self):
+        synthesize_stream = self.streamer.synthesize_stream
+
+        def record(*args, **kwargs):
+            session = {}
+            self.sessions.append(session)
+            yield from synthesize_stream(*args, session=session, **kwargs)
+
+        self.streamer.synthesize_stream = record
+        for service in self.services:
+            self._watch(service)
+        return self
+
+    def _watch(self, service):
+        submit = service.submit
+
+        def watched(task):
+            if task.get("type") == "tts_stream":
+                rec = dict(seed=task["extra_params"].get("seed"), t_submit=time.time(), puts=[],
+                           reqs=[])
+                q = task["chunk_queue"]
+                put = q.put
+
+                def timed_put(item, *args, **kwargs):
+                    # a slot stream's segments are submitted and read on one
+                    # pool thread, so its chunks come from its last request
+                    req = self._last_req.get(threading.get_ident())
+                    if req is not None and req.stream and all(r is not req for r in rec["reqs"]):
+                        rec["reqs"].append(req)
+                    rec["puts"].append((time.time(), len(item) // 2
+                                        if isinstance(item, bytes) else None))
+                    put(item, *args, **kwargs)
+
+                q.put = timed_put
+                self.streams.append(rec)
+            return submit(task)
+
+        service.submit = watched
+        if service.batcher is not None:
+            batcher_submit = service.batcher.submit
+
+            def watched_submit(*args, **kwargs):
+                req = batcher_submit(*args, **kwargs)
+                self.slot_requests.append(req)
+                self._last_req[threading.get_ident()] = req
+                return req
+
+            service.batcher.submit = watched_submit
+
+    def clear(self):
+        del self.sessions[:], self.streams[:], self.slot_requests[:]
+
+    def __exit__(self, *exc):
+        del self.streamer.synthesize_stream
+        for service in self.services:
+            del service.submit
+            if service.batcher is not None:
+                del service.batcher.submit
+
+
+def stream_timing(rec):
+    """Time to first audio, the gaps between chunks and the underruns of one
+    stream, from its chunk queue (a pause between segments is audio too):
+    playback starts with the first chunk, and a chunk that arrives after the
+    audio before it has played out is an underrun."""
+    chunks = [(t, n) for t, n in rec["puts"] if n is not None]
+    t0 = chunks[0][0]
+    played, underruns = 0.0, 0
+    for t, n in chunks:
+        underruns += t > t0 + played
+        played += n / SAMPLE_RATE
+    return dict(ttft_s=t0 - rec["t_submit"],
+                gaps_s=[b[0] - a[0] for a, b in zip(chunks, chunks[1:])],
+                underruns=underruns, audio_s=played)
+
+
+def lane_launches(sessions, heads, n_layers):
+    """(attention, MLP) launches of lane sessions: a prefill and a forward
+    every step but the stopping one, the MTP heads every step."""
+    steps = sum(s["steps"] for s in sessions)
+    return n_layers * steps, n_layers * (steps - len(sessions)) + heads * steps
+
+
+def start_threads(calls):
+    """Each call on a thread of its own: (threads, results, errors)."""
+    out, errors = [None] * len(calls), []
+
+    def one(i):
+        try:
+            out[i] = calls[i]()
+        except Exception as e:  # reported by join_threads
+            errors.append(f"{i}: {e}")
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(calls))]
+    for th in threads:
+        th.start()
+    return threads, out, errors
+
+
+def join_threads(threads, errors, what):
+    for th in threads:
+        th.join(timeout=900)
+    if errors or any(th.is_alive() for th in threads):
+        fail(f"{what}: " + ("; ".join(errors) or "did not finish"))
+
+
+def drive_streams(engine, frontend, da, mg):
+    """Phase 5c: streams on the stream lane of a window-mode server and on
+    the slots of a server with SLOTS slots, one reserved for streams (the
+    launcher's default). Returns (results, launches)."""
+    n_layers = engine.cfg.llm.backbone.num_layers
+    servers = start_servers(engine, frontend, window={},
+                            continuous={"continuous_slots": SLOTS, "continuous_head_num": 2,
+                                        "continuous_reserve_stream": 1})
+    window_url, cont_url = servers["window"][2], servers["continuous"][2]
+    window_service = servers["window"][0].RequestHandlerClass.service
+    service = servers["continuous"][0].RequestHandlerClass.service
+    batcher = service.batcher
+    results, total = [], [0, 0]
+
+    def report(name, route, rec, pcm, chunks, tokens, segments=1):
+        """One stream's record: its queue timing and each chunk's synthesis
+        seconds against its audio seconds."""
+        out = dict(name=name, route=route, seed=rec["seed"], samples=int(pcm.size),
+                   tokens=len(tokens), chunk_synth=[(s, n / SAMPLE_RATE) for s, n in chunks],
+                   **stream_timing(rec))
+        if segments == 1 and pcm.size % SAMPLES_PER_TOKEN:
+            fail(f"{name}: {pcm.size} samples, not a multiple of {SAMPLES_PER_TOKEN}")
+        print("stream", json.dumps(out), flush=True)
+        results.append(out)
+        return out
+
+    def held(name, prediction):
+        launched = (da.launch_count, mg.launch_count)
+        if launched != prediction or 0 in launched:
+            fail(f"{name}: (attention, mlp) launches {launched}, predicted {prediction}")
+        total[0] += launched[0]
+        total[1] += launched[1]
+
+    def slots_prediction(before):
+        done = {k: batcher.stats[k] - before[k] for k in before}
+        return (n_layers * (done["admits"] + done["forwards"]),
+                n_layers * done["forwards"] + batcher.head_k * done["steps"])
+
+    try:
+        with StreamWatch(engine, [window_service, service]) as watch, \
+                EngineCalls(engine) as calls:
+            # first-use costs of the streaming shapes, outside the counted run
+            tts_stream(window_url, "Warm up the stream.", 1)
+            tts(cont_url, "Warm up the decode slots.", 2)
+            tts_stream(cont_url, "Warm up the stream slots.", 2)
+
+            # 1. the stream lane: a sentence twice on one seed, two segments
+            watch.clear()
+            del calls.records[:]
+            da.launch_count = mg.launch_count = 0
+            pcm = [tts_stream(window_url, STREAM_TEXT, STREAM_SEED) for _ in range(2)]
+            two = tts_stream(window_url, STREAM_TWO, STREAM_SEED + 1)
+            held("lane streams", lane_launches(watch.sessions, 2, n_layers))
+            if len(watch.sessions) != 4 or calls.records or watch.slot_requests:
+                fail(f"lane streams: {len(watch.sessions)} sessions, worker {calls.records}, "
+                     f"{len(watch.slot_requests)} slot requests")
+            if not np.array_equal(pcm[0], pcm[1]):
+                diff = (np.abs(pcm[0].astype(np.int32) - pcm[1].astype(np.int32)).max()
+                        if pcm[0].shape == pcm[1].shape else "shapes differ")
+                fail(f"a seeded stream gave other PCM the second time: {pcm[0].size} and "
+                     f"{pcm[1].size} samples, largest difference {diff}, tokens "
+                     f"{'equal' if watch.sessions[0]['tokens'] == watch.sessions[1]['tokens'] else 'differ'}")
+            lane_tokens = watch.sessions[0]["tokens"]
+            for name, p, rec, sessions in (
+                    ("lane_sentence", pcm[0], watch.streams[0], watch.sessions[:1]),
+                    ("lane_sentence_again", pcm[1], watch.streams[1], watch.sessions[1:2]),
+                    ("lane_two_segments", two, watch.streams[2], watch.sessions[2:])):
+                report(name, "lane", rec, p, [c for s in sessions for c in s["chunks"]],
+                       [t for s in sessions for t in s["tokens"]], len(sessions))
+
+            # 2. the reserved slot: three /api/v1/tts decoding on the other
+            # slots, then the lane's sentence on the same seed as a stream
+            watch.clear()
+            served, before = service.continuous_requests, dict(batcher.stats)
+            da.launch_count = mg.launch_count = 0
+            threads, _, errors = start_threads([lambda i=i: tts(cont_url, BURST[i], 2, seed=77 + i)
+                                                for i in range(3)])
+            deadline = time.time() + 300
+            while (len(watch.slot_requests) < 3
+                   or any(r.t_admit is None for r in watch.slot_requests)) \
+                    and time.time() < deadline:
+                time.sleep(0.005)
+            utts = list(watch.slot_requests)
+            reserved_free = batcher._slot_req[0] is None
+            slot_pcm = tts_stream(cont_url, STREAM_TEXT, STREAM_SEED)
+            join_threads(threads, errors, "the /api/v1/tts requests beside the stream")
+            if len(utts) != 3 or not reserved_free:
+                fail(f"reserved slot: {len(utts)} /api/v1/tts requests admitted, slot 0 "
+                     f"{'free' if reserved_free else 'taken'}")
+            stream_req = watch.slot_requests[3]
+            held("reserved slot", slots_prediction(before))
+            if service.continuous_requests - served != 4 or watch.sessions or calls.records:
+                fail(f"reserved slot: continuous_requests +{service.continuous_requests - served}"
+                     f", lane {len(watch.sessions)}, worker {calls.records}")
+
+            # the stream waits at most for the chunk in flight and the
+            # syntheses that run before the next admission
+            def synth_span(r):
+                end = r.t_submit + r.stats["latency"]
+                return end - r.stats["synth_time"], end
+
+            ahead = [r for r in utts if synth_span(r)[1] > stream_req.t_submit
+                     and synth_span(r)[0] < stream_req.t_admit]
+            wait_s = stream_req.t_admit - stream_req.t_submit
+            bound_s = (max(r.stats["chunk_time"] for r in utts)
+                       + sum(r.stats["synth_time"] for r in ahead) + 0.25)
+            print("reserved slot", json.dumps(dict(
+                admission_s=wait_s, bound_s=bound_s, syntheses_ahead=len(ahead),
+                tts_admission_s=[r.t_admit - r.t_submit for r in utts],
+                tts_decoding_at_stream_admit=sum(r.t_decoded > stream_req.t_admit
+                                                 for r in utts))), flush=True)
+            if wait_s > bound_s:
+                fail(f"the stream waited {wait_s:.3f} s for a slot, past {bound_s:.3f} s")
+            slot = report("slot_sentence", "slots", watch.streams[0], slot_pcm,
+                          stream_req.stats["chunks"], stream_req.stats["tokens"])
+            slot.update(admission_s=wait_s, tokens_equal_lane=stream_req.stats["tokens"]
+                        == lane_tokens)
+            print("slot vs lane tokens", json.dumps(dict(
+                equal=slot["tokens_equal_lane"], slot=len(stream_req.stats["tokens"]),
+                lane=len(lane_tokens))), flush=True)
+
+            # 3. two concurrent streams on the slots
+            watch.clear()
+            served, before = service.continuous_requests, dict(batcher.stats)
+            da.launch_count = mg.launch_count = 0
+            threads, pair, errors = start_threads([
+                lambda i=i: tts_stream(cont_url, STREAM_PAIR[i], STREAM_SEED + 10 + i)
+                for i in range(2)])
+            join_threads(threads, errors, "two concurrent streams")
+            held("two streams", slots_prediction(before))
+            if service.continuous_requests - served != 2 or watch.sessions:
+                fail("two streams: not both on the slots")
+            a, b = sorted(watch.slot_requests, key=lambda r: r.t_submit)
+            print("two streams", json.dumps(dict(
+                submitted_apart_s=b.t_submit - a.t_submit, admitted_apart_s=b.t_admit - a.t_admit,
+                in_flight_together=b.t_admit < a.t_decoded)), flush=True)
+            for rec in watch.streams:
+                i = rec["seed"] - STREAM_SEED - 10
+                (req,) = rec["reqs"]
+                report(f"slot_pair_{i}", "slots", rec, pair[i], req.stats["chunks"],
+                       req.stats["tokens"])
+
+            # 4. a stream at top_p 0.5 takes the lane
+            watch.clear()
+            served = service.continuous_requests
+            da.launch_count = mg.launch_count = 0
+            other = tts_stream(cont_url, STREAM_TEXT, STREAM_SEED + 20, top_p=0.5)
+            held("top_p 0.5 stream", lane_launches(watch.sessions, 2, n_layers))
+            if (len(watch.sessions) != 1 or service.continuous_requests != served
+                    or watch.slot_requests or calls.records):
+                fail("the top_p 0.5 stream did not take the stream lane")
+            report("lane_top_p", "lane", watch.streams[0], other, watch.sessions[0]["chunks"],
+                   watch.sessions[0]["tokens"])
+    finally:
+        stop_servers(servers)
+
+    def pct(values, q):
+        return float(np.percentile(values, q)) if values else None
+
+    summary = {}
+    for route in ("lane", "slots"):
+        recs = [r for r in results if r["route"] == route]
+        chunk_ratio = [s / a for r in recs for s, a in r["chunk_synth"] if a > 0]
+        gaps = [g for r in recs for g in r["gaps_s"]]
+        summary[route] = dict(
+            streams=len(recs), ttft_p50_s=pct([r["ttft_s"] for r in recs], 50),
+            ttft_p95_s=pct([r["ttft_s"] for r in recs], 95), gap_p50_s=pct(gaps, 50),
+            gap_p95_s=pct(gaps, 95), chunk_synth_over_audio_p50=pct(chunk_ratio, 50),
+            chunk_synth_over_audio_max=max(chunk_ratio) if chunk_ratio else None,
+            underruns=sum(r["underruns"] for r in recs))
+    print("streaming", json.dumps(summary), flush=True)
+    return dict(streams=results, summary=summary), tuple(total)
+
+
 def main():
     if not (ROOT / "flowmirror_hydravox_tpu_torch" / "csrc").is_dir():
         fail("the port package is not beside this script; run it from a checkout")
@@ -667,7 +1019,11 @@ def main():
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print("precision: TF32 off for matmuls and cuDNN convs (f32 runs in full f32)", flush=True)
+    # cuDNN may otherwise pick convolution algorithms that accumulate in a
+    # run-dependent order, and phase 5c needs a seeded stream bit for bit
+    torch.backends.cudnn.deterministic = True
+    print("precision: TF32 off for matmuls and cuDNN convs (f32 runs in full f32); "
+          "deterministic cuDNN algorithms", flush=True)
 
     card = census()
     print(f"census: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
@@ -720,7 +1076,8 @@ def main():
 
     requests, launches = drive_main_path(engine, frontend, da, mg)
     serving, more = drive_continuous(engine, frontend, da, mg)
-    attention_launches, mlp_launches = (a + b for a, b in zip(launches, more))
+    streaming, streamed = drive_streams(engine, frontend, da, mg)
+    attention_launches, mlp_launches = (a + b + c for a, b, c in zip(launches, more, streamed))
     del flush
 
     # the kernels line: each kernel at its serving shape (bf16; decode
@@ -763,7 +1120,7 @@ def main():
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "launch_floor_ms": launch_floor_ms, "attention_cases": attention_cases,
          "mlp_cases": mlp_cases, "backbone_rel_err": backbone_rel, "requests": requests,
-         "serving": serving, **kernels}, indent=1))
+         "serving": serving, "streaming": streaming, **kernels}, indent=1))
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

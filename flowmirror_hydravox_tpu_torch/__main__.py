@@ -2,7 +2,7 @@
 
   python -m flowmirror_hydravox_tpu_torch --api-port 8080 \
       [--tiny] [--model-dir DIR] [--max-tokens N] [--device cuda|cpu] \
-      [--continuous-batching SLOTS] [--continuous-heads K]
+      [--continuous-batching SLOTS] [--continuous-heads K] [--continuous-reserve N]
 
 --model-dir holds llm.npz / flow.npz / hift.npz in the JAX package's flat npz
 format; a missing file means random weights from seed 0 (structure and
@@ -13,19 +13,21 @@ registered.
 
 Batching, as the JAX launcher's flags set it (:66-76):
   - `--continuous-batching N` (default 4): continuous in-flight batching.
-    Default-config SFT requests (default sampling, `--continuous-heads`
-    heads, default 2) decode in N shared slots and join a decode in flight
-    at a chunk boundary (runtime/continuous.py); other requests go through
-    the worker. Every slot takes /api/v1/tts traffic: the JAX launcher's
-    `--continuous-reserve` stream slot comes with streaming. On an H100
-    neither mode has shown lower p50 or p95 latency than the other under
-    a sustained load (tools/serve_load.py; PERF.md §5): the slots
-    synthesise each finished row alone on their decode thread, while the
-    window synthesises a coalesced group at once.
+    Default-config SFT requests and streams (default sampling,
+    `--continuous-heads` heads, default 2) decode in N shared slots and join
+    a decode in flight at a chunk boundary (runtime/continuous.py); other
+    requests go through the worker, other streams through the stream lane.
+    `--continuous-reserve M` (default 1) keeps M of the slots for streams,
+    so that at most N - M take /api/v1/tts traffic and a stream starts at
+    the next chunk boundary. On an H100 neither mode has shown lower p50 or
+    p95 /api/v1/tts latency than the other under a sustained load
+    (tools/serve_load.py; PERF.md §5): the slots synthesise each finished
+    row alone on their decode thread, while the window synthesises a
+    coalesced group at once.
   - `--continuous-batching 0`: window coalescing. A multi-segment text
     decodes as one flash batch, and concurrent batchable requests are
     coalesced by the server's 0.03 s window into one flash batch of up to 8
-    requests (runtime/server.py).
+    requests (runtime/server.py); every stream takes the stream lane.
 """
 
 from __future__ import annotations
@@ -61,6 +63,8 @@ def parse_args(argv=None):
                         "0 = window coalescing")
     p.add_argument("--continuous-heads", type=int, default=2,
                    help="inference_head_num served by the continuous slots")
+    p.add_argument("--continuous-reserve", type=int, default=1,
+                   help="continuous slots reserved for streams (0 = none)")
     return p.parse_args(argv)
 
 
@@ -103,9 +107,14 @@ def build(args):
 def main(argv=None):
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    # cuDNN's default convolution algorithms may accumulate in a run-dependent
+    # order, and a seeded request (extra_params.seed) then repeats its tokens
+    # but not its PCM: one int16 step apart on an H100 (PERF.md §6)
+    torch.backends.cudnn.deterministic = True
     engine, frontend = build(args)
     serve(args.api_host, args.api_port, engine, frontend,
-          continuous_slots=args.continuous_batching, continuous_head_num=args.continuous_heads)
+          continuous_slots=args.continuous_batching, continuous_head_num=args.continuous_heads,
+          continuous_reserve_stream=args.continuous_reserve)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """F5-TTS-style DiT velocity estimator: the inference subset of
-flowmirror_hydravox_tpu/models/dit.py (non-streaming, no dropout).
+flowmirror_hydravox_tpu/models/dit.py (no dropout), with its streaming
+(static-chunk) attention mask.
 
   - AdaLN-Zero modulated transformer blocks.
   - Causal conv position embedding (two left-padded grouped convs + Mish).
@@ -106,10 +107,14 @@ def _dit_block(block, x, t_emb, mask_bias, cos, sin, heads: int, dim_head: int):
     return x + gate_mlp[:, None] * ff
 
 
-def forward(params: dict, cfg: DiTConfig, x, mask, mu, t, spks, cond):
+def forward(params: dict, cfg: DiTConfig, x, mask, mu, t, spks, cond, streaming: bool = False):
     """Velocity estimate (B, mel_dim, T). x (B, mel_dim, T) noised input,
     mask (B, 1, T) validity, mu (B, mu_dim, T), t (B,), spks (B, spk_dim),
-    cond (B, mel_dim, T). Mirrors DiT.forward (dit.py:145-176)."""
+    cond (B, mel_dim, T). Mirrors DiT.forward (dit.py:145-176).
+
+    `streaming` adds the static-chunk mask: frame q attends to frame k only
+    when k // static_chunk_size <= q // static_chunk_size. A row left with no
+    key keeps the finite NEG_INF bias on every key, as in the JAX package."""
     dtype = params["input_proj"]["w"].dtype
     x = x.transpose(1, 2).to(dtype)
     mu = mu.transpose(1, 2).to(dtype)
@@ -125,6 +130,9 @@ def forward(params: dict, cfg: DiTConfig, x, mask, mu, t, spks, cond):
     cos, sin = rope_cos_sin(torch.arange(seq_len, device=x.device), cfg.dim_head, cfg.rope_theta)
     valid = mask[:, 0, :] > 0  # (B, T)
     attn = valid[:, None, :] & valid[:, :, None]
+    if streaming:
+        chunk = torch.arange(seq_len, device=x.device) // cfg.static_chunk_size
+        attn = attn & (chunk[None, :] <= chunk[:, None])[None]
     mask_bias = torch.where(attn, 0.0, NEG_INF).to(torch.float32)
 
     blocks = params["blocks"]

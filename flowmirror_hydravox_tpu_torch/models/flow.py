@@ -1,6 +1,6 @@
 """Flow-matching mel decoder: the inference subset of
 flowmirror_hydravox_tpu/models/flow.py (CausalMaskedDiffWithDiT +
-CausalConditionalCFM, non-streaming, finalize=True).
+CausalConditionalCFM), whole-utterance and streaming.
 
   - 10 fixed Euler steps over a cosine time schedule, with the classifier-free
     guidance pair batched into one estimator call.
@@ -21,23 +21,32 @@ from . import dit
 from .dit import conv1d, linear
 
 
-def pre_lookahead(params: dict, cfg: FlowConfig, x):
+def pre_lookahead(params: dict, cfg: FlowConfig, x, context=None):
     """x: (B, T, C). Right-context conv -> leaky_relu -> left-padded conv(k=3)
-    -> residual; the right context is zeros (finalize=True)."""
-    h = F.pad(x.transpose(1, 2), (0, cfg.pre_lookahead_len))
+    -> residual. The right context is `context` (B, pre_lookahead_len, C),
+    the embeddings of the tokens after x, or zeros when None."""
+    h = x.transpose(1, 2)
+    if context is None:
+        h = F.pad(h, (0, cfg.pre_lookahead_len))
+    else:
+        h = torch.cat([h, context.transpose(1, 2)], dim=2)
     h = F.leaky_relu(conv1d(params["pre_lookahead_conv1"], h), 0.01)
     h = conv1d(params["pre_lookahead_conv2"], F.pad(h, (2, 0)))
     return h.transpose(1, 2) + x
 
 
-def encode_tokens(params: dict, cfg: FlowConfig, token, token_valid):
+def encode_tokens(params: dict, cfg: FlowConfig, token, token_valid, context_token=None):
     """Token -> mu stream at mel rate: embed, mask, pre-lookahead, repeat by
-    token_mel_ratio. token (B, T) int; token_valid (B, T) bool. Returns
-    (B, T * token_mel_ratio, input_size)."""
+    token_mel_ratio. token (B, T) int; token_valid (B, T) bool;
+    context_token (B, pre_lookahead_len) the lookahead tokens, or None.
+    Returns (B, T * token_mel_ratio, input_size)."""
     table = params["input_embedding"]
     emb = table[torch.clamp(token, 0, table.shape[0] - 1).long()]
     emb = emb * token_valid[..., None].to(emb.dtype)
-    h = pre_lookahead(params, cfg, emb)
+    ctx = None
+    if context_token is not None:
+        ctx = table[torch.clamp(context_token, 0, table.shape[0] - 1).long()]
+    h = pre_lookahead(params, cfg, emb, ctx)
     return torch.repeat_interleave(h, cfg.token_mel_ratio, dim=1)
 
 
@@ -48,7 +57,8 @@ def project_speaker(params: dict, embedding):
     return linear(params["spk_embed_affine"], (embedding / torch.clamp_min(norm, 1e-12)).to(dt))
 
 
-def solve_euler(params: dict, cfg: FlowConfig, z, mu, mask, spks, cond, n_timesteps: int):
+def solve_euler(params: dict, cfg: FlowConfig, z, mu, mask, spks, cond, n_timesteps: int,
+                streaming: bool = False):
     """Fixed-step Euler with CFG batch-2 per step (flow_matching.py:71-124).
     z (B, 80, T) f32 start noise; returns the mel (B, 80, T) f32."""
     t_span = torch.linspace(0.0, 1.0, n_timesteps + 1, dtype=torch.float32)
@@ -70,7 +80,7 @@ def solve_euler(params: dict, cfg: FlowConfig, z, mu, mask, spks, cond, n_timest
         x_in = torch.cat([x, x]).to(dtype)
         t_in = torch.full((2 * b,), t, dtype=torch.float32, device=x.device)
         v = dit.forward(params["estimator"], cfg.estimator, x_in, mask2, mu2, t_in,
-                        spks2, cond2).to(torch.float32)
+                        spks2, cond2, streaming=streaming).to(torch.float32)
         v_cond, v_uncond = v[:b], v[b:]
         dphi = (1.0 + cfg_rate) * v_cond - cfg_rate * v_uncond
         x = x + dt * dphi
@@ -78,15 +88,27 @@ def solve_euler(params: dict, cfg: FlowConfig, z, mu, mask, spks, cond, n_timest
 
 
 def inference(params: dict, cfg: FlowConfig, token, token_valid, prompt_feat, prompt_mel_len,
-              embedding, n_timesteps: Optional[int] = None):
-    """Full flow inference (flow.py:367-430, finalize=True). token (B, Lp + Lt)
-    prompt + generated speech tokens, token_valid (B, Lp + Lt) bool,
-    prompt_feat (B or 1, mel_len1, 80) (may be 0-length), prompt_mel_len an
-    int (a shared prompt) or (B,) (per-row prompts, flow.py:186-190),
-    embedding (B, 192). Returns the mel (B, 80, T_mel) f32, prompt region
-    included."""
+              embedding, n_timesteps: Optional[int] = None, finalize: bool = True,
+              streaming: bool = False, emit_valid=None):
+    """Full flow inference (flow.py:149-207). token (B, Lp + Lt) prompt +
+    generated speech tokens, token_valid (B, Lp + Lt) bool, prompt_feat
+    (B or 1, mel_len1, 80) (may be 0-length), prompt_mel_len an int (a shared
+    prompt) or (B,) (per-row prompts, flow.py:186-190), embedding (B, 192).
+    Returns the mel (B, 80, T_mel) f32, prompt region included.
+
+    finalize=False: the last pre_lookahead_len tokens are conv context only
+    and emit no mel. An exact-shape call splits them off here; a
+    bucket-padded call passes `emit_valid` (B, T) bool marking the emitting
+    tokens instead: the context tokens stay in `token_valid` for the
+    lookahead conv, and their frames are masked out of attention (the caller
+    cuts them off). `streaming` turns on the DiT's static-chunk mask."""
     n_timesteps = n_timesteps or cfg.n_timesteps
-    h = encode_tokens(params, cfg, token, token_valid)
+    if finalize or emit_valid is not None:
+        h = encode_tokens(params, cfg, token, token_valid)
+    else:
+        la = cfg.pre_lookahead_len
+        h = encode_tokens(params, cfg, token[:, :-la], token_valid[:, :-la],
+                          context_token=token[:, -la:])
     b, t_mel, _ = h.shape
     mel_dim = cfg.output_size
     dev = h.device
@@ -103,7 +125,9 @@ def inference(params: dict, cfg: FlowConfig, token, token_valid, prompt_feat, pr
         pf = torch.where(in_prompt[:, :, None], pf_src.expand(b, t_mel, mel_dim), pf)
     conds = pf.transpose(1, 2)  # (B, 80, T)
 
-    mask = torch.repeat_interleave(token_valid.to(torch.float32), cfg.token_mel_ratio,
+    mask_src = emit_valid if emit_valid is not None else token_valid
+    mask = torch.repeat_interleave(mask_src.to(torch.float32), cfg.token_mel_ratio,
                                    dim=1)[:, None, :t_mel]
     z = params["rand_noise"][:, :, :t_mel].expand(b, mel_dim, t_mel).to(torch.float32)
-    return solve_euler(params, cfg, z, h.transpose(1, 2), mask, spks, conds, n_timesteps)
+    return solve_euler(params, cfg, z, h.transpose(1, 2), mask, spks, conds, n_timesteps,
+                       streaming)

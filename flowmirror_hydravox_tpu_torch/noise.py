@@ -14,7 +14,8 @@ hands them out in the order the JAX package draws it:
 use a source that replays the JAX key chain instead, so that both packages see
 the same numbers. `RowNoise` gives each row of a flash batch a source of its
 own, so that a row draws what the same source would give it on a continuous
-slot.
+slot. `StreamNoise` is a stream's pair of sources: its decode draws continue,
+and its vocoder draws restart from one seed on every chunk (`SeededVocoder`).
 """
 
 from __future__ import annotations
@@ -66,3 +67,34 @@ class RowNoise:
     def vocoder(self, b: int, t: int, nh: int):
         rand_ini, noise = zip(*(s.vocoder(1, t, nh) for s in self._rows(b)))
         return torch.cat(rand_ini), torch.cat(noise)
+
+
+class SeededVocoder:
+    """A vocoder source that redraws from `seed` on every call, so the same
+    shape gets the same draw each time, as a JAX key that every chunk of a
+    stream reuses does (streaming.py:255)."""
+
+    def __init__(self, seed: int, device):
+        self.seed = int(seed)
+        self.device = torch.device(device)
+
+    def vocoder(self, b: int, t: int, nh: int):
+        gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        return TorchNoise(gen).vocoder(b, t, nh)
+
+
+class StreamNoise:
+    """A stream's two sources, as the JAX streamer splits its key once into a
+    decode key and a vocoder key (streaming.py:316): `sampling` continues
+    `decode`, and `vocoder` comes from `vocoder_source`, which must redraw
+    from one key on every call (`SeededVocoder`, or a replayed JAX key)."""
+
+    def __init__(self, decode, vocoder_source):
+        self.decode = decode
+        self.vocoder_source = vocoder_source
+
+    def sampling(self, k: int, vocab: int):
+        return self.decode.sampling(k, vocab)
+
+    def vocoder(self, b: int, t: int, nh: int):
+        return self.vocoder_source.vocoder(b, t, nh)

@@ -1,6 +1,6 @@
 """Continuous (in-flight) batching for the multi-head LM decode: the
-non-streaming, non-speculative subset of
-flowmirror_hydravox_tpu/runtime/continuous.py.
+non-speculative subset of flowmirror_hydravox_tpu/runtime/continuous.py,
+whole utterances and streams.
 
 A fixed set of decode slots shares one KV cache of (L, slots, cache_cap,
 Hkv, D). New requests are admitted into free slots between chunks: they join
@@ -20,28 +20,51 @@ window mode of runtime/server.py).
     TOKEN_BUCKETS, `Engine.synthesize_tokens`) on the same thread, before the
     next admission and chunk.
 
-The JAX batcher synthesises on a thread of its own (:1225-1265), which
-overlaps the device programs of the next chunk. Here both stages are bound by
-the host's dispatch of small kernels, so two threads only contend for the
-interpreter: on an H100 a slot step overlapped by a second thread's synthesis
-takes several times as long as one alone, and so does the synthesis
-(`tools/profile_decode.py --synth-overlap`; PERF.md). One thread serves both
-in turn.
+Streams (`submit(stream=True)`, :444-529, :1181-1337) ride the same slots:
+
+  - Admission runs the prefill and a decode burst of ceil((hop + lookahead
+    (+ hop - 1 with prompt speech)) / K) steps on a one-row state over the
+    slot's cache row, then writes the row into the slot, so the first hop
+    exists when admission returns. The burst's steps are the slots' step
+    (`llm.decode_step_batched`) on the request's own noise.
+  - An SFT stream (no prompt speech, no prompt mel) synthesises its first
+    chunk right after the burst, with the int16 output rule of the JAX fused
+    admit (:531-673, :1106-1123; see runtime/streaming.py).
+  - Every full hop a stream slot accumulates becomes a chunk, then the final
+    flush (`_emit_stream_row`), with the solo streamer's chunk semantics
+    (`StreamingSynthesizer._token2wav`). Syntheses run in priority order:
+    first chunks, later chunks first in first out, then whole utterances.
+  - `reserve_stream_slots` keeps the first N slots for streams; a stream in
+    the backlog goes before whole utterances, but after
+    `stream_fairness_k` stream admissions in a row with whole utterances
+    waiting, one of those goes first (:122-164, :993-1021).
+
+The JAX batcher synthesises on threads of its own (:1225-1265), a whole-
+utterance thread and a stream-chunk thread with an order gate per stream
+(`synth_next`/`synth_cv`), which overlap the device programs of the next
+chunk. Here both stages are bound by the host's dispatch of small kernels, so
+threads only contend for the interpreter: on an H100 a slot step overlapped
+by a second thread's synthesis takes several times as long as one alone, and
+so does the synthesis (`tools/profile_decode.py --synth-overlap`; PERF.md).
+One thread serves both in turn, and a stream's chunks are synthesised in
+order without a gate.
 
 Each request carries its own noise source (`noise.py`; `Engine.next_noise()`
-unless given): an active slot draws `noise.sampling(K, vocab)` once per step,
-a finished or empty slot draws nothing (it is fed zeros and accepts nothing),
-and the same source feeds the request's HiFT draw. That is the JAX per-slot
-key chain (:364-366, :1374), so a request whose source replays a JAX key
-decodes the tokens of `llm.generate` with that key.
+or, for a stream, `Engine.stream_noise()`, unless given): an active slot
+draws `noise.sampling(K, vocab)` once per step, a finished or empty slot
+draws nothing (it is fed zeros and accepts nothing), and the same source
+feeds the request's HiFT draw. That is the JAX per-slot key chain (:364-366,
+:1374, :837-841), so a request whose source replays a JAX key decodes the
+tokens of `llm.generate` with that key.
 
-Not ported: the stream slots and their lane (:444-, :531-, :1181-, :1267-),
-the spec-decode slots (:319-348, :675-) and `prewarm` (:889-, which pays XLA
-compiles; the port runs eagerly).
+Not ported: the spec-decode slots (:319-348, :675-) and `prewarm` (:889-,
+which pays XLA compiles; the port runs eagerly).
 """
 
 from __future__ import annotations
 
+import heapq
+import itertools
 import logging
 import queue
 import threading
@@ -60,15 +83,24 @@ from .engine import MAX_TOKEN_TEXT_RATIO, MIN_TOKEN_TEXT_RATIO, PROMPT_BUCKETS, 
 logger = logging.getLogger("hydravox.continuous")
 
 CHUNK_STEPS = 8  # decode steps between admissions (the JAX default)
+# synthesis order (:1214-1223): a stream's first chunk (time to first audio),
+# later stream chunks, whole utterances
+PRIO_FIRST_CHUNK, PRIO_CHUNK, PRIO_UTTERANCE = 0, 1, 2
 
 
 class _Request:
     __slots__ = ("text_tokens", "spk_embedding", "min_len", "max_len", "noise",
                  "prompt_speech_tokens", "prompt_mel", "done", "wav", "stats", "error",
-                 "t_submit", "t_admit", "t_decoded")
+                 "t_submit", "t_admit", "t_decoded",
+                 # streams: the chunk queue (float32 wavs, then None), the
+                 # first hop's prompt padding, the decode's emission cursor,
+                 # the carried flow/HiFT state, the first chunk's time and
+                 # each chunk's (synthesis s, samples)
+                 "stream", "chunk_q", "prompt_pad", "sched_offset", "hift_cache", "t_first",
+                 "chunks")
 
     def __init__(self, text_tokens, spk_embedding, min_len, max_len, noise,
-                 prompt_speech_tokens, prompt_mel):
+                 prompt_speech_tokens, prompt_mel, stream=False, prompt_pad=0):
         self.text_tokens = text_tokens
         self.spk_embedding = spk_embedding
         self.min_len = min_len
@@ -83,22 +115,42 @@ class _Request:
         self.t_submit = time.time()
         self.t_admit = None  # when it took a slot
         self.t_decoded = None  # when its decode finished and it left the slot
+        self.stream = stream
+        self.chunk_q = queue.Queue() if stream else None
+        self.prompt_pad = prompt_pad
+        self.sched_offset = 0
+        self.hift_cache = None
+        self.t_first = None
+        self.chunks = []
+
+    def fail(self, error: str):
+        """End the request with `error`; a stream's reader gets None and
+        raises it."""
+        self.error = error
+        if self.stream:
+            self.chunk_q.put(None)
+        self.done.set()
 
 
 class ContinuousBatcher:
     """Fixed-slot continuous decode over an Engine's parameters and device."""
 
     def __init__(self, engine, slots: int = 4, head_num: int = 4,
-                 sampling: Optional[SamplingParams] = None):
+                 sampling: Optional[SamplingParams] = None, reserve_stream_slots: int = 0):
         """One batcher serves ONE (head_num, sampling) configuration: the
         slots share each step's MTP heads and draw, so requests with another
-        head count or sampling go through the Engine's paths instead."""
+        head count or sampling go through the Engine's paths instead.
+        `reserve_stream_slots` (at most slots - 1) slots take streams only."""
         self.engine = engine
         self.cfg = engine.cfg.llm
         self.sampling = sampling or SamplingParams.make()
         self.slots = slots
         self.head_k = max(1, min(int(head_num), self.cfg.head_num))
         self.max_tokens = engine.max_tokens
+        self.streamer = engine.streaming()
+        self.reserve_stream_slots = max(0, min(int(reserve_stream_slots), slots - 1))
+        self.stream_fairness_k = 4
+        self._stream_admits_streak = 0
         # texts up to 128 tokens ride the slots (longer segments go through
         # the worker), prompt speech up to 256 (:169-180 at the engine's
         # ladder)
@@ -112,13 +164,18 @@ class ContinuousBatcher:
         # submit -> slot latencies for /api/v1/metrics
         self.admission_lat_s: deque = deque(maxlen=512)
         # decode work done, for launch predictions: admits (prefills), steps
-        # (MTP heads + draw), forwards (decode-step backbone blocks), and the
-        # seconds spent in chunks and in synthesis
+        # (MTP heads + draw), forwards (decode-step backbone blocks), the
+        # streams' admission bursts included, and the seconds spent in
+        # chunks and in synthesis
         self.stats = dict(admits=0, steps=0, forwards=0, decode_s=0.0, synth_s=0.0)
         self._state = None
         self._slot_req: list = [None] * slots
         self._slot_steps = [0] * slots
         self._backlog: list = []
+        self._backlog_stream: list = []
+        # syntheses due, (priority, arrival, item), drained after each chunk
+        self._synth_heap: list = []
+        self._synth_seq = itertools.count()
         self._pending: "queue.Queue[_Request]" = queue.Queue()
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._loop, daemon=True)
@@ -142,36 +199,76 @@ class ContinuousBatcher:
             min_len_t=torch.zeros(s, dtype=torch.int64, device=dev),
         )
 
-    def _admit(self, slot: int, req: _Request):
-        """Prefill one request into `slot` of the shared state (:283-318)."""
+    def _prefill_row(self, slot: int, req: _Request):
+        """Prefill one request's prompt into `slot`'s zeroed cache row, in
+        place. Returns (the row's one-row KVCache view, last hidden (1, H))."""
         eng, cfg = self.engine, self.cfg
-        st = self._state
-        params = eng.llm_params
         n, lp = len(req.text_tokens), len(req.prompt_speech_tokens)
         text = np.zeros((_bucket(n, self.prompt_buckets),), np.int32)
         text[:n] = req.text_tokens
         sp_pad = np.zeros((_bucket(lp, self.sp_buckets[1:]) if lp else 0,), np.int32)
         sp_pad[:lp] = req.prompt_speech_tokens
         emb, plen = llm_model.build_inference_prompt(
-            params, cfg, eng._tensor(text, torch.int32), n, eng._tensor(sp_pad, torch.int32), lp)
-        cache = st["cache"]
+            eng.llm_params, cfg, eng._tensor(text, torch.int32), n,
+            eng._tensor(sp_pad, torch.int32), lp)
+        cache = self._state["cache"]
         k_row, v_row = cache.k[:, slot:slot + 1], cache.v[:, slot:slot + 1]
         k_row.zero_()
         v_row.zero_()
         dev = eng.device
-        hidden, _ = qwen2.forward_block_with_cache(
-            params["backbone"], cfg.backbone, emb[None],
+        hidden, row_cache = qwen2.forward_block_with_cache(
+            eng.llm_params["backbone"], cfg.backbone, emb[None],
             qwen2.KVCache(k=k_row, v=v_row, length=torch.zeros(1, dtype=torch.int32, device=dev)),
             advance=torch.tensor([plen], dtype=torch.int32, device=dev),
         )
-        cache.length[slot] = plen
-        st["last_hidden"][slot] = hidden[0, plen - 1]
+        self.stats["admits"] += 1
+        return row_cache, hidden[:, plen - 1]
+
+    def _admit(self, slot: int, req: _Request):
+        """Prefill one request into `slot` of the shared state (:283-318)."""
+        st = self._state
+        row_cache, last_hidden = self._prefill_row(slot, req)
+        st["cache"].length[slot] = row_cache.length[0]
+        st["last_hidden"][slot] = last_hidden[0]
         st["tokens"][slot] = -1
         st["num_t"][slot] = 0
         st["min_len_t"][slot] = req.min_len
         st["num"][slot], st["max_len"][slot] = 0, req.max_len
         st["finished"][slot] = False  # live only once its row is whole
-        self.stats["admits"] += 1
+
+    def _admit_stream(self, slot: int, req: _Request) -> int:
+        """Prefill a stream and run its decode burst on a one-row state over
+        the slot's cache row, then write the row into the slot (:444-529).
+        Returns the burst's steps."""
+        st, k, vocab = self._state, self.head_k, self.cfg.vocab_size
+        dev = self.engine.device
+        row_cache, last_hidden = self._prefill_row(slot, req)
+        row = dict(
+            cache=row_cache, last_hidden=last_hidden,
+            tokens=torch.full((1, self.max_tokens + k), -1, dtype=torch.int32, device=dev),
+            num=[0], finished=[False], max_len=[req.max_len],
+            num_t=torch.zeros(1, dtype=torch.int64, device=dev),
+            min_len_t=torch.tensor([req.min_len], dtype=torch.int64, device=dev),
+        )
+        hop, la = self.streamer.token_hop_len, self.engine.cfg.flow.pre_lookahead_len
+        need = hop + la + (hop - 1 if len(req.prompt_speech_tokens) else 0)
+        steps = 0
+        while steps < -(-need // k) and not row["finished"][0]:
+            nuc, flat = req.noise.sampling(k, vocab)
+            ran = llm_model.decode_step_batched(
+                self.engine.llm_params, self.cfg, row, self.sampling, nuc.to(dev)[None],
+                flat.to(dev)[None], head_k=k)
+            steps += 1
+            self.stats["steps"] += 1
+            self.stats["forwards"] += int(ran)
+        st["cache"].length[slot] = row["cache"].length[0]
+        st["last_hidden"][slot] = row["last_hidden"][0]
+        st["tokens"][slot] = row["tokens"][0]
+        st["num_t"][slot] = row["num_t"][0]
+        st["min_len_t"][slot] = req.min_len
+        st["num"][slot], st["max_len"][slot] = row["num"][0], req.max_len
+        st["finished"][slot] = row["finished"][0]
+        return steps
 
     def _chunk(self):
         """Up to CHUNK_STEPS group-decode steps over all slots (:410-442)."""
@@ -201,9 +298,14 @@ class ContinuousBatcher:
 
     def submit(self, text_tokens: np.ndarray, spk_embedding: Optional[np.ndarray] = None,
                noise=None, prompt_speech_tokens: Optional[np.ndarray] = None,
-               prompt_mel: Optional[np.ndarray] = None) -> _Request:
+               prompt_mel: Optional[np.ndarray] = None, stream: bool = False,
+               tts_text_len: Optional[int] = None) -> _Request:
         """Queue one utterance for a slot (:797-865); its token-length bounds
-        follow the text's length, as `Engine.synthesize`'s do."""
+        follow `tts_text_len` (default: the text's length), as
+        `Engine.synthesize`'s do. `stream=True` makes it a streaming session:
+        ~1 s waveform chunks arrive on its queue (`stream_result`) as the slot
+        decodes, and its noise (default `Engine.stream_noise()`) is a
+        StreamNoise, as the JAX submit splits the key (:837-841)."""
         n = len(text_tokens)
         if n > self.prompt_buckets[-1]:
             # silent truncation would garble the audio: such prompts go
@@ -217,10 +319,13 @@ class ContinuousBatcher:
                              f"{self.sp_buckets[-1]}; use Engine.synthesize")
         if self._stop.is_set():
             raise RuntimeError("batcher shut down")
+        if noise is None:
+            noise = self.engine.stream_noise() if stream else self.engine.next_noise()
+        n_ratio = n if tts_text_len is None else int(tts_text_len)
         req = _Request(
-            np.asarray(text_tokens, np.int32), spk_embedding, int(n * MIN_TOKEN_TEXT_RATIO),
-            min(int(n * MAX_TOKEN_TEXT_RATIO), self.max_tokens),
-            noise if noise is not None else self.engine.next_noise(), sp, prompt_mel)
+            np.asarray(text_tokens, np.int32), spk_embedding, int(n_ratio * MIN_TOKEN_TEXT_RATIO),
+            min(int(n_ratio * MAX_TOKEN_TEXT_RATIO), self.max_tokens), noise, sp, prompt_mel,
+            stream=stream, prompt_pad=-len(sp) % self.streamer.token_hop_len if stream else 0)
         with self._lock:
             if not self._started:
                 self._started = True
@@ -242,6 +347,21 @@ class ContinuousBatcher:
             raise RuntimeError(req.error)
         return req.wav, req.stats
 
+    def stream_result(self, req: _Request, timeout: float = 600.0):
+        """Yield the float32 waveform chunks of a stream=True request until
+        its end (:874-887); raises if the session failed."""
+        if not req.stream:
+            raise ValueError("stream_result on a non-stream request")
+        while True:
+            item = req.chunk_q.get(timeout=timeout)
+            if item is None:
+                if req.error is not None:
+                    raise RuntimeError(req.error)
+                return
+            if isinstance(item, Exception):
+                raise item
+            yield item
+
     def _loop(self):
         while not self._stop.is_set():
             try:
@@ -251,62 +371,180 @@ class ContinuousBatcher:
                 with self._lock:
                     for i, req in enumerate(self._slot_req):
                         if req is not None:
-                            req.error = str(e)
-                            req.done.set()
+                            req.fail(str(e))
                             self._slot_req[i] = None
                     self._state = self._init_state()
                 time.sleep(0.1)
 
+    def _next_admission(self, slot: int) -> Optional[_Request]:
+        """The backlog request that takes free `slot`, if any (:1002-1021):
+        streams first, whole utterances only outside the reserved slots, and
+        one whole utterance after stream_fairness_k streams in a row while
+        it waits."""
+        backlog_turn = (self._backlog and slot >= self.reserve_stream_slots
+                        and (not self._backlog_stream
+                             or self._stream_admits_streak >= self.stream_fairness_k))
+        if backlog_turn:
+            self._stream_admits_streak = 0
+            return self._backlog.pop(0)
+        if self._backlog_stream:
+            if self._backlog:
+                self._stream_admits_streak += 1
+            return self._backlog_stream.pop(0)
+        return None
+
     @torch.inference_mode()
     def _tick(self):
         """Admit backlog requests into free slots, run one chunk, and
-        synthesise the rows that finished in it (:993-1179, non-stream
-        part)."""
+        synthesise what became due, in priority order (:993-1179)."""
         while True:
             try:
-                self._backlog.append(self._pending.get_nowait())
+                req = self._pending.get_nowait()
             except queue.Empty:
                 break
+            (self._backlog_stream if req.stream else self._backlog).append(req)
         for i in range(self.slots):
-            if self._slot_req[i] is not None or not self._backlog:
+            if self._slot_req[i] is not None:
                 continue
-            req = self._backlog.pop(0)
+            req = self._next_admission(i)
+            if req is None:
+                continue
             req.t_admit = time.time()
             self.admission_lat_s.append(req.t_admit - req.t_submit)
             try:
-                self._admit(i, req)
+                steps = self._admit_stream(i, req) if req.stream else self._admit(i, req)
             except Exception as e:  # fails only this request; the slot stays empty
                 logger.exception("admit failed")
-                req.error = str(e)
-                req.done.set()
+                req.fail(str(e))
                 continue
             self._slot_req[i] = req
-            self._slot_steps[i] = 0
+            self._slot_steps[i] = steps or 0
+            if req.stream:
+                self._start_stream(i, req)
 
-        if all(r is None for r in self._slot_req):
+        if any(r is not None for r in self._slot_req):
+            t0 = time.time()
+            self._chunk()
+            chunk_time = time.time() - t0
+            self.stats["decode_s"] += chunk_time
+            st = self._state
+            for i, req in enumerate(self._slot_req):
+                if req is None:
+                    continue
+                if req.stream:
+                    self._emit_stream_row(i, req, chunk_time)
+                elif st["finished"][i]:
+                    req.t_decoded = time.time()
+                    num = st["num"][i]
+                    logger.info("slot %d decode done: %d tokens in %d steps (%.2fs since "
+                                "submit)", i, num, self._slot_steps[i],
+                                req.t_decoded - req.t_submit)
+                    self._queue_synth(PRIO_UTTERANCE, (
+                        "utterance", req, st["tokens"][i].clone(), num, self._slot_steps[i],
+                        chunk_time))
+                    self._slot_req[i] = None
+        elif not self._synth_heap:
             try:  # idle: wait briefly for the next arrival
-                self._backlog.append(self._pending.get(timeout=0.05))
+                req = self._pending.get(timeout=0.05)
+                (self._backlog_stream if req.stream else self._backlog).append(req)
             except queue.Empty:
                 pass
             return
+        self._drain_synth()
 
-        t0 = time.time()
-        self._chunk()
-        chunk_time = time.time() - t0
-        self.stats["decode_s"] += chunk_time
+    def _queue_synth(self, prio: int, item: tuple):
+        heapq.heappush(self._synth_heap, (prio, next(self._synth_seq), item))
+
+    def _drain_synth(self):
+        """Synthesise everything due, by priority, then in arrival order."""
+        while self._synth_heap:
+            item = heapq.heappop(self._synth_heap)[2]
+            if item[0] == "chunk":
+                self._synth_stream_chunk(*item[1:])
+            else:
+                self._synthesize(*item[1:])
+
+    def _start_stream(self, i: int, req: _Request):
+        """After a stream's admission burst: an SFT stream's first chunk at
+        once, with the fused admit's int16 output rule (:1101-1130); then
+        whatever the burst made due."""
+        hop, la = self.streamer.token_hop_len, self.engine.cfg.flow.pre_lookahead_len
+        sft = not len(req.prompt_speech_tokens) and (req.prompt_mel is None
+                                                     or len(req.prompt_mel) == 0)
+        if sft and self._state["num"][i] >= hop + la:
+            tokens = self._state["tokens"][i, :hop + la].cpu().numpy()
+            self._synth_stream_chunk(req, tokens, 0, False, self._slot_steps[i], 0.0,
+                                     quantize=True)
+            req.sched_offset = hop
+        self._emit_stream_row(i, req, 0.0)
+
+    def _emit_stream_row(self, i: int, req: _Request, chunk_time: float):
+        """Queue every full hop a stream slot has accumulated (the solo
+        streamer's chunk boundaries), then, once its decode has finished, the
+        final flush, and free the slot (:1181-1212)."""
         st = self._state
-        finished = []
-        for i, req in enumerate(self._slot_req):
-            if req is None or not st["finished"][i]:
-                continue
+        num, steps = st["num"][i], self._slot_steps[i]
+        hop, la = self.streamer.token_hop_len, self.engine.cfg.flow.pre_lookahead_len
+        row = None
+        while True:
+            this_hop = hop + req.prompt_pad if req.sched_offset == 0 else hop
+            if num - req.sched_offset < this_hop + la:
+                break
+            if row is None:
+                row = st["tokens"][i, :num].cpu().numpy()
+            self._queue_stream_chunk(req, row[:req.sched_offset + this_hop + la], False,
+                                     steps, chunk_time)
+            req.sched_offset += this_hop
+        if st["finished"][i]:
             req.t_decoded = time.time()
-            num = st["num"][i]
-            logger.info("slot %d decode done: %d tokens in %d steps (%.2fs since submit)",
-                        i, num, self._slot_steps[i], req.t_decoded - req.t_submit)
-            finished.append((req, st["tokens"][i].clone(), num, self._slot_steps[i]))
+            logger.info("slot %d stream decode done: %d tokens in %d steps (%.2fs since "
+                        "submit)", i, num, steps, req.t_decoded - req.t_submit)
+            tokens = row if row is not None else st["tokens"][i, :num].cpu().numpy()
+            self._queue_stream_chunk(req, tokens, True, steps, chunk_time)
             self._slot_req[i] = None
-        for req, tokens, num, steps in finished:
-            self._synthesize(req, tokens, num, steps, chunk_time)
+
+    def _queue_stream_chunk(self, req: _Request, tokens, finalize: bool, steps: int,
+                            chunk_time: float):
+        prio = PRIO_FIRST_CHUNK if req.sched_offset == 0 else PRIO_CHUNK
+        self._queue_synth(prio, ("chunk", req, tokens, req.sched_offset, finalize, steps,
+                                 chunk_time))
+
+    def _synth_stream_chunk(self, req: _Request, tokens, token_offset: int, finalize: bool,
+                            steps: int, chunk_time: float, quantize: bool = False):
+        """One chunk of a stream: the solo streamer's `_token2wav` with the
+        request's carried cache (:1267-1337). A failure puts the error, then
+        None, on the stream's queue; the later chunks of a failed stream are
+        dropped."""
+        if req.done.is_set():
+            return
+        t0 = time.time()
+        emb = (np.zeros((192,), np.float32) if req.spk_embedding is None
+               else np.asarray(req.spk_embedding, np.float32).reshape(-1)[:192])
+        try:
+            wav, req.hift_cache = self.streamer._token2wav(
+                tokens, req.prompt_speech_tokens, req.prompt_mel, emb, token_offset, req.noise,
+                finalize, req.hift_cache, quantize)
+            req.chunks.append((time.time() - t0, len(wav)))
+            if req.t_first is None:
+                req.t_first = time.time()
+                logger.info("stream ttft %.0f ms (admitted after %.0f ms)",
+                            (req.t_first - req.t_submit) * 1e3,
+                            (req.t_admit - req.t_submit) * 1e3)
+            req.chunk_q.put(wav)
+            if finalize:
+                req.stats = dict(tokens=np.asarray(tokens).tolist(), steps=steps,
+                                 latency=time.time() - req.t_submit,
+                                 ttft=req.t_first - req.t_submit, chunk_time=chunk_time,
+                                 chunks=list(req.chunks))
+                req.chunk_q.put(None)
+                req.done.set()
+        except Exception as e:  # the error flows back through the stream
+            logger.exception("continuous stream chunk failed")
+            req.error = str(e)
+            req.chunk_q.put(e)
+            req.chunk_q.put(None)
+            req.done.set()
+        self.stats["synth_s"] += time.time() - t0
 
     def _synthesize(self, req: _Request, tokens, num: int, steps: int, chunk_time: float):
         """Flow + HiFT of one finished row; a failure fails only its request
@@ -326,18 +564,21 @@ class ContinuousBatcher:
         req.done.set()
 
     def shutdown(self):
-        """Stop the thread and fail every request still queued or in a slot,
-        so that their waiters return now (:1381-1418)."""
+        """Stop the thread and fail every request still queued, in a slot or
+        waiting for synthesis, so that their waiters (a stream's reader
+        included) return now (:1381-1418)."""
         self._stop.set()
         if self._started:
             self._thread.join(timeout=5.0)
-        leftovers = list(self._backlog)
-        self._backlog = []
+        leftovers = list(self._backlog) + list(self._backlog_stream)
+        self._backlog, self._backlog_stream = [], []
         while True:
             try:
                 leftovers.append(self._pending.get_nowait())
             except queue.Empty:
                 break
+        leftovers += [item[2][1] for item in self._synth_heap]
+        self._synth_heap = []
         with self._lock:
             for i, req in enumerate(self._slot_req):
                 if req is not None:
@@ -345,5 +586,4 @@ class ContinuousBatcher:
                     self._slot_req[i] = None
         for req in leftovers:
             if not req.done.is_set():
-                req.error = "batcher shut down"
-                req.done.set()
+                req.fail("batcher shut down")

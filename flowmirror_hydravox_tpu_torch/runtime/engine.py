@@ -39,7 +39,7 @@ from ..device import resolve_device
 from ..models import flow as flow_model
 from ..models import hift as hift_model
 from ..models import llm as llm_model
-from ..noise import TorchNoise
+from ..noise import SeededVocoder, StreamNoise, TorchNoise
 from ..ops.sampling import SamplingParams
 
 logger = logging.getLogger("hydravox.engine")
@@ -90,20 +90,43 @@ class Engine:
         self.max_tokens = max_tokens
         self._generator = torch.Generator(device=self.device).manual_seed(int(time.time()))
         self._rng_lock = threading.Lock()
+        self._streaming = None
+
+    def _next_seed(self) -> int:
+        """A seed drawn from the engine's generator (requests may come from
+        several threads)."""
+        with self._rng_lock:
+            return int(torch.randint(0, 2 ** 62, (1,), generator=self._generator,
+                                     device=self.device).item())
 
     def next_noise(self) -> TorchNoise:
-        """A noise source for one synthesis, from a generator forked off the
-        engine's (requests may come from several threads)."""
-        with self._rng_lock:
-            seed = int(torch.randint(0, 2 ** 62, (1,), generator=self._generator,
-                                     device=self.device).item())
-        return TorchNoise(torch.Generator(device=self.device).manual_seed(seed))
+        """A noise source for one synthesis, forked off the engine's generator."""
+        return self.noise_for(self._next_seed())
 
     def noise_for(self, seed: Optional[int]) -> TorchNoise:
         """The noise source of `seed`, or `next_noise()` for None."""
         if seed is None:
             return self.next_noise()
         return TorchNoise(torch.Generator(device=self.device).manual_seed(int(seed)))
+
+    def stream_noise(self, seed: Optional[int] = None) -> StreamNoise:
+        """A stream's two sources (decode, vocoder), both derived from `seed`
+        (default: drawn from the engine's generator), on the solo and the
+        slot routes alike."""
+        seed = self._next_seed() if seed is None else int(seed)
+        split = torch.Generator().manual_seed(seed)
+        decode_seed, vocoder_seed = torch.randint(0, 2 ** 62, (2,), generator=split).tolist()
+        return StreamNoise(self.noise_for(decode_seed), SeededVocoder(vocoder_seed, self.device))
+
+    def streaming(self):
+        """The engine's one StreamingSynthesizer (JAX engine.py:976-983),
+        shared by the solo stream lane and the continuous slots."""
+        with self._rng_lock:
+            if self._streaming is None:
+                from .streaming import StreamingSynthesizer
+
+                self._streaming = StreamingSynthesizer(self)
+            return self._streaming
 
     def _tensor(self, arr, dtype):
         return torch.as_tensor(np.asarray(arr), dtype=dtype, device=self.device)
@@ -161,6 +184,36 @@ class Engine:
         wav = hift_model.inference(self.hift_params, hcfg, mel_gen, noise)
         wav_i16 = (torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)
         return wav_i16, mel_gen
+
+    @staticmethod
+    def _text_row(text_tokens, tts_text_len: int):
+        """(text_pad (tbkt,) int32 over PROMPT_BUCKETS, lt, tts_text_len); a
+        text past the largest bucket is cut off, with a warning."""
+        text_tokens = np.asarray(text_tokens, np.int32)
+        lt = len(text_tokens)
+        tbkt = _bucket(lt, PROMPT_BUCKETS)
+        if lt > tbkt:
+            logger.warning("text of %d tokens exceeds the largest prompt bucket %d; truncating",
+                           lt, tbkt)
+            text_tokens, lt = text_tokens[:tbkt], tbkt
+            tts_text_len = min(int(tts_text_len), tbkt)
+        text_pad = np.zeros((tbkt,), np.int32)
+        text_pad[:lt] = text_tokens
+        return text_pad, lt, tts_text_len
+
+    def _prefill(self, text_pad, lt: int, sp_pad, lp: int, head_num: int) -> dict:
+        """Prompt assembly and KV-cache prefill: the decode state that
+        `llm.generate_until` resumes (the streaming LM)."""
+        cfg = self.cfg.llm
+        emb, plen = llm_model.build_inference_prompt(
+            self.llm_params, cfg, self._tensor(text_pad, torch.int32), lt,
+            self._tensor(sp_pad, torch.int32), lp,
+        )
+        return llm_model.init_generate_state(
+            self.llm_params, cfg, emb, plen, inference_head_num=head_num,
+            max_tokens=self.max_tokens,
+            cache_len_cap=2 + len(text_pad) + len(sp_pad) + self.max_tokens + head_num,
+        )
 
     def _row_prompts(self, prompt_speech_tokens, prompt_mel):
         """One row's prompt buffers at their buckets: (sp_pad (sbkt,) int32
@@ -228,16 +281,7 @@ class Engine:
             spk_embedding = np.zeros((192,), np.float32)
 
         # ---- shared padding/bucketing ----
-        text_tokens = np.asarray(text_tokens, np.int32)
-        lt = len(text_tokens)
-        tbkt = _bucket(lt, PROMPT_BUCKETS)
-        if lt > tbkt:
-            logger.warning("text of %d tokens exceeds the largest prompt bucket %d; truncating",
-                           lt, tbkt)
-            text_tokens, lt = text_tokens[:tbkt], tbkt
-            tts_text_len = min(int(tts_text_len), tbkt)
-        text_pad = np.zeros((tbkt,), np.int32)
-        text_pad[:lt] = text_tokens
+        text_pad, lt, tts_text_len = self._text_row(text_tokens, tts_text_len)
         sp_pad, lp, pm, pm_len = self._row_prompts(prompt_speech_tokens, prompt_mel)
         sbkt, pm_bucket = len(sp_pad), pm.shape[1]
 

@@ -8,9 +8,15 @@ with the reference's REST schema (server/router.py):
                              admission_ms_p50/p95, queue_wait_ms_p50/p95}, error}
   POST /api/v1/tts        {text, speaker_id, extra_params}
        -> {success, message, data: {audio_base64, sample_rate, duration}, error}
+  POST /api/v1/tts/stream {text, speaker_id, extra_params}
+       -> a WAV stream: a RIFF header with 0xFFFFFFFF sizes, then s16le PCM
+          chunks (~1 s each, 50-150 ms of silence between segments) until
+          the connection closes
 
-Errors: unknown speaker -> 500 naming the speakers; bad JSON -> 400; unknown
-route -> 404; timeout -> 408. Requests take the JAX server's routes:
+Errors: unknown speaker -> 500 naming the speakers; bad JSON, or a stream
+without text or speaker_id -> 400; unknown route -> 404; timeout (of a
+stream: before its first chunk) -> 408; a stream that fails after its first
+chunk is cut short. Requests take the JAX server's routes:
 
   - continuous batching (`continuous_slots` > 0, the launcher's default): a
     tts request at the default sampling and the slots' head count bypasses
@@ -19,6 +25,13 @@ route -> 404; timeout -> 408. Requests take the JAX server's routes:
     flight at the next chunk boundary, and the segments' wavs are joined
     with 50-150 ms pauses. A segment longer than the slots' ladders sends
     the whole request to the worker before anything is admitted;
+  - streams (server.py:143-169, :815-822): a default-config stream rides
+    the slots too (`ContinuousBatcher.submit(stream=True)`, one slot
+    request per segment, the first `continuous_reserve_stream` slots kept
+    for streams); any other stream, every stream in window mode, and a
+    stream with a segment past the slots' ladders go to a stream lane of
+    two threads of its own (`StreamingSynthesizer`), so that a stream never
+    queues behind /tts work in the worker;
   - every other request goes through the queue to one worker thread:
     - a single-segment text goes through `Engine.synthesize`, with its
       speed;
@@ -36,7 +49,9 @@ route -> 404; timeout -> 408. Requests take the JAX server's routes:
 An integer `seed` in extra_params (an addition to the JAX schema) makes a
 request reproducible: segment j draws its sampling and vocoder noise from
 `seed + j`, on a slot or as a row of a flash batch (`noise.RowNoise`), so the
-same seeded load decodes the same draws in both modes.
+same seeded load decodes the same draws in both modes; a stream's segment j
+derives its two sources from `seed + j` (`Engine.stream_noise`) on either
+route.
 """
 
 from __future__ import annotations
@@ -45,6 +60,7 @@ import json
 import logging
 import queue
 import random
+import struct
 import threading
 import time
 import uuid
@@ -69,14 +85,32 @@ DEFAULT_TTS_EXTRA = {"top_p": 0.9, "top_k": 10, "win_size": 24, "tau_r": 0.2,
                      "speed": 1.0, "inference_head_num": 2}
 
 
+def _pause(sr: int) -> np.ndarray:
+    """The random 50-150 ms pause between segments (infer_speech_model.py)."""
+    return np.zeros(int(random.uniform(0.05, 0.15) * sr), np.float32)
+
+
 def _with_pauses(wavs, sr: int) -> np.ndarray:
-    """Segments joined with random 50-150 ms pauses (infer_speech_model.py)."""
+    """Segments joined with pauses."""
     pieces = []
     for i, w in enumerate(wavs):
         pieces.append(w)
         if i < len(wavs) - 1:
-            pieces.append(np.zeros(int(random.uniform(0.05, 0.15) * sr), np.float32))
+            pieces.append(_pause(sr))
     return np.concatenate(pieces) if pieces else np.zeros(0, np.float32)
+
+
+def _pcm(wav: np.ndarray) -> bytes:
+    """A stream chunk as s16le bytes."""
+    return (np.clip(wav, -1.0, 1.0) * 32767.0).astype("<i2").tobytes()
+
+
+def wav_stream_header(sr: int) -> bytes:
+    """The RIFF header of a live WAV stream: 0xFFFFFFFF sizes, mono s16le
+    (server.py:1335-1339)."""
+    return (b"RIFF" + struct.pack("<I", 0xFFFFFFFF) + b"WAVEfmt "
+            + struct.pack("<IHHIIHH", 16, 1, 1, sr, sr * 2, 2, 16)
+            + b"data" + struct.pack("<I", 0xFFFFFFFF))
 
 
 class TTSService:
@@ -93,12 +127,14 @@ class TTSService:
     a `ContinuousBatcher` of that many slots at the default sampling and
     `continuous_head_num` heads, which becomes the service's default head
     count (the HTTP handler merges the defaults under the client's values,
-    so otherwise no request would match the slots). Its requests run on a
+    so otherwise no request would match the slots), with its first
+    `continuous_reserve_stream` slots kept for streams. Its requests run on a
     pool of max(8, 2 x slots) threads that featurise, submit and wait."""
 
     def __init__(self, engine: Engine, frontend, request_timeout: float = 60.0,
                  batch_window: float = 0.03, max_batch: int = 8,
-                 continuous_slots: int = 0, continuous_head_num: int = 2):
+                 continuous_slots: int = 0, continuous_head_num: int = 2,
+                 continuous_reserve_stream: int = 1):
         self.engine = engine
         self.frontend = frontend
         self.timeout = request_timeout
@@ -124,13 +160,30 @@ class TTSService:
             self.batcher = ContinuousBatcher(
                 engine, slots=continuous_slots, head_num=continuous_head_num,
                 sampling=SamplingParams.make(default.top_p, default.top_k, default.win_size,
-                                             default.tau_r))
+                                             default.tau_r),
+                reserve_stream_slots=continuous_reserve_stream)
             self._cont_pool = ThreadPoolExecutor(max_workers=max(8, 2 * continuous_slots),
                                                  thread_name_prefix="continuous")
         # the worker launches on the device's default stream, as the
         # batcher's threads do (see ContinuousBatcher.submit)
         self.worker = threading.Thread(target=self._worker_loop, daemon=True)
         self.worker.start()
+        # the stream lane (server.py:143-169): two threads, so that two
+        # concurrent streams do not wait on each other either
+        self.stream_tasks: "queue.Queue" = queue.Queue()
+        self._stream_workers = [threading.Thread(target=self._stream_worker_loop, daemon=True)
+                                for _ in range(2)]
+        for t in self._stream_workers:
+            t.start()
+
+    def _stream_worker_loop(self):
+        while not self._stop.is_set():
+            try:
+                task = self.stream_tasks.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            self.queue_wait_s.append(time.time() - task["t_submit"])
+            self._process_tts_stream(task)
 
     def _worker_loop(self):
         while not self._stop.is_set():
@@ -208,6 +261,60 @@ class TTSService:
             else:
                 return group, cand
         return group, None
+
+    def _stream_batchable(self, task: dict) -> Optional[tuple]:
+        """The (sampling, head count) of a stream task, which rides the slots
+        when it is theirs (server.py:230-243); streams have no speed or
+        rolling prompt."""
+        if task.get("type") != "tts_stream":
+            return None
+        try:
+            extra = task.get("extra_params") or {}
+            return self._sampling(extra), int(extra.get("inference_head_num", 2))
+        except (TypeError, ValueError):
+            return None
+
+    def _stream_noise(self, task: dict, segment: int):
+        """Segment j's stream sources: from seed + j when the task carries a
+        seed, else from the engine's generator."""
+        seed = (task.get("extra_params") or {}).get("seed")
+        return self.engine.stream_noise(None if seed is None else int(seed) + segment)
+
+    def _stream_features(self, task: dict) -> list:
+        """The frontend features of each segment of a stream task."""
+        segments = self.frontend.text_normalize(task["text"], split=True)
+        return [self.frontend.frontend_sft(seg, task["speaker_id"]) for seg in segments]
+
+    def _put_stream(self, task: dict, feats_list: list, chunks):
+        """Each segment's waveform chunks (`chunks(i, feats)`) as s16le bytes
+        on the task's queue, with pauses between segments."""
+        q, sr = task["chunk_queue"], self.engine.cfg.sample_rate
+        for i, feats in enumerate(feats_list):
+            for wav in chunks(i, feats):
+                q.put(_pcm(wav))
+            if i < len(feats_list) - 1:
+                q.put(_pcm(_pause(sr)))
+
+    def _process_tts_stream(self, task: dict):
+        """A stream on the stream lane (server.py:743-780): each segment
+        through `StreamingSynthesizer.synthesize_stream`; an error goes on
+        the queue, then None."""
+        try:
+            extra = task.get("extra_params") or {}
+            sampling, head_num = self._sampling(extra), int(extra.get("inference_head_num", 2))
+            self._put_stream(task, self._stream_features(task), lambda i, feats: (
+                self.engine.streaming().synthesize_stream(
+                    text_tokens=feats["text_tokens"], tts_text_len=feats["tts_text_len"],
+                    sampling=sampling, inference_head_num=head_num,
+                    prompt_speech_tokens=feats.get("prompt_speech_tokens"),
+                    prompt_mel=feats.get("prompt_mel"),
+                    spk_embedding=feats.get("spk_embedding"),
+                    noise=self._stream_noise(task, i))))
+            task["chunk_queue"].put(None)
+        except Exception as e:  # the error flows back through the stream
+            logger.exception("stream task %s failed", task["task_id"])
+            task["chunk_queue"].put(e)
+            task["chunk_queue"].put(None)
 
     def _noises(self, task: dict, n_rows: int) -> list:
         """The noise sources of a task's n_rows segments: seed + j for
@@ -324,6 +431,10 @@ class TTSService:
             # concurrent requests join the shared decode instead of queueing
             # behind the worker
             self._cont_pool.submit(self._run_continuous, task)
+        elif self.batcher is not None and self._stream_batchable(task) == self._continuous_key:
+            self._cont_pool.submit(self._run_continuous_stream, task)
+        elif task.get("type") == "tts_stream":
+            self.stream_tasks.put(task)
         else:
             self.tasks.put(task)
         return tid
@@ -351,6 +462,39 @@ class TTSService:
             result = {"error": str(e)}
         self._set_result(task, result)
 
+    def _run_continuous_stream(self, task: dict):
+        """A stream on the slots (server.py:946-995): each segment one
+        stream=True slot request, its chunks on the task's queue as they are
+        synthesised, pauses between segments, then None. A segment outside
+        the slots' ladders sends the task to the stream lane before anything
+        is queued."""
+        try:
+            feats_list = self._stream_features(task)
+            for feats in feats_list:
+                sp = feats.get("prompt_speech_tokens")
+                if len(feats["text_tokens"]) > self.batcher.prompt_buckets[-1] or (
+                        sp is not None and len(sp) > self.batcher.sp_buckets[-1]):
+                    self.stream_tasks.put(task)
+                    return
+
+            def chunks(i, feats):
+                req = self.batcher.submit(
+                    feats["text_tokens"], feats.get("spk_embedding"),
+                    noise=self._stream_noise(task, i),
+                    prompt_speech_tokens=feats.get("prompt_speech_tokens"),
+                    prompt_mel=feats.get("prompt_mel"), stream=True,
+                    tts_text_len=feats["tts_text_len"])
+                return self.batcher.stream_result(req, timeout=self.timeout)
+
+            self._put_stream(task, feats_list, chunks)
+            with self.results_lock:  # counted before the reader sees the end
+                self.continuous_requests += 1
+            task["chunk_queue"].put(None)
+        except Exception as e:  # the error flows back through the stream
+            logger.exception("continuous stream task %s failed", task["task_id"])
+            task["chunk_queue"].put(e)
+            task["chunk_queue"].put(None)
+
     def wait(self, tid: str) -> dict:
         """Poll for the result (router.py:248-295: 50 ms poll, timeout)."""
         deadline = time.time() + self.timeout
@@ -369,7 +513,8 @@ class TTSService:
             self._cont_pool.shutdown(wait=False, cancel_futures=True)
         if self.batcher is not None:
             self.batcher.shutdown()
-        self.worker.join(timeout=5)
+        for thread in [self.worker] + self._stream_workers:
+            thread.join(timeout=5)
 
     def metrics_summary(self) -> dict:
         """The data of GET /api/v1/metrics (server.py:1049-1063)."""
@@ -424,6 +569,8 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             if self.path == "/api/v1/tts":
                 self._handle_tts(body)
+            elif self.path == "/api/v1/tts/stream":
+                self._handle_tts_stream(body)
             else:
                 self._send(404, _response(False, "not found", error="not found"))
         except TimeoutError:
@@ -461,24 +608,66 @@ class _Handler(BaseHTTPRequestHandler):
         })
         self._finish_audio(self.service.wait(tid))
 
+    def _handle_tts_stream(self, body: dict):
+        """A live WAV over the response body (server.py:1298-1347): the RIFF
+        header with unknown sizes, then PCM chunks as they are synthesised;
+        the connection closes at the end of the utterance."""
+        if not body.get("text") or not body.get("speaker_id"):
+            self._send(400, _response(False, "missing fields",
+                                      error="text + speaker_id required"))
+            return
+        # the service's defaults: with the slots on, a default stream rides them
+        extra = {**self.service.default_extra, **(body.get("extra_params") or {})}
+        chunk_q: "queue.Queue" = queue.Queue()
+        self.service.submit({"type": "tts_stream", "text": body["text"],
+                             "speaker_id": body["speaker_id"], "extra_params": extra,
+                             "chunk_queue": chunk_q})
+        try:
+            chunk = chunk_q.get(timeout=self.service.timeout)
+        except queue.Empty:
+            self._send(408, _response(False, "timeout", error="tts timeout"))
+            return
+        if isinstance(chunk, Exception):
+            self._send(500, _response(False, "synthesis failed", error=str(chunk)))
+            return
+        sr = self.service.engine.cfg.sample_rate
+        self.send_response(200)
+        self.send_header("Content-Type", "audio/wav")
+        self.send_header("X-Sample-Rate", str(sr))
+        self.send_header("Connection", "close")
+        self.end_headers()
+        self.wfile.write(wav_stream_header(sr))
+        while chunk is not None and not isinstance(chunk, Exception):
+            self.wfile.write(chunk)
+            self.wfile.flush()
+            try:
+                chunk = chunk_q.get(timeout=self.service.timeout)
+            except queue.Empty:
+                break  # a stalled stream ends here; the client sees it cut short
+
 
 def make_server(host: str, port: int, engine: Engine, frontend, request_timeout: float = 60.0,
                 batch_window: float = 0.03, max_batch: int = 8, continuous_slots: int = 0,
-                continuous_head_num: int = 2) -> ThreadingHTTPServer:
+                continuous_head_num: int = 2,
+                continuous_reserve_stream: int = 1) -> ThreadingHTTPServer:
     service = TTSService(engine, frontend, request_timeout=request_timeout,
                          batch_window=batch_window, max_batch=max_batch,
                          continuous_slots=continuous_slots,
-                         continuous_head_num=continuous_head_num)
+                         continuous_head_num=continuous_head_num,
+                         continuous_reserve_stream=continuous_reserve_stream)
     handler = type("Handler", (_Handler,), {"service": service})
     return ThreadingHTTPServer((host, port), handler)
 
 
 def serve(host: str, port: int, engine: Engine, frontend, request_timeout: float = 60.0,
-          continuous_slots: int = 0, continuous_head_num: int = 2):
+          continuous_slots: int = 0, continuous_head_num: int = 2,
+          continuous_reserve_stream: int = 1):
     server = make_server(host, port, engine, frontend, request_timeout=request_timeout,
                          continuous_slots=continuous_slots,
-                         continuous_head_num=continuous_head_num)
-    logger.info("serving on %s:%d (continuous_slots=%d)", host, port, continuous_slots)
+                         continuous_head_num=continuous_head_num,
+                         continuous_reserve_stream=continuous_reserve_stream)
+    logger.info("serving on %s:%d (continuous_slots=%d, reserved for streams %d)", host, port,
+                continuous_slots, continuous_reserve_stream if continuous_slots else 0)
     try:
         server.serve_forever()
     finally:

@@ -10,7 +10,8 @@ Poisson arrivals at that rate, open loop: the gaps come from `--seed`, so
 every run of a rate sends the same schedule. Each run gets a fresh server on
 127.0.0.1 and one warm-up request before the load: window coalescing
 (`--continuous-batching 0`, the 0.03 s window) or `--slots` continuous
-slots at heads 2 (the launcher's default), in the order window, slots,
+slots at heads 2, one of them kept for streams (the launcher's default, so
+`--slots` - 1 take this load), in the order window, slots,
 slots, window for each pair of reps. Request i of the p-th such group of
 four runs carries extra_params seed 1000 (p + 1) + i: both modes draw the
 same noise, and each group other noise. The draws decide where a request

@@ -345,16 +345,26 @@ def test_metrics_route(tiny):
 
 
 @pytest.mark.parametrize("argv,slots", [([], 4), (["--continuous-batching", "0"], 0),
-                                        (["--continuous-batching", "3"], 3)])
+                                        (["--continuous-batching", "3",
+                                          "--continuous-reserve", "2"], 3)])
 def test_launcher_batching_flags(monkeypatch, tiny, argv, slots):
+    """The batching flags reach the service: the slots, their head count and
+    the slots reserved for streams (default 1, as in the JAX launcher); the
+    launcher asks cuDNN for deterministic algorithms."""
+    reserve = 2 if "--continuous-reserve" in argv else 1
     seen = {}
     monkeypatch.setattr(launcher, "build", lambda args: tiny)
     monkeypatch.setattr(launcher, "serve", lambda *a, **kw: seen.update(kw))
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
     launcher.main(["--tiny", "--device", "cpu"] + argv)
-    assert seen == {"continuous_slots": slots, "continuous_head_num": 2}
+    assert seen == {"continuous_slots": slots, "continuous_head_num": 2,
+                    "continuous_reserve_stream": reserve}
+    assert torch.backends.cudnn.deterministic
     engine, frontend = tiny
-    service = TTSService(engine, frontend, continuous_slots=slots)
+    service = TTSService(engine, frontend, continuous_slots=slots,
+                         continuous_reserve_stream=reserve)
     try:
         assert (service.batcher is None) == (slots == 0)
+        assert slots == 0 or service.batcher.reserve_stream_slots == reserve
     finally:
         service.shutdown()

@@ -43,7 +43,7 @@ def test_package_imports_with_jax_blocked():
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "for name in ('server', 'continuous', 'profiling'):\n"
+        "for name in ('server', 'continuous', 'profiling', 'streaming'):\n"
         "    assert 'flowmirror_hydravox_tpu_torch.runtime.' + name in mods, name\n"
         "print(len(mods))\n"
     )
