@@ -9,9 +9,10 @@ exits non-zero without either. Phases, each fatal on failure:
   1. census: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds every kernel of the main path from the checkout, one
      process per source, all started together; each one's ptxas lines;
-  3. decode attention against its plain version at the main path's shapes
-     and at the edges of its design (split boundaries, row tiles, a row with
-     cache_len 0), each twice (the two calls must be bit-equal), with times
+  3. decode attention against its plain version at the main path's shapes,
+     the zero-shot prefills of a 3 s and a 10 s prompt (T and S_max as the
+     engine pads them), and at the edges of its design (split boundaries,
+     row tiles, a row with cache_len 0), each twice (the two calls must be bit-equal), with times
      (CUDA events, L2 flushed before each launch), the plain version's and
      one library call's (SDPA with the same additive mask, a yardstick
      only), and the byte/operation bound; before it, the launch floor: a
@@ -70,8 +71,32 @@ exits non-zero without either. Phases, each fatal on failure:
      before it has finished playing); whether the slot stream's tokens equal
      the lane stream's on the same seed (bf16 may round a one-row burst and
      a four-row step apart);
-  6. the kernels line (launches: phases 5, 5b and 5c), the card line, and
-     the final JSON line.
+  5d. zero-shot, voice conversion and the speaker registry, every request
+     seeded, at heads 2: first the frontend on the card against the same
+     frontend on the CPU for a seeded voiced prompt at 16 kHz (3 s) and at
+     24 kHz (10 s): speech tokens exact, or each flip printed with its
+     distance to a half-integer (none farther than 1e-3), the prompt mel
+     within 1e-3 and the embedding within 1e-4, and the tokens again with
+     cuDNN's TF32 on, as the launcher leaves it (the differences counted).
+     Then, against a window-mode server: /api/v1/speakers/add with the 3 s
+     prompt and its transcript; /api/v1/zero-shot in each mode
+     (zero_shot, cross_lingual, instruct2), with the 10 s prompt, and a
+     two-segment text; /api/v1/tts on the added speaker and, with
+     last_prompt, a three-segment text; /api/v1/vc; against a server with 4
+     slots, a zero-shot request (which the worker must serve) and
+     /api/v1/tts on the added speaker (a slot). Each WAV as in phase 5; each
+     request's launches equal the prediction (the worker's from its engine
+     calls, the slots' from the batcher's stats), voice conversion's zero;
+     the 3 s and 10 s zero-shot prefills, as the engine built them (the
+     prompt block's rows and the KV cache it allocated), must have the
+     (T, S_max) that phase 3 timed.
+     Then the registry is saved, the speaker removed (/api/v1/tts on it must
+     give 500 naming the speakers), a zero-shot request without prompt
+     audio must give 400, and the launcher with --spk2info on the saved
+     file must list exactly the saved speaker. Printed per request: prompt
+     seconds, prefill (T, S_max), frontend seconds, tokens, RTF;
+  6. the kernels line (launches: phases 5, 5b, 5c and 5d), the card line,
+     and the final JSON line.
 
 TF32 is off for matmuls and cuDNN convs throughout, so f32 is full f32 in
 every comparison, and cuDNN takes deterministic algorithms, so a seeded
@@ -88,6 +113,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 import wave
 
@@ -174,16 +200,17 @@ ATTENTION_CASES = [(1, 1, 512, [0], 14), (1, 1, 512, [127], 14), (1, 2, 512, [12
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
-def check_decode_attention(da, flush):
-    """Phase 3: every case against the plain version, twice (the two calls
-    must be bit-equal), timed. Returns the per-case records."""
+def check_decode_attention(da, flush, extra_cases=()):
+    """Phase 3: every case of ATTENTION_CASES and `extra_cases` against the
+    plain version, twice (the two calls must be bit-equal), timed. Returns
+    the per-case records."""
     import torch
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(0)
     records = []
     for dtype in (torch.bfloat16, torch.float32):
-        for b, t, s_max, lens, hq in ATTENTION_CASES:
+        for b, t, s_max, lens, hq in ATTENTION_CASES + list(extra_cases):
             q = torch.randn(b, t, hq, 64, generator=g, device="cuda").to(dtype)
             k = torch.randn(b, s_max, 2, 64, generator=g, device="cuda").to(dtype)
             v = torch.randn(b, s_max, 2, 64, generator=g, device="cuda").to(dtype)
@@ -376,20 +403,39 @@ def predicted_launches(recs, cfg):
 
 class EngineCalls:
     """While entered, records each call of `Engine.synthesize` and
-    `Engine.synthesize_batch` (the worker's routes) in `records`."""
+    `Engine.synthesize_batch` (the worker's routes) in `records`; a
+    `synthesize` record holds the (T, S_max) of each LM prefill the call ran,
+    read from the prompt block and the KV cache that
+    `llm.init_generate_state` was given and allocated."""
 
     def __init__(self, engine):
         self.engine = engine
         self.records = []
 
     def __enter__(self):
+        from flowmirror_hydravox_tpu_torch.models import llm as llm_model
+
         synthesize, synthesize_batch = self.engine.synthesize, self.engine.synthesize_batch
-        self.saved = synthesize, synthesize_batch
+        init_state = llm_model.init_generate_state
+        self.saved = synthesize, synthesize_batch, init_state
+        local = threading.local()
+
+        def record_init(params, cfg, prompt_embeds, prompt_len, **kwargs):
+            state = init_state(params, cfg, prompt_embeds, prompt_len, **kwargs)
+            getattr(local, "prefills", []).append(
+                (int(prompt_embeds.shape[0]), int(state["cache"].k.shape[2])))
+            return state
 
         def record_one(**kwargs):
-            res = synthesize(**kwargs)
+            local.prefills = []
+            try:
+                res = synthesize(**kwargs)
+                prefills = local.prefills
+            finally:
+                del local.prefills
             self.records.append(dict(route="synthesize", rows=1,
                                      heads=kwargs["inference_head_num"],
+                                     prefills=prefills,
                                      tokens=len(res.speech_tokens), steps=res.steps,
                                      llm_time=res.llm_time, synth_time=res.synth_time,
                                      total_time=res.total_time))
@@ -405,10 +451,14 @@ class EngineCalls:
             return wavs, stats
 
         self.engine.synthesize, self.engine.synthesize_batch = record_one, record_batch
+        llm_model.init_generate_state = record_init
         return self
 
     def __exit__(self, *exc):
-        self.engine.synthesize, self.engine.synthesize_batch = self.saved
+        from flowmirror_hydravox_tpu_torch.models import llm as llm_model
+
+        self.engine.synthesize, self.engine.synthesize_batch, llm_model.init_generate_state = \
+            self.saved
 
 
 def start_servers(engine, frontend, **kwargs_list):
@@ -1009,6 +1059,323 @@ def drive_streams(engine, frontend, da, mg):
     return dict(streams=results, summary=summary), tuple(total)
 
 
+# phase 5d: zero-shot, voice conversion and the speaker registry
+ZS_PROMPT_TEXT = ("This is the voice that the new sentence should borrow, recorded for a few "
+                  "seconds in a quiet room.")
+ZS_TEXT = ("Zero shot cloning speaks this new sentence in the borrowed voice although the "
+           "speaker never read it aloud.")  # one segment: no comma past 30 characters
+ZS_TWO = "The cloned voice reads this first sentence! Then it reads a second one."
+ZS_LAST_PROMPT = ("The rolling prompt starts with this part! Does the second part follow it? "
+                  "Yes, and the third part closes.")
+ZS_PROMPTS = {"3s_16k": (16000, 3.0, 0), "10s_24k": (24000, 10.0, 1)}  # (rate, s, seed)
+ZS_SEED = 777
+MEL_ATOL = 1e-3  # log-mel, card (cuFFT) against the CPU
+EMB_ATOL = 1e-4  # speaker embedding (values ~0.06), card against the CPU
+FLIP_DISTANCE = 1e-3  # a token may flip only where its value is this near a half-integer
+
+
+def voiced(sr: int, seconds: float, seed: int) -> np.ndarray:
+    """A voiced harmonic prompt with a wandering f0, an amplitude envelope
+    and a little noise, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    tt = np.arange(int(sr * seconds)) / sr
+    f0 = 110 + 40 * rng.random() + 25 * np.sin(2 * np.pi * (0.3 + rng.random()) * tt)
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    env = 0.5 + 0.5 * np.sin(2 * np.pi * (2 + 2 * rng.random()) * tt) ** 2
+    x = sum(np.sin(k * phase + 6 * rng.random()) / k for k in range(1, 12)) * env
+    x = 0.25 * x / np.abs(x).max() + 0.01 * rng.standard_normal(len(tt))
+    return x.astype(np.float32)
+
+
+def zero_shot_prefill_cases(heads: int = 2):
+    """{prompt: (B, T, S_max, cache_len, Hq)}: the decode-attention shape of
+    a zero-shot request's prefill at MAX_TOKENS, for ZS_PROMPT_TEXT + ZS_TEXT
+    and each ZS_PROMPTS prompt, as the port's engine pads it: the text and
+    the prompt's speech tokens (25 a second, trimmed 1:2 to the mel) each to
+    a PROMPT_BUCKETS bucket, the cache to a multiple of CACHE_ROUND. Phase 5d
+    holds its requests' prefills to these."""
+    from flowmirror_hydravox_tpu_torch.frontend.text_norm import normalize
+    from flowmirror_hydravox_tpu_torch.frontend.tokenizer import get_tokenizer
+    from flowmirror_hydravox_tpu_torch.models.llm import CACHE_ROUND
+    from flowmirror_hydravox_tpu_torch.runtime.engine import PROMPT_BUCKETS, _bucket
+
+    tok = get_tokenizer()
+    lt = len(tok.encode(normalize(ZS_PROMPT_TEXT))) + len(tok.encode(normalize(ZS_TEXT)))
+    out = {}
+    for name, (_, seconds, _) in ZS_PROMPTS.items():
+        rows = 2 + _bucket(lt, PROMPT_BUCKETS) + _bucket(int(25 * seconds), PROMPT_BUCKETS)
+        cap = rows + MAX_TOKENS + heads
+        out[name] = (1, rows, -(-cap // CACHE_ROUND) * CACHE_ROUND, [0], 14)
+    return out
+
+
+def http_status(base, path, body):
+    """POST `body`; (status, JSON body), error statuses included."""
+    req = urllib.request.Request(base + path, json.dumps(body).encode(),
+                                 {"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=900) as r:
+            return r.status, json.load(r)
+    except urllib.error.HTTPError as e:
+        return e.code, json.load(e)
+
+
+def audio_of(code, body, what):
+    """(samples, peak) of an audio response: 200, 24 kHz, non-empty, finite."""
+    if code != 200 or not body.get("success"):
+        fail(f"{what}: {code} {body.get('error')}")
+    with wave.open(io.BytesIO(base64.b64decode(body["data"]["audio_base64"]))) as w:
+        rate, frames = w.getframerate(), w.readframes(w.getnframes())
+    pcm = np.frombuffer(frames, np.int16).astype(np.float32) / 32768.0
+    if rate != SAMPLE_RATE or pcm.size == 0 or not np.isfinite(pcm).all():
+        fail(f"{what}: bad WAV, rate {rate}, {pcm.size} samples")
+    return pcm.size, float(np.abs(pcm).max())
+
+
+class Timed:
+    """While entered, adds the wall time of each call of the named methods of
+    `obj` to `seconds`."""
+
+    def __init__(self, obj, names):
+        self.obj, self.names, self.seconds = obj, names, 0.0
+
+    def __enter__(self):
+        for name in self.names:
+            inner = getattr(self.obj, name)
+
+            def timed(*args, _inner=inner, **kwargs):
+                t0 = time.time()
+                try:
+                    return _inner(*args, **kwargs)
+                finally:
+                    self.seconds += time.time() - t0
+
+            setattr(self.obj, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name in self.names:
+            delattr(self.obj, name)
+
+
+def check_frontend_on_card(frontend):
+    """Phase 5d, part 1: the frontend on the card (TF32 off) against the same
+    frontend on the CPU, for each ZS_PROMPTS prompt: tokens exact, or each
+    flip printed with the CPU value's distance to its half-integer (and none
+    farther than FLIP_DISTANCE); prompt mel within MEL_ATOL, embedding within
+    EMB_ATOL. Then the card's tokens with cuDNN's TF32 on, as the launcher
+    leaves it. Returns the per-prompt records."""
+    import torch
+
+    from flowmirror_hydravox_tpu_torch.frontend import speech_tokenizer as st
+    from flowmirror_hydravox_tpu_torch.frontend.frontend import Frontend
+    from flowmirror_hydravox_tpu_torch.utils.audio import resample_linear, whisper_log_mel
+
+    cpu = Frontend(frontend.cfg, tokenizer=frontend.tokenizer, device="cpu")
+    records = {}
+    for name, (sr, seconds, seed) in ZS_PROMPTS.items():
+        wav = voiced(sr, seconds, seed)
+        frontend._prompt_features(wav, sr)  # first-use cost outside the timing
+        torch.cuda.synchronize()
+        t0 = time.time()
+        tokens, mel = frontend._prompt_features(wav, sr)
+        emb = frontend.extract_spk_embedding(wav, sr)
+        card_s = time.time() - t0
+        t0 = time.time()
+        c_tokens, c_mel = cpu._prompt_features(wav, sr)
+        c_emb = cpu.extract_spk_embedding(wav, sr)
+        cpu_s = time.time() - t0
+        if tokens.shape != c_tokens.shape or mel.shape != c_mel.shape:
+            fail(f"frontend {name}: card shapes {tokens.shape} {mel.shape}, CPU "
+                 f"{c_tokens.shape} {c_mel.shape}")
+        flips = []
+        if not np.array_equal(tokens, c_tokens):
+            wav16 = resample_linear(torch.from_numpy(wav)[None], sr, 16000)
+            wav16 = torch.nn.functional.pad(wav16, (0, -wav16.shape[-1] % 640))
+            with torch.inference_mode():
+                z = st.encode_fsq_values(cpu.tokenizer_params, cpu.st_cfg, whisper_log_mel(wav16))
+                v = st.fsq_values(z, cpu.st_cfg.fsq_levels)[0].numpy()
+            dist = np.abs(np.abs(v - np.floor(v)) - 0.5)
+            for i in np.flatnonzero(tokens != c_tokens[: len(tokens)]):
+                flips.append(dict(position=int(i), card=int(tokens[i]), cpu=int(c_tokens[i]),
+                                  distance=float(dist[i].min())))
+                print(f"frontend {name}: token {i} flips {c_tokens[i]} -> {tokens[i]}, CPU value "
+                      f"{dist[i].min():.3e} from a half-integer", flush=True)
+        mel_err = float(np.abs(mel - c_mel).max())
+        emb_err = float(np.abs(emb - c_emb).max())
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32_tokens = frontend.extract_speech_tokens(wav, sr)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        rec = dict(prompt=name, sample_rate=sr, seconds=seconds, tokens=len(tokens),
+                   mel_frames=len(mel), flips=flips, mel_max_abs_err=mel_err,
+                   emb_max_abs_err=emb_err, card_s=card_s, cpu_s=cpu_s,
+                   tf32_token_diffs=int(np.sum(tf32_tokens[: len(tokens)] != tokens)))
+        print("frontend", json.dumps(rec), flush=True)
+        if any(f["distance"] > FLIP_DISTANCE for f in flips) or not (
+                mel_err <= MEL_ATOL and emb_err <= EMB_ATOL):
+            fail(f"frontend {name}: the card disagrees with the CPU: {rec}")
+        records[name] = rec
+    return records
+
+
+def drive_zero_shot(engine, frontend, da, mg, prefill_cases):
+    """Phase 5d: the frontend on the card against the CPU, then zero-shot,
+    voice conversion and the speaker registry through a window-mode server
+    and a server with SLOTS slots, every request seeded, at heads 2; each
+    worker request's launches held to the prediction, voice conversion's to
+    zero, the slots' from the batcher's stats; the launcher's --spk2info on
+    the registry this phase saves. Returns (results, launches)."""
+    from flowmirror_hydravox_tpu_torch import __main__ as launcher
+    from flowmirror_hydravox_tpu_torch.utils.wavio import audio_to_base64
+
+    cfg = engine.cfg.llm
+    n_layers = cfg.backbone.num_layers
+    frontend_records = check_frontend_on_card(frontend)
+    b64 = {name: audio_to_base64(voiced(*spec), spec[0]) for name, spec in ZS_PROMPTS.items()}
+    servers = start_servers(engine, frontend, window={},
+                            continuous={"continuous_slots": SLOTS, "continuous_head_num": 2})
+    window_url, cont_url = servers["window"][2], servers["continuous"][2]
+    batcher = servers["continuous"][0].RequestHandlerClass.service.batcher
+    fe_methods = ["frontend_zero_shot", "frontend_cross_lingual", "frontend_instruct2",
+                  "frontend_vc", "add_speaker_from_audio", "extract_mel"]
+    requests, total = [], [0, 0]
+    vc_calls = []
+    voice_convert = engine.voice_convert
+
+    def record_vc(*args, **kwargs):
+        t0 = time.time()
+        out = voice_convert(*args, **kwargs)
+        vc_calls.append(dict(tokens=len(args[0]), prompt_tokens=len(args[1]),
+                             total_time=time.time() - t0))
+        return out
+
+    engine.voice_convert = record_vc
+    slot_reqs = []
+    slot_submit = batcher.submit
+
+    def record_slot_submit(*args, **kwargs):
+        req = slot_submit(*args, **kwargs)
+        slot_reqs.append(req)
+        return req
+
+    batcher.submit = record_slot_submit
+
+    def request(name, url, path, body, prompt=None, routes=None, slots=False):
+        """One request; its audio checked; its launches held to the
+        prediction; its record printed."""
+        before = (da.launch_count, mg.launch_count, len(calls.records), len(vc_calls),
+                  dict(batcher.stats), len(slot_reqs))
+        t0 = time.time()
+        with Timed(frontend, fe_methods) as fe_time:
+            code, resp = http_status(url, path, body)
+        wall = time.time() - t0
+        samples, peak = audio_of(code, resp, name)
+        launched = (da.launch_count - before[0], mg.launch_count - before[1])
+        recs = calls.records[before[2]:]
+        if slots:
+            done = {k: batcher.stats[k] - before[4][k] for k in before[4]}
+            predicted = (n_layers * (done["admits"] + done["forwards"]),
+                         n_layers * done["forwards"] + batcher.head_k * done["steps"])
+            tokens = sum(len(r.stats["tokens"]) for r in slot_reqs[before[5]:])
+        else:
+            predicted = predicted_launches(recs, cfg)
+            tokens = sum(r["tokens"] for r in recs)
+        if routes is not None and [r["route"] for r in recs] != routes:
+            fail(f"{name}: engine calls {[r['route'] for r in recs]}, expected {routes}")
+        if launched != predicted or (path == "/api/v1/vc") != (launched == (0, 0)):
+            fail(f"{name}: (attention, mlp) launches {launched}, predicted {predicted}")
+        total[0] += launched[0]
+        total[1] += launched[1]
+        audio_s = samples / SAMPLE_RATE
+        rec = dict(name=name, path=path, prompt=prompt,
+                   prompt_s=None if prompt is None else ZS_PROMPTS[prompt][1],
+                   prefills=[p for r in recs for p in r.get("prefills", [])],
+                   frontend_s=fe_time.seconds,
+                   tokens=tokens, engine_s=sum(r["total_time"] for r in recs)
+                   + sum(v["total_time"] for v in vc_calls[before[3]:]),
+                   wall_s=wall, audio_s=audio_s, rtf=wall / audio_s, peak=peak,
+                   attention_launches=launched[0], mlp_launches=launched[1])
+        print("zero_shot", json.dumps(rec), flush=True)
+        requests.append(rec)
+        return rec
+
+    def zero_shot(mode, prompt="3s_16k", text=ZS_TEXT):
+        return dict(tts_text=text, prompt_text=ZS_PROMPT_TEXT, mode=mode,
+                    prompt_audio_base64=b64[prompt],
+                    extra_params={"inference_head_num": 2, "seed": ZS_SEED})
+
+    try:
+        with EngineCalls(engine) as calls:
+            # first-use cost of the zero-shot shapes outside the counted run
+            http_status(window_url, "/api/v1/zero-shot", zero_shot("zero_shot"))
+            calls.records.clear()
+            da.launch_count = mg.launch_count = 0
+            code, body = http_status(window_url, "/api/v1/speakers/add", {
+                "speaker_id": "cloned", "audio_base64": b64["3s_16k"],
+                "prompt_text": ZS_PROMPT_TEXT})
+            if code != 200 or body["data"] != {"speaker_id": "cloned"}:
+                fail(f"/api/v1/speakers/add: {code} {body}")
+            for mode in ("zero_shot", "cross_lingual", "instruct2"):
+                request(f"zero_shot_{mode}", window_url, "/api/v1/zero-shot", zero_shot(mode),
+                        "3s_16k", ["synthesize"])
+            request("zero_shot_10s", window_url, "/api/v1/zero-shot",
+                    zero_shot("zero_shot", "10s_24k"), "10s_24k", ["synthesize"])
+            request("zero_shot_two_segments", window_url, "/api/v1/zero-shot",
+                    zero_shot("zero_shot", text=ZS_TWO), "3s_16k", ["synthesize"] * 2)
+            request("slots_zero_shot", cont_url, "/api/v1/zero-shot", zero_shot("zero_shot"),
+                    "3s_16k", ["synthesize"])
+            tts_body = {"text": ZS_TEXT, "speaker_id": "cloned",
+                        "extra_params": {"inference_head_num": 2, "seed": ZS_SEED}}
+            request("tts_cloned", window_url, "/api/v1/tts", tts_body, "3s_16k", ["synthesize"])
+            request("slots_tts_cloned", cont_url, "/api/v1/tts", tts_body, "3s_16k", [],
+                    slots=True)
+            request("tts_last_prompt", window_url, "/api/v1/tts",
+                    {"text": ZS_LAST_PROMPT, "speaker_id": "cloned", "last_prompt": True,
+                     "extra_params": {"inference_head_num": 2, "seed": ZS_SEED}}, "3s_16k",
+                    ["synthesize"] * 3)
+            request("vc", window_url, "/api/v1/vc",
+                    {"source_audio_base64": b64["3s_16k"], "prompt_audio_base64": b64["10s_24k"],
+                     "extra_params": {"seed": ZS_SEED}}, "10s_24k", [])
+            if len(vc_calls) != 1:
+                fail(f"vc: {len(vc_calls)} Engine.voice_convert calls")
+
+            # the registry: save, remove, the launcher on the saved file
+            registry = ROOT / "chiprun_out" / "spk2info.npz"
+            registry.parent.mkdir(exist_ok=True)
+            default = frontend.spk2info.pop("default")
+            frontend.save_spk2info(str(registry))  # the speakers this phase added
+            frontend.add_speaker("default", default)
+            if http_status(window_url, "/api/v1/speakers/remove/cloned", {})[0] != 200:
+                fail("/api/v1/speakers/remove/cloned")
+            code, body = http_status(window_url, "/api/v1/tts", tts_body)
+            if code != 500 or "default" not in body["error"]:
+                fail(f"/api/v1/tts on a removed speaker: {code} {body}")
+            code, body = http_status(window_url, "/api/v1/zero-shot", {"tts_text": ZS_TEXT})
+            if code != 400 or body["error"] != "prompt_audio_base64 required":
+                fail(f"/api/v1/zero-shot without prompt audio: {code} {body}")
+            _, loaded = launcher.build(launcher.parse_args(
+                ["--tiny", "--device", "cuda", "--spk2info", str(registry)]))
+            if loaded.available_speakers() != ["cloned"]:
+                fail(f"--spk2info: speakers {loaded.available_speakers()}, saved ['cloned']")
+    finally:
+        del engine.voice_convert
+        batcher.submit = slot_submit
+        stop_servers(servers)
+
+    # the 3 s and 10 s prompts' prefills, as the engine built them, are the
+    # (T, S_max) that phase 3 timed
+    for rec in requests:
+        if rec["name"] in ("zero_shot_zero_shot", "zero_shot_10s", "slots_zero_shot"):
+            timed = prefill_cases[rec["prompt"]][1:3]
+            if rec["prefills"] != [timed]:
+                fail(f"{rec['name']}: prefills (T, S_max) {rec['prefills']}, phase 3 timed "
+                     f"{timed}")
+    return dict(frontend=frontend_records, requests=requests,
+                launcher_speakers=loaded.available_speakers()), tuple(total)
+
+
 def main():
     if not (ROOT / "flowmirror_hydravox_tpu_torch" / "csrc").is_dir():
         fail("the port package is not beside this script; run it from a checkout")
@@ -1062,7 +1429,11 @@ def main():
     one = torch.empty(1, device="cuda")
     launch_floor_ms = time_ms(lambda: one.zero_(), flush)
     print(f"launch floor: one-element zero_() {launch_floor_ms:.6f} ms", flush=True)
-    attention_cases = check_decode_attention(da, flush)
+    # the zero-shot prefills of a 3 s and a 10 s prompt, as phase 5d sends them
+    prefill_cases = zero_shot_prefill_cases()
+    print("zero-shot prefill shapes (B, T, S_max, cache_len, Hq):", json.dumps(prefill_cases),
+          flush=True)
+    attention_cases = check_decode_attention(da, flush, prefill_cases.values())
     mlp_cases = check_mlp_gemv(mg, flush)
 
     t0 = time.time()
@@ -1077,7 +1448,9 @@ def main():
     requests, launches = drive_main_path(engine, frontend, da, mg)
     serving, more = drive_continuous(engine, frontend, da, mg)
     streaming, streamed = drive_streams(engine, frontend, da, mg)
-    attention_launches, mlp_launches = (a + b + c for a, b, c in zip(launches, more, streamed))
+    zero_shot, zs_launched = drive_zero_shot(engine, frontend, da, mg, prefill_cases)
+    attention_launches, mlp_launches = (sum(x) for x in zip(launches, more, streamed,
+                                                            zs_launched))
     del flush
 
     # the kernels line: each kernel at its serving shape (bf16; decode
@@ -1120,7 +1493,8 @@ def main():
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "launch_floor_ms": launch_floor_ms, "attention_cases": attention_cases,
          "mlp_cases": mlp_cases, "backbone_rel_err": backbone_rel, "requests": requests,
-         "serving": serving, "streaming": streaming, **kernels}, indent=1))
+         "serving": serving, "streaming": streaming, "zero_shot": zero_shot, **kernels},
+        indent=1))
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

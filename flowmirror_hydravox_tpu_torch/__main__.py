@@ -1,15 +1,23 @@
-"""Server launcher (port of flowmirror_hydravox_tpu/__main__.py, SFT subset).
+"""Server launcher (port of flowmirror_hydravox_tpu/__main__.py, its serving
+subset).
 
   python -m flowmirror_hydravox_tpu_torch --api-port 8080 \
       [--tiny] [--model-dir DIR] [--max-tokens N] [--device cuda|cpu] \
-      [--continuous-batching SLOTS] [--continuous-heads K] [--continuous-reserve N]
+      [--spk2info FILE] [--continuous-batching SLOTS] [--continuous-heads K] \
+      [--continuous-reserve N]
 
 --model-dir holds llm.npz / flow.npz / hift.npz in the JAX package's flat npz
 format; a missing file means random weights from seed 0 (structure and
 latency testing). With random full-width LLM weights the text vocab follows
 the tokenizer's, padded to a multiple of 128. Serving dtypes: bf16 for the
-LLM and flow, f32 for HiFT. A `default` speaker (zero embedding) is
-registered.
+LLM and flow, f32 for HiFT; the frontend's extractors (the committed speech
+tokenizer and speaker encoder) f32, on the same device.
+
+--spk2info loads a speaker registry: a `.npz` as `Frontend.save_spk2info`
+writes it (embeddings, prompt tokens and mels), anything else as the
+reference's `spk2info.pt` (embeddings). A path that does not exist is an
+error. A `default` speaker (zero embedding) is registered only when the
+registry is empty (JAX __main__.py:160-165).
 
 Batching, as the JAX launcher's flags set it (:66-76):
   - `--continuous-batching N` (default 4): continuous in-flight batching.
@@ -55,6 +63,8 @@ def parse_args(argv=None):
     p.add_argument("--api-port", type=int, default=8080)
     p.add_argument("--model-dir", default=os.environ.get("TTS_MODEL_DIR"))
     p.add_argument("--tokenizer-path", default=None)
+    p.add_argument("--spk2info", default=None,
+                   help="speaker registry: .npz (save_spk2info) or the reference's .pt")
     p.add_argument("--tiny", action="store_true", help="tiny random config (smoke)")
     p.add_argument("--max-tokens", type=int, default=1024)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -99,8 +109,16 @@ def build(args):
 
     engine = Engine(cfg, trees["llm"], trees["flow"], trees["hift"],
                     max_tokens=args.max_tokens, device=device)
-    frontend = Frontend(cfg, tokenizer=tokenizer)
-    frontend.add_speaker("default", SpeakerInfo(embedding=np.zeros(192, np.float32)))
+    frontend = Frontend(cfg, tokenizer=tokenizer, device=device)
+    if args.spk2info:
+        if not os.path.exists(args.spk2info):
+            raise FileNotFoundError(f"--spk2info {args.spk2info} does not exist")
+        if args.spk2info.endswith(".npz"):
+            frontend.load_spk2info_npz(args.spk2info)
+        else:
+            frontend.load_spk2info(args.spk2info)
+    if not frontend.available_speakers():
+        frontend.add_speaker("default", SpeakerInfo(embedding=np.zeros(192, np.float32)))
     return engine, frontend
 
 

@@ -1,8 +1,10 @@
 """Inference engine: text tokens -> speech tokens -> mel -> 24 kHz waveform.
 
 Port of the two-stage path of flowmirror_hydravox_tpu/runtime/engine.py
-(`Engine(fused=False)`), for one utterance (`synthesize`) and for the flash
-batch of several (`synthesize_batch`):
+(`Engine(fused=False)`), for one utterance (`synthesize`, SFT or zero-shot
+with the LM's own prompt prefix), for the flash batch of several
+(`synthesize_batch`), and for voice conversion (`voice_convert`: stage 2
+alone on a source's speech tokens):
 
   - stage 1: prompt assembly, KV-cache prefill and multi-head decode
     (models/llm.py), the attention of every layer going through the Hopper
@@ -215,16 +217,23 @@ class Engine:
             cache_len_cap=2 + len(text_pad) + len(sp_pad) + self.max_tokens + head_num,
         )
 
-    def _row_prompts(self, prompt_speech_tokens, prompt_mel):
-        """One row's prompt buffers at their buckets: (sp_pad (sbkt,) int32
-        over PROMPT_BUCKETS, lp, pm (1, pm_bucket, 80) f32 over MEL_BUCKETS,
-        pm_len). Prompt tokens past the largest bucket are cut off."""
+    @staticmethod
+    def _speech_row(prompt_speech_tokens):
+        """(sp_pad (sbkt,) int32 over PROMPT_BUCKETS, lp); tokens past the
+        largest bucket are cut off."""
         sp = (np.zeros((0,), np.int32) if prompt_speech_tokens is None
               else np.asarray(prompt_speech_tokens, np.int32))
         sbkt = _bucket(len(sp), PROMPT_BUCKETS) if len(sp) else 0
         sp = sp[:sbkt]
         sp_pad = np.zeros((sbkt,), np.int32)
         sp_pad[:len(sp)] = sp
+        return sp_pad, len(sp)
+
+    def _row_prompts(self, prompt_speech_tokens, prompt_mel):
+        """One row's prompt buffers at their buckets: (sp_pad (sbkt,) int32
+        over PROMPT_BUCKETS, lp, pm (1, pm_bucket, 80) f32 over MEL_BUCKETS,
+        pm_len). Prompt tokens past the largest bucket are cut off."""
+        sp_pad, lp = self._speech_row(prompt_speech_tokens)
         n_mel = self.cfg.flow.output_size
         if prompt_mel is not None and len(prompt_mel) > 0:
             pm_len = len(prompt_mel)
@@ -232,7 +241,7 @@ class Engine:
             pm[0, :pm_len] = prompt_mel
         else:
             pm, pm_len = np.zeros((1, 0, n_mel), np.float32), 0
-        return sp_pad, len(sp), pm, pm_len
+        return sp_pad, lp, pm, pm_len
 
     def _resample_and_vocode(self, mel_gen, n_frames: int, speed: float, noise) -> np.ndarray:
         """speed != 1: resample the mel linearly on the host, then re-vocode
@@ -262,16 +271,22 @@ class Engine:
         tts_text_len: int,  # length of the tts portion (min/max len base)
         sampling: Optional[SamplingConfig] = None,
         inference_head_num: Optional[int] = None,
-        prompt_speech_tokens: Optional[np.ndarray] = None,  # (Lp,) LM and flow prompt
+        prompt_speech_tokens: Optional[np.ndarray] = None,  # (Lp,) flow prompt
         prompt_mel: Optional[np.ndarray] = None,  # (Lm, 80)
         spk_embedding: Optional[np.ndarray] = None,  # (192,)
         speed: float = 1.0,
         noise=None,
+        llm_prompt_speech_tokens: Optional[np.ndarray] = None,  # LM prefix override
     ) -> SynthesisResult:
-        """Single-utterance synthesis (reference inference_tts,
-        infer_speech_model.py:523-689). `noise` (default: drawn from the
-        engine's generator) feeds both the LM's sampling and HiFT's source,
-        as the JAX engine feeds one key to both."""
+        """Single-utterance synthesis (reference inference_tts /
+        inference_zero_shot, infer_speech_model.py:523-689). `noise` (default:
+        drawn from the engine's generator) feeds both the LM's sampling and
+        HiFT's source, as the JAX engine feeds one key to both.
+
+        `llm_prompt_speech_tokens` (engine.py:1047-1067) is the LM's prompt
+        speech prefix: None means the flow's `prompt_speech_tokens`, an empty
+        array none at all (cross-lingual and instruct2,
+        cli/frontend.py:186-209). The flow always takes its own prompt."""
         t_start = time.time()
         cfg = self.cfg
         sampling = sampling or cfg.tts_sampling
@@ -284,6 +299,8 @@ class Engine:
         text_pad, lt, tts_text_len = self._text_row(text_tokens, tts_text_len)
         sp_pad, lp, pm, pm_len = self._row_prompts(prompt_speech_tokens, prompt_mel)
         sbkt, pm_bucket = len(sp_pad), pm.shape[1]
+        llm_sp_pad, llm_lp = ((sp_pad, lp) if llm_prompt_speech_tokens is None
+                              else self._speech_row(llm_prompt_speech_tokens))
 
         min_len = int(tts_text_len * MIN_TOKEN_TEXT_RATIO)
         max_len = min(int(tts_text_len * MAX_TOKEN_TEXT_RATIO), self.max_tokens)
@@ -295,7 +312,8 @@ class Engine:
         # ---- stage 1: LLM ----
         t0 = time.time()
         with torch.profiler.record_function("engine.llm"):
-            res = self._generate(text_pad, lt, sp_pad, lp, min_len, max_len, sp, head_num, noise)
+            res = self._generate(text_pad, lt, llm_sp_pad, llm_lp, min_len, max_len, sp,
+                                 head_num, noise)
         n_tok, steps = res.num_tokens, res.steps
         llm_time = time.time() - t0
 
@@ -333,6 +351,22 @@ class Engine:
         return result
 
     @torch.inference_mode()
+    def voice_convert(self, source_speech_tokens, prompt_speech_tokens, prompt_mel,
+                      spk_embedding, noise=None) -> np.ndarray:
+        """Voice conversion (engine.py:994-1032; reference vc_job,
+        cli/model.py:123-130): the source's speech tokens bypass the LM and
+        the flow re-voices them with the prompt's timbre, at SYNTH_BUCKETS
+        with the prompt mel over MEL_BUCKETS, in the (max_tokens,) token
+        buffer the TTS paths use. `noise` (default: drawn from the engine's
+        generator) feeds HiFT's source. Returns the float32 wav."""
+        src = np.asarray(source_speech_tokens, np.int32)[: self.max_tokens]
+        buf = np.zeros((self.max_tokens,), np.int32)
+        buf[:len(src)] = src
+        return self._synth_row(self._tensor(buf, torch.int32), len(src),
+                               noise if noise is not None else self.next_noise(),
+                               prompt_speech_tokens, prompt_mel, spk_embedding, SYNTH_BUCKETS)
+
+    @torch.inference_mode()
     def synthesize_tokens(self, tokens, num: int, noise, prompt_speech_tokens=None,
                           prompt_mel=None, spk_embedding=None) -> np.ndarray:
         """Stage 2 alone for one row of generated tokens, as the JAX continuous
@@ -340,10 +374,16 @@ class Engine:
         tokens in a (max_tokens,) buffer, -1 past `num`, padded to a bucket of
         the coarse TOKEN_BUCKETS. tokens: a (>= max_tokens,) int32 tensor on
         the engine's device. Returns the float32 wav."""
+        return self._synth_row(tokens, num, noise, prompt_speech_tokens, prompt_mel,
+                               spk_embedding, TOKEN_BUCKETS)
+
+    def _synth_row(self, tokens, num: int, noise, prompt_speech_tokens, prompt_mel,
+                   spk_embedding, buckets) -> np.ndarray:
+        """Flow + HiFT on one row's token buffer at a bucket of `buckets`."""
         sp_pad, lp, pm, pm_len = self._row_prompts(prompt_speech_tokens, prompt_mel)
         emb = (np.zeros((192,), np.float32) if spk_embedding is None
                else np.asarray(spk_embedding, np.float32).reshape(-1)[:192])
-        tok_bkt = _bucket(max(lp + num, 1), TOKEN_BUCKETS)
+        tok_bkt = _bucket(max(lp + num, 1), buckets)
         flow_dtype = self.flow_params["input_embedding"].dtype
         with torch.profiler.record_function("engine.synth"):
             wav_dev, _ = self._synth_body(

@@ -1,20 +1,30 @@
-"""HTTP serving layer, SFT subset of flowmirror_hydravox_tpu/runtime/server.py,
-with the reference's REST schema (server/router.py):
+"""HTTP serving layer, a port of the inference routes of
+flowmirror_hydravox_tpu/runtime/server.py, with the reference's REST schema
+(server/router.py):
 
   GET  /health            -> {"status": "ok"}
   GET  /api/v1/speakers   -> {success, message, data: {speakers}, error}
   GET  /api/v1/metrics    -> {success, message, data: {requests, latency_*,
                              batched_requests, continuous_requests,
                              admission_ms_p50/p95, queue_wait_ms_p50/p95}, error}
-  POST /api/v1/tts        {text, speaker_id, extra_params}
+  POST /api/v1/tts        {text, speaker_id, extra_params, last_prompt}
        -> {success, message, data: {audio_base64, sample_rate, duration}, error}
+  POST /api/v1/zero-shot  {tts_text, prompt_text, prompt_audio_base64, mode,
+                           extra_params}, mode zero_shot (default),
+                           cross_lingual or instruct2 -> as /api/v1/tts
+  POST /api/v1/vc         {source_audio_base64, prompt_audio_base64} -> as /api/v1/tts
+  POST /api/v1/speakers/add {speaker_id, audio_base64 | dataset_dir, prompt_text}
+       -> {..., data: {speaker_id[, rows_averaged]}}
+  POST /api/v1/speakers/remove/<id> -> 200, or 404 for an unknown speaker
   POST /api/v1/tts/stream {text, speaker_id, extra_params}
        -> a WAV stream: a RIFF header with 0xFFFFFFFF sizes, then s16le PCM
           chunks (~1 s each, 50-150 ms of silence between segments) until
           the connection closes
 
-Errors: unknown speaker -> 500 naming the speakers; bad JSON, or a stream
-without text or speaker_id -> 400; unknown route -> 404; timeout (of a
+Errors: unknown speaker -> 500 naming the speakers; bad JSON, a stream
+without text or speaker_id, zero-shot without prompt audio, voice conversion
+without either audio, a speaker to add without an id or audio or dataset, a
+bad dataset -> 400; unknown route -> 404; timeout (of a
 stream: before its first chunk) -> 408; a stream that fails after its first
 chunk is cut short. Requests take the JAX server's routes:
 
@@ -33,8 +43,12 @@ chunk is cut short. Requests take the JAX server's routes:
     two threads of its own (`StreamingSynthesizer`), so that a stream never
     queues behind /tts work in the worker;
   - every other request goes through the queue to one worker thread:
-    - a single-segment text goes through `Engine.synthesize`, with its
-      speed;
+    - a single-segment text, and each segment of a `last_prompt` text, goes
+      through `Engine.synthesize`, with its speed; with `last_prompt` each
+      segment's tokens and mel are the next one's zero-shot prompt;
+    - zero-shot (each segment through `Engine.synthesize`) and voice
+      conversion (`Engine.voice_convert`) in both serving modes: neither is
+      coalesced nor put on the slots yet;
     - a multi-segment text goes through one flash batch,
       `Engine.synthesize_batch`, whatever its speed (the JAX server passes
       no speed there either), with 50-150 ms pauses between segments;
@@ -48,8 +62,9 @@ chunk is cut short. Requests take the JAX server's routes:
 
 An integer `seed` in extra_params (an addition to the JAX schema) makes a
 request reproducible: segment j draws its sampling and vocoder noise from
-`seed + j`, on a slot or as a row of a flash batch (`noise.RowNoise`), so the
-same seeded load decodes the same draws in both modes; a stream's segment j
+`seed + j` (voice conversion its vocoder noise from `seed`), on a slot or as
+a row of a flash batch (`noise.RowNoise`), so the same seeded load decodes
+the same draws in both modes; a stream's segment j
 derives its two sources from `seed + j` (`Engine.stream_noise`) on either
 route.
 """
@@ -74,7 +89,7 @@ import numpy as np
 from ..config import SamplingConfig
 from ..noise import RowNoise
 from ..ops.sampling import SamplingParams
-from ..utils.wavio import audio_to_base64
+from ..utils.wavio import audio_to_base64, load_audio_from_base64
 from .continuous import ContinuousBatcher
 from .engine import Engine
 from .profiling import MetricsAggregator
@@ -83,6 +98,8 @@ logger = logging.getLogger("hydravox.server")
 
 DEFAULT_TTS_EXTRA = {"top_p": 0.9, "top_k": 10, "win_size": 24, "tau_r": 0.2,
                      "speed": 1.0, "inference_head_num": 2}
+DEFAULT_ZS_EXTRA = {"top_p": 0.9, "top_k": 10, "win_size": 32, "tau_r": 0.2,
+                    "speed": 1.0, "inference_head_num": 2}
 
 
 def _pause(sr: int) -> np.ndarray:
@@ -385,17 +402,71 @@ class TTSService:
             self._set_result(task, {"output_audio": _with_pauses(wavs[start:end], sr),
                                     "sample_rate": sr})
 
+    def _synthesize_one(self, feats: dict, sampling, head_num: int, speed: float, noise):
+        """One segment through `Engine.synthesize` (server.py:782-795)."""
+        res = self.engine.synthesize(
+            text_tokens=feats["text_tokens"],
+            tts_text_len=feats["tts_text_len"],
+            sampling=sampling,
+            inference_head_num=head_num,
+            prompt_speech_tokens=feats.get("prompt_speech_tokens"),
+            prompt_mel=feats.get("prompt_mel"),
+            spk_embedding=feats.get("spk_embedding"),
+            speed=speed,
+            noise=noise,
+            llm_prompt_speech_tokens=feats.get("llm_prompt_speech_tokens"),
+        )
+        self.metrics.record(res)
+        return res
+
+    def _zero_shot_features(self, task: dict) -> list:
+        """The frontend features of each segment of a zero-shot task, by its
+        mode (server.py:648-665); an unknown mode is plain zero-shot."""
+        wav, sr = task["prompt_audio"], task["prompt_sample_rate"]
+        mode = task.get("mode", "zero_shot")
+        segments = self.frontend.text_normalize(task["tts_text"], split=True)
+        if mode == "cross_lingual":
+            return [self.frontend.frontend_cross_lingual(seg, wav, sr) for seg in segments]
+        if mode == "instruct2":
+            return [self.frontend.frontend_instruct2(seg, task["prompt_text"], wav, sr)
+                    for seg in segments]
+        prompt = self.frontend.text_normalize(task["prompt_text"], split=False)[0]
+        return [self.frontend.frontend_zero_shot(seg, prompt, wav, sr) for seg in segments]
+
     def _process(self, task: dict) -> dict:
-        """One task alone (server.py:687-741): a multi-segment text through
-        one flash batch (which takes no speed), a single segment through
-        `synthesize` with its speed."""
+        """One task alone (server.py:637-741):
+          - voice conversion: the frontend, then `Engine.voice_convert`;
+          - zero-shot: each segment through `synthesize`, the wavs joined
+            with no pause, as in the JAX server;
+          - tts: a multi-segment text through one flash batch (which takes
+            no speed); with `last_prompt`, or a single segment, each segment
+            through `synthesize` with its speed, joined with pauses; with
+            `last_prompt`, each segment's tokens and mel are the next one's
+            zero-shot prompt (:721-741)."""
         extra = task.get("extra_params") or {}
         sampling = self._sampling(extra)
         head_num = int(extra.get("inference_head_num", 2))
         speed = float(extra.get("speed", 1.0))
         sr = self.engine.cfg.sample_rate
+        kind = task.get("type", "tts")
+        if kind == "vc":
+            feats = self.frontend.frontend_vc(task["source_audio"], task["source_sample_rate"],
+                                              task["prompt_audio"], task["prompt_sample_rate"])
+            audio = self.engine.voice_convert(
+                feats["source_speech_tokens"], feats["prompt_speech_tokens"],
+                feats["prompt_mel"], feats["spk_embedding"], noise=self._noises(task, 1)[0])
+            return {"output_audio": audio, "sample_rate": sr}
+        if kind == "zero_shot":
+            feats_list = self._zero_shot_features(task)
+            wavs = [self._synthesize_one(feats, sampling, head_num, speed, noise).audio
+                    for feats, noise in zip(feats_list, self._noises(task, len(feats_list)))]
+            return {"output_audio": np.concatenate(wavs) if wavs else np.zeros(0, np.float32),
+                    "sample_rate": sr}
+        if kind != "tts":
+            raise ValueError(f"unknown task type {kind}")
         segments = self.frontend.text_normalize(task["text"], split=True)
-        if len(segments) > 1:
+        last_prompt = bool(task.get("last_prompt"))
+        if len(segments) > 1 and not last_prompt:
             feats0 = self.frontend.frontend_sft(segments[0], task["speaker_id"])
             wavs, _ = self.engine.synthesize_batch(
                 [self.frontend.extract_text_tokens(s) for s in segments],
@@ -407,20 +478,16 @@ class TTSService:
                 noise=self._batch_noise(self._noises(task, len(segments))),
             )
             return {"output_audio": _with_pauses(wavs, sr), "sample_rate": sr}
-        feats = self.frontend.frontend_sft(segments[0], task["speaker_id"])
-        res = self.engine.synthesize(
-            text_tokens=feats["text_tokens"],
-            tts_text_len=feats["tts_text_len"],
-            sampling=sampling,
-            inference_head_num=head_num,
-            prompt_speech_tokens=feats.get("prompt_speech_tokens"),
-            prompt_mel=feats.get("prompt_mel"),
-            spk_embedding=feats.get("spk_embedding"),
-            speed=speed,
-            noise=self._noises(task, 1)[0],
-        )
-        self.metrics.record(res)
-        return {"output_audio": res.audio, "sample_rate": sr}
+        wavs, prev = [], {}
+        for segment, noise in zip(segments, self._noises(task, len(segments))):
+            feats = {**self.frontend.frontend_sft(segment, task["speaker_id"]), **prev}
+            res = self._synthesize_one(feats, sampling, head_num, speed, noise)
+            wavs.append(res.audio)
+            if last_prompt:
+                mel = self.frontend.extract_mel(res.audio, sr)
+                n = min(len(res.speech_tokens), mel.shape[0] // 2)
+                prev = {"prompt_speech_tokens": res.speech_tokens[:n], "prompt_mel": mel[: 2 * n]}
+        return {"output_audio": _with_pauses(wavs, sr), "sample_rate": sr}
 
     def submit(self, task: dict) -> str:
         tid = str(uuid.uuid4())
@@ -571,6 +638,14 @@ class _Handler(BaseHTTPRequestHandler):
                 self._handle_tts(body)
             elif self.path == "/api/v1/tts/stream":
                 self._handle_tts_stream(body)
+            elif self.path == "/api/v1/zero-shot":
+                self._handle_zero_shot(body)
+            elif self.path == "/api/v1/vc":
+                self._handle_vc(body)
+            elif self.path == "/api/v1/speakers/add":
+                self._handle_add_speaker(body)
+            elif self.path.startswith("/api/v1/speakers/remove/"):
+                self._handle_remove_speaker()
             else:
                 self._send(404, _response(False, "not found", error="not found"))
         except TimeoutError:
@@ -594,19 +669,84 @@ class _Handler(BaseHTTPRequestHandler):
         ))
 
     def _handle_tts(self, body: dict):
-        if body.get("last_prompt"):
-            # the rolling zero-shot prompt needs the prompt-mel frontend
-            self._send(400, _response(False, "unsupported",
-                                      error="last_prompt is not supported by this server"))
-            return
         extra = {**self.service.default_extra, **(body.get("extra_params") or {})}
         tid = self.service.submit({
             "type": "tts",
             "text": body.get("text", ""),
             "speaker_id": body.get("speaker_id"),
+            "last_prompt": body.get("last_prompt", False),
             "extra_params": extra,
         })
         self._finish_audio(self.service.wait(tid))
+
+    def _handle_zero_shot(self, body: dict):
+        """POST /api/v1/zero-shot (server.py:1349-1365): tts_text, prompt_text,
+        prompt_audio_base64 and a mode (zero_shot, cross_lingual, instruct2)."""
+        if not body.get("prompt_audio_base64"):
+            self._send(400, _response(False, "missing prompt audio",
+                                      error="prompt_audio_base64 required"))
+            return
+        wav, sr = load_audio_from_base64(body["prompt_audio_base64"])
+        tid = self.service.submit({
+            "type": "zero_shot",
+            "tts_text": body.get("tts_text", ""),
+            "prompt_text": body.get("prompt_text", ""),
+            "prompt_audio": wav,
+            "prompt_sample_rate": sr,
+            "mode": body.get("mode", "zero_shot"),
+            "extra_params": {**DEFAULT_ZS_EXTRA, **(body.get("extra_params") or {})},
+        })
+        self._finish_audio(self.service.wait(tid))
+
+    def _handle_vc(self, body: dict):
+        """POST /api/v1/vc (server.py:1367-1379): source_audio_base64 re-voiced
+        with the timbre of prompt_audio_base64."""
+        if not body.get("source_audio_base64") or not body.get("prompt_audio_base64"):
+            self._send(400, _response(False, "missing audio",
+                                      error="source_audio_base64 + prompt_audio_base64 required"))
+            return
+        src, src_sr = load_audio_from_base64(body["source_audio_base64"])
+        pw, pw_sr = load_audio_from_base64(body["prompt_audio_base64"])
+        tid = self.service.submit({
+            "type": "vc",
+            "source_audio": src, "source_sample_rate": src_sr,
+            "prompt_audio": pw, "prompt_sample_rate": pw_sr,
+            "extra_params": body.get("extra_params") or {},
+        })
+        self._finish_audio(self.service.wait(tid))
+
+    def _handle_add_speaker(self, body: dict):
+        """POST /api/v1/speakers/add (server.py:1172-1199): from audio_base64
+        (embedding and zero-shot prompt), or as the mean embedding over a
+        dataset on disk (dataset_dir); prompt_text is optional."""
+        frontend = self.service.frontend
+        spk = body.get("speaker_id")
+        if not spk or not (body.get("audio_base64") or body.get("dataset_dir")):
+            self._send(400, _response(False, "missing fields",
+                                      error="speaker_id + (audio_base64 or dataset_dir) required"))
+            return
+        if body.get("dataset_dir"):
+            try:
+                n = frontend.add_speaker_from_dataset(spk, body["dataset_dir"],
+                                                      prompt_text=body.get("prompt_text"))
+            except (ValueError, FileNotFoundError) as e:
+                self._send(400, _response(False, "bad dataset", error=str(e)))
+                return
+            self._send(200, _response(True, "speaker added",
+                                      data={"speaker_id": spk, "rows_averaged": n}))
+            return
+        wav, sr = load_audio_from_base64(body["audio_base64"])
+        frontend.add_speaker_from_audio(spk, wav, sr, prompt_text=body.get("prompt_text"))
+        self._send(200, _response(True, "speaker added", data={"speaker_id": spk}))
+
+    def _handle_remove_speaker(self):
+        """POST /api/v1/speakers/remove/<id> (server.py:1200-1205): 404 for an
+        unknown speaker."""
+        spk = self.path.rsplit("/", 1)[1]
+        ok = self.service.frontend.remove_speaker(spk)
+        self._send(200 if ok else 404, _response(
+            ok, "removed" if ok else "unknown speaker",
+            error=None if ok else f"unknown speaker {spk}"))
 
     def _handle_tts_stream(self, body: dict):
         """A live WAV over the response body (server.py:1298-1347): the RIFF

@@ -17,7 +17,6 @@ import pytest
 
 from flowmirror_hydravox_tpu.config import tiny_config
 from flowmirror_hydravox_tpu.models import flow as jflow
-from flowmirror_hydravox_tpu.models import hift as jhift
 from flowmirror_hydravox_tpu.models import llm as jl
 from flowmirror_hydravox_tpu.ops import sampling as js
 from flowmirror_hydravox_tpu.ops.attention import set_pallas_decode
@@ -27,7 +26,7 @@ from flowmirror_hydravox_tpu_torch.models import llm as tl
 from flowmirror_hydravox_tpu_torch.ops import sampling as ts
 from flowmirror_hydravox_tpu_torch.params import from_numpy_tree
 from flowmirror_hydravox_tpu_torch.runtime.engine import Engine as TorchEngine
-from tests.torch_port_util import JaxReplayNoise, n, t, to_numpy_tree
+from tests.torch_port_util import JaxReplayNoise, n, seeded_tiny_trees, t
 
 CFG = tiny_config()
 MAX_TOKENS = 48
@@ -37,9 +36,7 @@ RAS = dict(top_p=0.9, top_k=10, win_size=24, tau_r=0.2)
 
 @pytest.fixture(scope="module")
 def llm_params():
-    jp = to_numpy_tree(jl.init_params(jax.random.PRNGKey(0), CFG.llm, jnp.float32))
-    # sharper logits than the 0.02 init gives, so draws are not near-uniform
-    jp["llm_decoder"] = jp["llm_decoder"] * 20.0
+    jp = seeded_tiny_trees()[0]  # sharper logits than the 0.02 init gives
     return jp, from_numpy_tree(jp, "cpu")
 
 
@@ -120,7 +117,7 @@ def test_ras_sample_heads_batched_matches_jax_vmap():
 
 @pytest.fixture(scope="module")
 def flow_params():
-    jp = to_numpy_tree(jflow.init_params(jax.random.PRNGKey(2), CFG.flow, jnp.float32))
+    jp = seeded_tiny_trees()[1]
     return jp, from_numpy_tree(jp, "cpu")
 
 
@@ -144,11 +141,7 @@ def test_flow_inference_with_per_row_prompt_mel_len(flow_params):
 
 @pytest.fixture(scope="module")
 def engines():
-    k1, k2, k3 = jax.random.split(jax.random.PRNGKey(0), 3)
-    trees = [to_numpy_tree(f) for f in (
-        jl.init_params(k1, CFG.llm, jnp.float32),
-        jflow.init_params(k2, CFG.flow, jnp.float32),
-        jhift.init_params(k3, CFG.hift, jnp.float32))]
+    trees = seeded_tiny_trees()  # the JAX init of flow and HiFT takes tens of seconds
     jax_engine = JaxEngine(CFG, *trees, max_tokens=MAX_TOKENS, fused=False)
     torch_engine = TorchEngine(CFG, *(from_numpy_tree(tr, "cpu") for tr in trees),
                                max_tokens=MAX_TOKENS, device="cpu")

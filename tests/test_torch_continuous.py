@@ -30,17 +30,15 @@ from flowmirror_hydravox_tpu.ops.attention import set_pallas_decode
 from flowmirror_hydravox_tpu.runtime.continuous import ContinuousBatcher as JaxBatcher
 from flowmirror_hydravox_tpu.runtime.engine import Engine as JaxEngine
 from flowmirror_hydravox_tpu_torch import __main__ as launcher
-from flowmirror_hydravox_tpu_torch.config import tiny_config as port_tiny_config
 from flowmirror_hydravox_tpu_torch.models import llm as tl
 from flowmirror_hydravox_tpu_torch.noise import TorchNoise
 from flowmirror_hydravox_tpu_torch.ops import sampling as ts
-from flowmirror_hydravox_tpu_torch.params import (from_numpy_tree, init_flow_params,
-                                                  init_hift_params, init_llm_params)
+from flowmirror_hydravox_tpu_torch.params import from_numpy_tree
 from flowmirror_hydravox_tpu_torch.runtime import continuous
 from flowmirror_hydravox_tpu_torch.runtime.continuous import ContinuousBatcher
 from flowmirror_hydravox_tpu_torch.runtime.engine import Engine as TorchEngine
 from flowmirror_hydravox_tpu_torch.runtime.server import TTSService, make_server
-from tests.torch_port_util import JaxReplayNoise
+from tests.torch_port_util import JaxReplayNoise, seeded_tiny_trees
 
 CFG = tiny_config()
 MAX_TOKENS = 48
@@ -57,13 +55,7 @@ def engines():
     same cache cap) and the port's, on the same f32 weights: the port's
     seeded init (the JAX init of HiFT and flow takes half a minute on the
     CPU), in the JAX package's layout."""
-    gen = torch.Generator().manual_seed(0)
-    tcfg = port_tiny_config()
-    trees = [jax.tree.map(lambda a: a.numpy(), init(sub, gen, "cpu", torch.float32))
-             for init, sub in ((init_llm_params, tcfg.llm), (init_flow_params, tcfg.flow),
-                               (init_hift_params, tcfg.hift))]
-    # sharper logits than the 0.02 init gives, so draws are not near-uniform
-    trees[0]["llm_decoder"] = trees[0]["llm_decoder"] * 20.0
+    trees = seeded_tiny_trees()  # sharper logits than the 0.02 init gives
     jax_engine = JaxEngine(CFG, *trees, max_tokens=MAX_TOKENS, fused=False)
     torch_engine = TorchEngine(CFG, *(from_numpy_tree(tr, "cpu") for tr in trees),
                                max_tokens=MAX_TOKENS, device="cpu")
@@ -161,12 +153,17 @@ def test_mid_flight_admission_and_more_requests_than_slots(engines):
     texts = [(np.arange(24 if i == 0 else 4 + 2 * i, dtype=np.int32) * (3 + i)) % 256
              for i in range(5)]
     with _batcher(engine, slots=2, head_num=2) as b:
+        # the first is admitted and decodes one chunk on a tick driven here,
+        # before the batcher's thread starts: the others then arrive while it
+        # is in flight, whatever the host's speed
+        b._started = True
+        b._state = b._init_state()
         first = b.submit(texts[0], noise=_seeded(100))
-        deadline = time.time() + TIMEOUT
-        while first.t_admit is None and time.time() < deadline:
-            time.sleep(0.005)
+        b._tick()
+        assert first.t_admit is not None and first.t_decoded is None
         reqs = [first] + [b.submit(t, noise=_seeded(100 + i))
                           for i, t in enumerate(texts) if i > 0]
+        b._thread.start()
         outs = [b.result(r, timeout=TIMEOUT) for r in reqs]
         assert b.stats["admits"] == 5 and len(b.admission_lat_s) == 5
         cap = b.cache_cap

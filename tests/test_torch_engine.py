@@ -1,5 +1,6 @@
 """Port Engine.synthesize against the JAX two-stage engine
-(`Engine(fused=False)`) on the same key, tiny config, f32 weights.
+(`Engine(fused=False)`) on the same key, tiny config, f32 weights (the
+port's seeded init, shared with the other parity tests).
 
 The port replays the JAX key chain for both the LM draws and the HiFT source
 (the JAX engine feeds one key to both). Tokens, token count and step count
@@ -8,16 +9,14 @@ steps per sample (f32 summation order through flow and HiFT moves a few
 samples across a rounding edge)."""
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from flowmirror_hydravox_tpu.config import tiny_config
-from flowmirror_hydravox_tpu.models import flow, hift, llm
 from flowmirror_hydravox_tpu.runtime.engine import Engine as JaxEngine
 from flowmirror_hydravox_tpu_torch.params import from_numpy_tree
 from flowmirror_hydravox_tpu_torch.runtime.engine import Engine as TorchEngine
-from tests.torch_port_util import JaxReplayNoise, to_numpy_tree
+from tests.torch_port_util import JaxReplayNoise, seeded_tiny_trees
 
 WAV_LSB = 2 / 32767.0
 MAX_TOKENS = 64
@@ -26,11 +25,7 @@ MAX_TOKENS = 64
 @pytest.fixture(scope="module")
 def engines():
     cfg = tiny_config()
-    k1, k2, k3 = jax.random.split(jax.random.PRNGKey(0), 3)
-    trees = [to_numpy_tree(f) for f in (
-        llm.init_params(k1, cfg.llm, jnp.float32),
-        flow.init_params(k2, cfg.flow, jnp.float32),
-        hift.init_params(k3, cfg.hift, jnp.float32))]
+    trees = seeded_tiny_trees()  # the JAX init of flow and HiFT takes tens of seconds
     jax_engine = JaxEngine(cfg, *trees, max_tokens=MAX_TOKENS, fused=False)
     torch_engine = TorchEngine(cfg, *(from_numpy_tree(tr, "cpu") for tr in trees),
                                max_tokens=MAX_TOKENS, device="cpu")

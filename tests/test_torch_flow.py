@@ -15,14 +15,14 @@ from flowmirror_hydravox_tpu.models import flow as jflow
 from flowmirror_hydravox_tpu_torch.models import dit as tdit
 from flowmirror_hydravox_tpu_torch.models import flow as tflow
 from flowmirror_hydravox_tpu_torch.params import from_numpy_tree
-from tests.torch_port_util import n, t, to_numpy_tree
+from tests.torch_port_util import n, seeded_tiny_trees, t
 
 CFG = tiny_config().flow
 
 
 @pytest.fixture(scope="module")
 def params():
-    jp = to_numpy_tree(jflow.init_params(jax.random.PRNGKey(2), CFG, jnp.float32))
+    jp = seeded_tiny_trees()[1]  # the JAX init of the flow takes seconds
     return jp, from_numpy_tree(jp, "cpu")
 
 

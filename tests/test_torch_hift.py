@@ -13,14 +13,14 @@ from flowmirror_hydravox_tpu.config import tiny_config
 from flowmirror_hydravox_tpu.models import hift as jh
 from flowmirror_hydravox_tpu_torch.models import hift as th
 from flowmirror_hydravox_tpu_torch.params import from_numpy_tree
-from tests.torch_port_util import JaxReplayNoise, n, t, to_numpy_tree
+from tests.torch_port_util import JaxReplayNoise, n, seeded_tiny_trees, t
 
 CFG = tiny_config().hift
 
 
 @pytest.fixture(scope="module")
 def params():
-    jp = to_numpy_tree(jh.init_params(jax.random.PRNGKey(3), CFG, jnp.float32))
+    jp = seeded_tiny_trees()[2]  # the JAX init of HiFT takes tens of seconds
     return jp, from_numpy_tree(jp, "cpu")
 
 

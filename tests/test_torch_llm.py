@@ -17,7 +17,7 @@ from flowmirror_hydravox_tpu.ops.sampling import SamplingParams as JSP
 from flowmirror_hydravox_tpu_torch.models import llm as tl
 from flowmirror_hydravox_tpu_torch.ops.sampling import SamplingParams as TSP
 from flowmirror_hydravox_tpu_torch.params import from_numpy_tree
-from tests.torch_port_util import JaxReplayNoise, n, t, to_numpy_tree
+from tests.torch_port_util import JaxReplayNoise, n, seeded_tiny_trees, t
 
 CFG = tiny_config().llm
 MAX_TOKENS = 48
@@ -25,9 +25,7 @@ MAX_TOKENS = 48
 
 @pytest.fixture(scope="module")
 def params():
-    jp = to_numpy_tree(jl.init_params(jax.random.PRNGKey(0), CFG, jnp.float32))
-    # sharper logits than the 0.02 init gives, so draws are not near-uniform
-    jp["llm_decoder"] = jp["llm_decoder"] * 20.0
+    jp = seeded_tiny_trees()[0]  # sharper logits than the 0.02 init gives
     return jp, from_numpy_tree(jp, "cpu")
 
 

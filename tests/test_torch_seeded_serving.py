@@ -15,12 +15,12 @@ from flowmirror_hydravox_tpu_torch.config import tiny_config
 from flowmirror_hydravox_tpu_torch.models import llm as tl
 from flowmirror_hydravox_tpu_torch.noise import RowNoise
 from flowmirror_hydravox_tpu_torch.ops import sampling as ts
-from flowmirror_hydravox_tpu_torch.params import (init_flow_params, init_hift_params,
-                                                  init_llm_params)
+from flowmirror_hydravox_tpu_torch.params import from_numpy_tree
 from flowmirror_hydravox_tpu_torch.runtime.continuous import ContinuousBatcher
 from flowmirror_hydravox_tpu_torch.runtime.engine import Engine
 from flowmirror_hydravox_tpu_torch.runtime.server import TTSService
 from flowmirror_hydravox_tpu_torch.tools import serve_load
+from tests.torch_port_util import seeded_tiny_trees
 
 CFG = tiny_config()
 MAX_TOKENS = 48
@@ -31,11 +31,7 @@ TIMEOUT = 120.0
 def _engine():
     """The port's seeded tiny init, with sharper logits than the 0.02 init
     gives, so that draws are not near-uniform and rows stop apart."""
-    gen = torch.Generator().manual_seed(0)
-    llm = init_llm_params(CFG.llm, gen, "cpu", torch.float32)
-    llm["llm_decoder"] = llm["llm_decoder"] * 20.0
-    return Engine(CFG, llm, init_flow_params(CFG.flow, gen, "cpu", torch.float32),
-                  init_hift_params(CFG.hift, gen, "cpu", torch.float32),
+    return Engine(CFG, *(from_numpy_tree(tr, "cpu") for tr in seeded_tiny_trees()),
                   max_tokens=MAX_TOKENS, device="cpu")
 
 

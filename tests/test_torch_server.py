@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from flowmirror_hydravox_tpu_torch import __main__ as launcher
+import tests.torch_port_util  # noqa: F401  (one torch thread per test worker)
 from flowmirror_hydravox_tpu_torch.runtime.engine import Engine
 from flowmirror_hydravox_tpu_torch.runtime.server import TTSService, make_server
 

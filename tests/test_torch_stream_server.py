@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 from flowmirror_hydravox_tpu_torch import __main__ as launcher
+import tests.torch_port_util  # noqa: F401  (one torch thread per test worker)
 from flowmirror_hydravox_tpu_torch.runtime.server import TTSService, make_server
 
 TIMEOUT = 300.0

@@ -21,11 +21,11 @@ import torch
 from flowmirror_hydravox_tpu_torch.config import tiny_config
 from flowmirror_hydravox_tpu_torch.noise import SeededVocoder, StreamNoise, TorchNoise
 from flowmirror_hydravox_tpu_torch.ops.sampling import SamplingParams
-from flowmirror_hydravox_tpu_torch.params import (init_flow_params, init_hift_params,
-                                                  init_llm_params)
+from flowmirror_hydravox_tpu_torch.params import from_numpy_tree
 from flowmirror_hydravox_tpu_torch.runtime.continuous import ContinuousBatcher, _Request
 from flowmirror_hydravox_tpu_torch.runtime.engine import Engine
 from flowmirror_hydravox_tpu_torch.runtime.streaming import StreamingSynthesizer
+from tests.torch_port_util import seeded_tiny_trees
 
 CFG = tiny_config()
 MAX_TOKENS = 48
@@ -39,11 +39,7 @@ PROMPTED = dict(  # prompt_pad 2: the unfused first chunk on the slots
 
 @pytest.fixture(scope="module")
 def engine():
-    gen = torch.Generator().manual_seed(0)
-    trees = [init(sub, gen, "cpu", torch.float32)
-             for init, sub in ((init_llm_params, CFG.llm), (init_flow_params, CFG.flow),
-                               (init_hift_params, CFG.hift))]
-    trees[0]["llm_decoder"] = trees[0]["llm_decoder"] * 20.0  # sharper draws
+    trees = [from_numpy_tree(tr, "cpu") for tr in seeded_tiny_trees()]  # sharper draws
     eng = Engine(CFG, *trees, max_tokens=MAX_TOKENS, device="cpu")
     eng._streaming = StreamingSynthesizer(eng, token_hop_len=8, mel_cache_len=4)
     return eng
@@ -106,8 +102,14 @@ def test_two_concurrent_streams(engine):
     texts = [TEXT, (np.arange(7, dtype=np.int32) * 5 + 2) % 256]
     wants = [_solo(engine, 20 + i, text=text) for i, text in enumerate(texts)]
     with _batcher(engine, slots=2, head_num=2) as b:
+        # both queued before the batcher's thread starts, so that its first
+        # tick admits both: a thread started by the first submit could admit
+        # that stream alone and finish it before the second arrives
+        b._started = True
+        b._state = b._init_state()
         reqs = [b.submit(text, noise=_noise(20 + i), stream=True)
                 for i, text in enumerate(texts)]
+        b._thread.start()
         outs = [None, None]
 
         def read(i):

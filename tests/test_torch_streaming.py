@@ -25,15 +25,13 @@ from flowmirror_hydravox_tpu.models import dit as jdit
 from flowmirror_hydravox_tpu.models import flow as jflow
 from flowmirror_hydravox_tpu.runtime import streaming as jstreaming
 from flowmirror_hydravox_tpu.runtime.engine import Engine as JaxEngine
-from flowmirror_hydravox_tpu_torch.config import tiny_config as port_tiny_config
 from flowmirror_hydravox_tpu_torch.models import dit as tdit
 from flowmirror_hydravox_tpu_torch.models import flow as tflow
 from flowmirror_hydravox_tpu_torch.noise import StreamNoise
-from flowmirror_hydravox_tpu_torch.params import (from_numpy_tree, init_flow_params,
-                                                  init_hift_params, init_llm_params)
+from flowmirror_hydravox_tpu_torch.params import from_numpy_tree
 from flowmirror_hydravox_tpu_torch.runtime import streaming as tstreaming
 from flowmirror_hydravox_tpu_torch.runtime.engine import Engine as TorchEngine
-from tests.torch_port_util import JaxReplayNoise, n, t
+from tests.torch_port_util import JaxReplayNoise, n, seeded_tiny_trees, t
 
 CFG = tiny_config()
 MAX_TOKENS = 48
@@ -56,13 +54,7 @@ def engines():
     """The JAX engine (default ladders) and the port's on the same f32
     weights, the port's seeded init in the JAX layout (the JAX init of HiFT
     and flow takes half a minute on the CPU)."""
-    gen = torch.Generator().manual_seed(0)
-    tcfg = port_tiny_config()
-    trees = [jax.tree.map(lambda a: a.numpy(), init(sub, gen, "cpu", torch.float32))
-             for init, sub in ((init_llm_params, tcfg.llm), (init_flow_params, tcfg.flow),
-                               (init_hift_params, tcfg.hift))]
-    # sharper logits than the 0.02 init gives, so draws are not near-uniform
-    trees[0]["llm_decoder"] = trees[0]["llm_decoder"] * 20.0
+    trees = seeded_tiny_trees()  # sharper logits than the 0.02 init gives
     jax_engine = JaxEngine(CFG, *trees, max_tokens=MAX_TOKENS, fused=False)
     torch_engine = TorchEngine(CFG, *(from_numpy_tree(tr, "cpu") for tr in trees),
                                max_tokens=MAX_TOKENS, device="cpu")

@@ -14,6 +14,14 @@ key chain and hands the port the exact numbers JAX draws:
 
 The JAX engine feeds one key to both the LM and HiFT (engine.py:1151, :1170),
 so the replay starts its step chain and its vocoder draws from the same key.
+
+Importing this module caps torch at one intra-op thread. The suite runs
+several pytest-xdist workers on one host, and torch's default of one thread
+per core in each of them oversubscribes the cores: a small op then waits on
+threads that other workers' work has descheduled (the frontend's encoder
+took ~40x longer at 8 threads than at 1 beside a running suite). The port's
+test files import this module, so the cap holds in every worker that runs
+one of them.
 """
 
 from __future__ import annotations
@@ -24,6 +32,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+
+torch.set_num_threads(1)
 
 
 def to_numpy_tree(tree):
@@ -88,6 +98,26 @@ class JaxReplayNoise:
     def vocoder(self, b: int, length: int, nh: int):
         ri, rn = _vocoder_draws(self.key, b, length, nh)
         return t(ri).to(self.device), t(rn).to(self.device)
+
+
+@functools.lru_cache(maxsize=None)
+def seeded_tiny_trees():
+    """(llm, flow, hift) numpy trees of `tiny_config()` in the JAX layout, f32,
+    from the port's seeded init (torch seed 0; the JAX init of flow and HiFT
+    takes tens of seconds on the CPU), with the LM decoder scaled by 20 so
+    that draws are not near-uniform. Built once per process and shared by the
+    files that run there; callers copy before they modify."""
+    from flowmirror_hydravox_tpu_torch.config import tiny_config
+    from flowmirror_hydravox_tpu_torch.params import (init_flow_params, init_hift_params,
+                                                      init_llm_params)
+
+    gen = torch.Generator().manual_seed(0)
+    cfg = tiny_config()
+    trees = [jax.tree.map(lambda a: a.numpy(), init(sub, gen, "cpu", torch.float32))
+             for init, sub in ((init_llm_params, cfg.llm), (init_flow_params, cfg.flow),
+                               (init_hift_params, cfg.hift))]
+    trees[0]["llm_decoder"] = trees[0]["llm_decoder"] * 20.0
+    return tuple(trees)
 
 
 def t(x, dtype=None):
