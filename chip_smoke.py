@@ -11,7 +11,11 @@ exits non-zero without either. Phases, each fatal on failure:
      process per source, all started together; each one's ptxas lines;
   3. decode attention against its plain version at the main path's shapes,
      the zero-shot prefills of a 3 s and a 10 s prompt (T and S_max as the
-     engine pads them), and at the edges of its design (split boundaries,
+     engine pads them), the flash batches of zero-shot rows that phase 5f
+     serves (B 2, 3 and 4: 3 s and 10 s zero-shot rows, cross-lingual and
+     SFT rows padded to the longest; each batch's prefill and its first
+     decode step with every row's own cache_len), and at the edges of its
+     design (split boundaries,
      row tiles, a row with cache_len 0), each twice (the two calls must be bit-equal), with times
      (CUDA events, L2 flushed before each launch), the plain version's and
      one library call's (SDPA with the same additive mask, a yardstick
@@ -95,8 +99,37 @@ exits non-zero without either. Phases, each fatal on failure:
      audio must give 400, and the launcher with --spk2info on the saved
      file must list exactly the saved speaker. Printed per request: prompt
      seconds, prefill (T, S_max), frontend seconds, tokens, RTF;
-  6. the kernels line (launches: phases 5, 5b, 5c and 5d), the card line,
-     and the final JSON line.
+  5e. the reference's .pt weights at full width: seeded llm.pt, flow.pt and
+     hift.pt in the reference key layout (bf16 tensors, HiFT's convs as
+     weight-norm pairs) in a temporary directory, served through the
+     launcher's build(--model-dir): the served trees must be the
+     converter's at the serving dtypes and the text vocab the
+     checkpoint's; one /api/v1/tts request (launches held); then, on a
+     server with 4 slots, /api/v1/load_pt swaps in a second seed's llm.pt
+     while 3 senders keep the slots busy: a request must be in a slot at
+     the swap, every request must finish, the live tree must be the new
+     checkpoint's, and the same seeded request must decode other tokens
+     after it (the slots' launches held from the batcher's stats). That
+     second checkpoint's decoder scores no stop id, so its decodes run to
+     max_len: phase 5g's fallback request runs on it here;
+  5f. zero-shot on the batched routes: a zero-shot request with the 3 s
+     prompt, one with the 10 s prompt and an SFT request at the zero-shot
+     sampling, sent together to a server with a 0.25 s window, must be one
+     flash batch of 3 rows (batched_requests +3) whose prefill has the
+     (T, S_max) of phase 3's B 3 case, read from the prompt block and KV
+     cache the engine built; each request then alone on its seed, and
+     whether its tokens equal its row's printed (a seeded row draws what it
+     would alone, `noise.RowNoise`, but a B-row bf16 product need not
+     round as a one-row one: not gated). Then, on a server with 4 slots,
+     two plain zero-shot requests at the slots' sampling (continuous_requests
+     +2) and a cross-lingual one (the worker). Launches held throughout;
+  5g. the solo route's output rule: single-segment speed-1 requests, seeds
+     tried in turn, until one's tokens fit the estimated stage-2 bucket
+     (the main weights) and one outgrows it (the short text on phase 5e's
+     never-stopping weights, the realised bucket); each rule and bucket
+     printed, launches held;
+  6. the kernels line (launches: phases 5 to 5g), the card line, and the
+     final JSON line.
 
 TF32 is off for matmuls and cuDNN convs throughout, so f32 is full f32 in
 every comparison, and cuDNN takes deterministic algorithms, so a seeded
@@ -403,10 +436,11 @@ def predicted_launches(recs, cfg):
 
 class EngineCalls:
     """While entered, records each call of `Engine.synthesize` and
-    `Engine.synthesize_batch` (the worker's routes) in `records`; a
-    `synthesize` record holds the (T, S_max) of each LM prefill the call ran,
-    read from the prompt block and the KV cache that
-    `llm.init_generate_state` was given and allocated."""
+    `Engine.synthesize_batch` (the worker's routes) in `records`; a record
+    holds the (T, S_max) of each LM prefill the call ran, read from the
+    prompt block and the KV cache that `llm.init_generate_state` or
+    `llm.generate_batched` was given and allocated, and the stage-2 token
+    bucket with the rule that chose it (estimated or realised)."""
 
     def __init__(self, engine):
         self.engine = engine
@@ -416,8 +450,9 @@ class EngineCalls:
         from flowmirror_hydravox_tpu_torch.models import llm as llm_model
 
         synthesize, synthesize_batch = self.engine.synthesize, self.engine.synthesize_batch
-        init_state = llm_model.init_generate_state
-        self.saved = synthesize, synthesize_batch, init_state
+        init_state, batched = llm_model.init_generate_state, llm_model.generate_batched
+        init_kv = llm_model.qwen2.init_kv_cache
+        self.saved = synthesize, synthesize_batch, init_state, batched, init_kv
         local = threading.local()
 
         def record_init(params, cfg, prompt_embeds, prompt_len, **kwargs):
@@ -425,6 +460,20 @@ class EngineCalls:
             getattr(local, "prefills", []).append(
                 (int(prompt_embeds.shape[0]), int(state["cache"].k.shape[2])))
             return state
+
+        def record_kv(cfg, batch, max_len, **kwargs):
+            if hasattr(local, "kv"):
+                local.kv.append(int(max_len))
+            return init_kv(cfg, batch, max_len, **kwargs)
+
+        def record_batched(params, cfg, prompt_embeds, *args, **kwargs):
+            local.kv = []
+            try:
+                res = batched(params, cfg, prompt_embeds, *args, **kwargs)
+                getattr(local, "prefills", []).append((int(prompt_embeds.shape[1]), local.kv[0]))
+            finally:
+                del local.kv
+            return res
 
         def record_one(**kwargs):
             local.prefills = []
@@ -437,28 +486,39 @@ class EngineCalls:
                                      heads=kwargs["inference_head_num"],
                                      prefills=prefills,
                                      tokens=len(res.speech_tokens), steps=res.steps,
+                                     row_tokens=[len(res.speech_tokens)],
+                                     token_bucket=res.token_bucket, estimated=res.estimated,
                                      llm_time=res.llm_time, synth_time=res.synth_time,
                                      total_time=res.total_time))
             return res
 
         def record_batch(token_lists, **kwargs):
-            wavs, stats = synthesize_batch(token_lists, **kwargs)
+            local.prefills = []
+            try:
+                wavs, stats = synthesize_batch(token_lists, **kwargs)
+                prefills = local.prefills
+            finally:
+                del local.prefills
             self.records.append(dict(route="synthesize_batch", rows=len(token_lists),
-                                     heads=kwargs["inference_head_num"],
+                                     heads=kwargs["inference_head_num"], prefills=prefills,
                                      tokens=sum(stats["tokens"]), steps=stats["steps"],
+                                     row_tokens=list(stats["tokens"]),
+                                     token_bucket=stats["token_bucket"],
+                                     estimated=stats["estimated"],
                                      llm_time=stats["llm_time"], synth_time=stats["synth_time"],
                                      total_time=stats["total_time"]))
             return wavs, stats
 
         self.engine.synthesize, self.engine.synthesize_batch = record_one, record_batch
-        llm_model.init_generate_state = record_init
+        llm_model.init_generate_state, llm_model.generate_batched = record_init, record_batched
+        llm_model.qwen2.init_kv_cache = record_kv
         return self
 
     def __exit__(self, *exc):
         from flowmirror_hydravox_tpu_torch.models import llm as llm_model
 
-        self.engine.synthesize, self.engine.synthesize_batch, llm_model.init_generate_state = \
-            self.saved
+        (self.engine.synthesize, self.engine.synthesize_batch, llm_model.init_generate_state,
+         llm_model.generate_batched, llm_model.qwen2.init_kv_cache) = self.saved
 
 
 def start_servers(engine, frontend, **kwargs_list):
@@ -735,6 +795,7 @@ STREAM_PAIR = ["Two streams can share the decode slots at once.",
                "The second of them arrives at the very same moment."]
 STREAM_SEED = 4242
 SAMPLE_RATE = 24000
+DEFAULT_WIN = 24  # the tts default win_size, the continuous slots' sampling
 SAMPLES_PER_TOKEN = 2 * 480  # token_mel_ratio x HiFT upsampling, HydraVoxConfig()
 
 
@@ -1109,6 +1170,49 @@ def zero_shot_prefill_cases(heads: int = 2):
     return out
 
 
+# the rows of phase 5f's flash batches and phase 3's batched zero-shot cases:
+# name: (mode, prompt); mode None is an SFT row (the "default" speaker)
+BATCH_ROWS = {"zs_3s": ("zero_shot", "3s_16k"), "zs_10s": ("zero_shot", "10s_24k"),
+              "xl_3s": ("cross_lingual", "3s_16k"), "sft": (None, None)}
+ZS_BATCHES = {"B2": ("zs_3s", "sft"), "B3": ("zs_3s", "zs_10s", "sft"),
+              "B4": ("zs_3s", "zs_10s", "xl_3s", "sft")}
+
+
+def batched_zero_shot_cases(heads: int = 2):
+    """{name: (B, T, S_max, cache_len, Hq)}: decode attention in the flash
+    batches of ZS_BATCHES at MAX_TOKENS, as `Engine.synthesize_batch` pads
+    them: text rows (prompt text + ZS_TEXT for zero-shot, ZS_TEXT alone for
+    cross-lingual and SFT) and LM prefixes (the prompt's speech tokens for
+    zero-shot, none for cross-lingual and SFT) each to the bucket of the
+    longest, the cache to a multiple of CACHE_ROUND. Per batch its prefill
+    (cache_len 0 in every row; the rows shorter than T are padding) and its
+    first decode step (T = heads, each row's cache_len its own prompt's
+    length). Phase 5f holds its burst's prefill to B3's."""
+    from flowmirror_hydravox_tpu_torch.frontend.text_norm import normalize
+    from flowmirror_hydravox_tpu_torch.frontend.tokenizer import get_tokenizer
+    from flowmirror_hydravox_tpu_torch.models.llm import CACHE_ROUND
+    from flowmirror_hydravox_tpu_torch.runtime.engine import PROMPT_BUCKETS, _bucket
+
+    tok = get_tokenizer()
+    lt_text = len(tok.encode(normalize(ZS_TEXT)))
+    lt_prompt = len(tok.encode(normalize(ZS_PROMPT_TEXT)))
+    rows = {}  # name: (text tokens, LM prefix tokens)
+    for name, (mode, prompt) in BATCH_ROWS.items():
+        zero_shot = mode == "zero_shot"
+        rows[name] = (lt_text + (lt_prompt if zero_shot else 0),
+                      int(25 * ZS_PROMPTS[prompt][1]) if zero_shot else 0)
+    out = {}
+    for batch, names in ZS_BATCHES.items():
+        lts, lps = zip(*(rows[n] for n in names))
+        t = 2 + _bucket(max(lts), PROMPT_BUCKETS) + (_bucket(max(lps), PROMPT_BUCKETS)
+                                                     if max(lps) else 0)
+        s_max = -(-(t + MAX_TOKENS + heads) // CACHE_ROUND) * CACHE_ROUND
+        out[f"prefill_{batch}"] = (len(names), t, s_max, [0] * len(names), 14)
+        out[f"step_{batch}"] = (len(names), heads, s_max,
+                                [2 + lt + lp for lt, lp in zip(lts, lps)], 14)
+    return out
+
+
 def http_status(base, path, body):
     """POST `body`; (status, JSON body), error statuses included."""
     req = urllib.request.Request(base + path, json.dumps(body).encode(),
@@ -1375,6 +1479,411 @@ def drive_zero_shot(engine, frontend, da, mg, prefill_cases):
     return dict(frontend=frontend_records, requests=requests,
                 launcher_speakers=loaded.available_speakers()), tuple(total)
 
+# phase 5e: the reference's .pt weights at full width
+PT_SEED, PT_RELOAD_SEED = 1, 2  # the checkpoint's trees, then the hot reload's
+PT_TEXT = "These weights were read from the reference checkpoint files."
+RELOAD_TRIES = 3
+
+
+def write_reference_checkpoints(cfg, directory, seed, names, no_stop=False):
+    """Seeded full-width trees of `names` (the port's init at `cfg`, from a
+    card generator seeded `seed`) written as `{name}.pt` in the reference
+    key layout (HiFT's convs as weight-norm pairs), every tensor bf16 to
+    halve the bytes. `no_stop` zeroes the LLM decoder's columns of the stop
+    ids, so that a stop never ranks among the top-k speech tokens and a
+    decode runs to its max_len (phase 5g's fallback). Returns {name: its
+    state dict, on the CPU}."""
+    import torch
+
+    from flowmirror_hydravox_tpu_torch.convert import torch_import
+    from flowmirror_hydravox_tpu_torch.params import (init_flow_params, init_hift_params,
+                                                      init_llm_params)
+
+    inits = {"llm": (init_llm_params, cfg.llm), "flow": (init_flow_params, cfg.flow),
+             "hift": (init_hift_params, cfg.hift)}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for name in names:
+        init, sub = inits[name]
+        tree = init(sub, gen, "cuda", torch.bfloat16)
+        if no_stop and name == "llm":
+            tree["llm_decoder"][:, cfg.llm.speech_token_size:] = 0
+        out[name] = {k: v.contiguous().cpu() for k, v in
+                     torch_import.reference_state_dict(name, tree, cfg).items()}
+        torch.save(out[name], directory / f"{name}.pt")
+        del tree
+    return out
+
+
+def check_served_trees(engine, state_dicts):
+    """Each model's live tree must equal the converter's output from its
+    state dict, at the serving dtype (LLM and flow bf16, HiFT f32)."""
+    import torch
+
+    from flowmirror_hydravox_tpu_torch.convert import torch_import
+    from flowmirror_hydravox_tpu_torch.params import flatten_params, from_numpy_tree
+
+    for name, sd in state_dicts.items():
+        dtype = torch.float32 if name == "hift" else torch.bfloat16
+        want = flatten_params(from_numpy_tree(torch_import.convert(
+            name, {k: v.float().numpy() for k, v in sd.items()}, engine.cfg), "cuda", dtype))
+        live = flatten_params(getattr(engine, f"{name}_params"))
+        bad = sorted(k for k in want if k not in live or not torch.equal(live[k], want[k]))
+        if live.keys() != want.keys() or bad:
+            fail(f"{name}: the served tree is not the converter's: {bad[:5]}")
+
+
+def slots_prediction(batcher, before, n_layers):
+    """((attention, MLP) launches predicted from the batcher's stats since
+    `before`, the stats' differences)."""
+    done = {k: batcher.stats[k] - before[k] for k in before}
+    return (n_layers * (done["admits"] + done["forwards"]),
+            n_layers * done["forwards"] + batcher.head_k * done["steps"]), done
+
+
+def held_worker(name, calls, da, mg, cfg, run, routes):
+    """`run()` against a server's worker: its engine calls must be `routes`
+    ((route, rows) pairs) and both kernels' launches the prediction from
+    them. Returns (records, launches, run's result)."""
+    before = (da.launch_count, mg.launch_count, len(calls.records))
+    try:
+        out = run()
+    except (RuntimeError, OSError) as e:
+        fail(f"{name}: {e}")
+    recs = calls.records[before[2]:]
+    if [(r["route"], r["rows"]) for r in recs] != routes:
+        fail(f"{name}: engine calls {[(r['route'], r['rows']) for r in recs]}, expected {routes}")
+    launched = (da.launch_count - before[0], mg.launch_count - before[1])
+    if launched != predicted_launches(recs, cfg) or 0 in launched:
+        fail(f"{name}: (attention, mlp) launches {launched}, predicted "
+             f"{predicted_launches(recs, cfg)}")
+    return recs, launched, out
+
+
+def drive_pt_weights(engine, da, mg):
+    """Phase 5e: seeded full-width llm.pt / flow.pt / hift.pt in the
+    reference layout, served through the launcher's `build(--model-dir)`:
+    the served trees must be the converter's at the serving dtypes; one
+    /api/v1/tts request on a window-mode server with launches held; then a
+    server with SLOTS slots, where /api/v1/load_pt swaps in a second seed's
+    llm.pt (one that never stops early) while SLOTS - 1 senders keep the
+    slots busy: a request must be in a slot at the swap (the reload is
+    repeated while it found none, RELOAD_TRIES in all) and every request
+    must finish, and the same seeded request must decode other tokens after
+    it. Last, on the reloaded weights, phase 5g's request whose estimated
+    bucket is too small. Returns (record, launches)."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    import torch
+
+    from flowmirror_hydravox_tpu_torch import __main__ as launcher
+
+    cfg = engine.cfg
+    n_layers = cfg.llm.backbone.num_layers
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="hydravox_pt_"))
+    rec = {}
+    try:
+        t0 = time.time()
+        sds = write_reference_checkpoints(cfg, tmp, PT_SEED, ("llm", "flow", "hift"))
+        rec["write_s"] = time.time() - t0
+        rec["checkpoint_bytes"] = {p.name: p.stat().st_size for p in sorted(tmp.glob("*.pt"))}
+        t0 = time.time()
+        pt_engine, pt_frontend = launcher.build(launcher.parse_args(
+            ["--device", "cuda", "--max-tokens", str(MAX_TOKENS), "--model-dir", str(tmp)]))
+        torch.cuda.synchronize()
+        rec["build_s"] = time.time() - t0
+        if pt_engine.cfg.llm.backbone.vocab_size != cfg.llm.backbone.vocab_size:
+            fail(f"llm.pt: text vocab {pt_engine.cfg.llm.backbone.vocab_size}, the checkpoint's "
+                 f"{cfg.llm.backbone.vocab_size}")
+        check_served_trees(pt_engine, sds)
+        del sds
+        reload_dir = tmp / "reload"
+        reload_dir.mkdir()
+        reload_sd = write_reference_checkpoints(cfg, reload_dir, PT_RELOAD_SEED, ("llm",),
+                                                no_stop=True)
+        print(f"pt weights: wrote {rec['checkpoint_bytes']} in {rec['write_s']:.1f} s, built "
+              f"the engine from them in {rec['build_s']:.1f} s", flush=True)
+    except Exception:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+
+    servers = start_servers(pt_engine, pt_frontend, window={},
+                            slots={"continuous_slots": SLOTS, "continuous_head_num": 2})
+    window_url, slots_url = servers["window"][2], servers["slots"][2]
+    batcher = servers["slots"][0].RequestHandlerClass.service.batcher
+    submitted, swaps = [], []
+    submit, between = batcher.submit, batcher.between_ticks
+
+    def record_submit(*args, **kwargs):
+        submitted.append(submit(*args, **kwargs))
+        return submitted[-1]
+
+    @contextlib.contextmanager
+    def watched_between():
+        with between():
+            swaps.append([r for r in batcher._slot_req if r is not None])
+            yield
+
+    batcher.submit, batcher.between_ticks = record_submit, watched_between
+    try:
+        with EngineCalls(pt_engine) as calls:
+            da.launch_count = mg.launch_count = 0
+            t0 = time.time()
+            _, launched, (samples, _) = held_worker(
+                "pt weights, /api/v1/tts", calls, da, mg, cfg.llm,
+                lambda: tts(window_url, PT_TEXT, 2, seed=PT_SEED), [("synthesize", 1)])
+            rec["window"] = dict(wall_s=time.time() - t0, audio_s=samples / SAMPLE_RATE,
+                                 tokens=calls.records[-1]["tokens"], attention_launches=launched[0],
+                                 mlp_launches=launched[1])
+            total = list(launched)
+
+            before, counts = dict(batcher.stats), (da.launch_count, mg.launch_count)
+            tts(slots_url, PT_TEXT, 2, seed=PT_SEED)
+            tokens_before = submitted[-1].stats["tokens"]
+            stop, errors, sent = threading.Event(), [], [0]
+
+            def sender(i):
+                while not stop.is_set():
+                    try:
+                        tts(slots_url, STAGGER[i], 2, seed=2000 + i)
+                        sent[0] += 1
+                    except Exception as e:  # reported below
+                        errors.append(f"sender {i}: {e}")
+                        return
+
+            senders = [threading.Thread(target=sender, args=(i,)) for i in range(SLOTS - 1)]
+            for th in senders:
+                th.start()
+            time.sleep(1.0)  # the senders' first requests are in the slots by now
+            # the reload again (same file) while the swap found every slot
+            # empty, at most RELOAD_TRIES times
+            path, rec["reload_s"] = str(reload_dir / "llm.pt"), []
+            while len(swaps) < RELOAD_TRIES and not (swaps and swaps[-1]):
+                t0 = time.time()
+                code, body = http_status(slots_url, "/api/v1/load_pt", {"llm_pt": path})
+                rec["reload_s"].append(time.time() - t0)
+                if code != 200 or body["data"] != {"llm": path}:
+                    fail(f"/api/v1/load_pt: {code} {body}")
+            stop.set()
+            for th in senders:
+                th.join(timeout=900)
+            if errors or any(th.is_alive() for th in senders):
+                fail("requests around the reload: " + ("; ".join(errors) or "did not finish"))
+            if not swaps[-1]:
+                fail(f"/api/v1/load_pt: every slot empty at each of {len(swaps)} swaps")
+            if any(r.error is not None or not r.done.is_set() for r in swaps[-1]):
+                fail("a request in a slot at the swap did not finish")
+            check_served_trees(pt_engine, reload_sd)
+            tts(slots_url, PT_TEXT, 2, seed=PT_SEED)
+            tokens_after = submitted[-1].stats["tokens"]
+            if tokens_after == tokens_before:
+                fail("the same seed decoded the same tokens after the reload")
+            launched = (da.launch_count - counts[0], mg.launch_count - counts[1])
+            prediction, done = slots_prediction(batcher, before, n_layers)
+            if calls.records[1:] or launched != prediction:
+                fail(f"pt weights, slots: launches {launched}, predicted {prediction} from "
+                     f"{done}; worker calls {calls.records[1:]}")
+            total = [a + b for a, b in zip(total, launched)]
+            # phase 5g's fallback: the reloaded LLM decodes past its estimate
+            rec["solo_fallback"], more = solo_until("estimate_falls_back", window_url, SOLO_SHORT,
+                                                    False, calls, da, mg, cfg.llm)
+            total = [a + b for a, b in zip(total, more)]
+            rec["slots"] = dict(requests=sent[0] + 2, reloads=len(swaps),
+                                in_flight_at_swap=[len(w) for w in swaps],
+                                tokens_before=len(tokens_before), tokens_after=len(tokens_after),
+                                batcher_stats=done, attention_launches=launched[0],
+                                mlp_launches=launched[1])
+        print("pt_weights", json.dumps(rec), flush=True)
+        return rec, tuple(total)
+    finally:
+        batcher.submit, batcher.between_ticks = submit, between
+        stop_servers(servers)
+        del pt_engine
+        torch.cuda.empty_cache()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# phase 5f: zero-shot in the flash batch and on the slots
+def zs_body(b64, mode, prompt, seed, **extra):
+    """A /api/v1/zero-shot body: ZS_TEXT in `mode` with the ZS_PROMPTS
+    prompt `prompt` (its base64 WAV in `b64`), at heads 2."""
+    return dict(tts_text=ZS_TEXT, prompt_text=ZS_PROMPT_TEXT, mode=mode,
+                prompt_audio_base64=b64[prompt],
+                extra_params={"inference_head_num": 2, "seed": seed, **extra})
+
+
+def concurrently(calls):
+    """Run each () -> result of `calls` on its own thread; their results."""
+    out, errors = [None] * len(calls), []
+
+    def one(i):
+        try:
+            out[i] = calls[i]()
+        except (Exception, SystemExit) as e:  # reported below; fail() exits
+            errors.append(f"request {i}: {e}")
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(calls))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    if errors or any(th.is_alive() for th in threads):
+        raise RuntimeError("; ".join(errors) or "a request did not finish")
+    return out
+
+
+def drive_zero_shot_batched(engine, frontend, da, mg, batch_cases):
+    """Phase 5f: a zero-shot request with the 3 s prompt, one with the 10 s
+    prompt and an SFT request at the zero-shot sampling, sent together to a
+    server with a BURST_WINDOW window: one flash batch of 3 rows, whose
+    prefill must have phase 3's B3 (T, S_max), batched_requests +3, launches
+    held; each request then alone on the same seed (printed: whether its
+    tokens equal its row's). Then, to a server with SLOTS slots, two plain
+    zero-shot requests at the slots' sampling and a cross-lingual one:
+    continuous_requests +2, the cross-lingual through the worker, launches
+    held (the slots' from the batcher's stats). Returns (record, launches)."""
+    from flowmirror_hydravox_tpu_torch.utils.wavio import audio_to_base64
+
+    cfg = engine.cfg.llm
+    b64 = {name: audio_to_base64(voiced(*spec), spec[0]) for name, spec in ZS_PROMPTS.items()}
+    n_layers = cfg.backbone.num_layers
+    servers = start_servers(engine, frontend, burst={"batch_window": BURST_WINDOW},
+                            slots={"continuous_slots": SLOTS, "continuous_head_num": 2})
+    burst_url, slots_url = servers["burst"][2], servers["slots"][2]
+    burst_service = servers["burst"][0].RequestHandlerClass.service
+    slots_service = servers["slots"][0].RequestHandlerClass.service
+    batcher = slots_service.batcher
+    zs_win = 32  # DEFAULT_ZS_EXTRA's win_size; the slots' sampling is the tts default, 24
+    requests = {
+        "zs_3s": ("/api/v1/zero-shot", zs_body(b64, "zero_shot", "3s_16k", ZS_SEED)),
+        "zs_10s": ("/api/v1/zero-shot", zs_body(b64, "zero_shot", "10s_24k", ZS_SEED + 1)),
+        "sft": ("/api/v1/tts", {"text": ZS_TEXT, "speaker_id": "default", "extra_params": {
+            "inference_head_num": 2, "win_size": zs_win, "seed": ZS_SEED + 2}}),
+    }
+    rec = {}
+    try:
+        with EngineCalls(engine) as calls:
+            da.launch_count = mg.launch_count = 0
+            batched = burst_service.batched_requests
+            t0 = time.time()
+            recs, launched, outs = held_worker(
+                "zero-shot burst", calls, da, mg, cfg,
+                lambda: concurrently([lambda p=p, b=b: audio_of(*http_status(burst_url, p, b), p)
+                                      for p, b in requests.values()]),
+                [("synthesize_batch", 3)])
+            wall = time.time() - t0
+            if burst_service.batched_requests - batched != 3:
+                fail(f"zero-shot burst: batched_requests rose by "
+                     f"{burst_service.batched_requests - batched}")
+            timed = batch_cases["prefill_B3"][1:3]
+            if recs[0]["prefills"] != [timed]:
+                fail(f"zero-shot burst: prefill (T, S_max) {recs[0]['prefills']}, phase 3 timed "
+                     f"{timed}")
+            total = list(launched)
+            alone = []
+            for name, (path, body) in requests.items():
+                _, more, _ = held_worker(
+                    f"{name} alone", calls, da, mg, cfg,
+                    lambda: audio_of(*http_status(burst_url, path, body), name),
+                    [("synthesize", 1)])
+                total = [a + b for a, b in zip(total, more)]
+                alone.append(calls.records[-1]["tokens"])
+            audio_s = sum(n for n, _ in outs) / SAMPLE_RATE
+            rec["flash_batch"] = dict(
+                rows=list(requests), row_tokens=recs[0]["row_tokens"], alone_tokens=alone,
+                rows_equal_alone=[a == b for a, b in zip(recs[0]["row_tokens"], alone)],
+                prefill=recs[0]["prefills"][0], token_bucket=recs[0]["token_bucket"],
+                estimated=recs[0]["estimated"], wall_s=wall, audio_s=audio_s, rtf=wall / audio_s,
+                attention_launches=launched[0], mlp_launches=launched[1])
+
+            # the two zero-shot requests together, then (so that the launch
+            # counters are not bumped from two threads at once) the
+            # cross-lingual one, which the worker must take
+            before, counts = dict(batcher.stats), (da.launch_count, mg.launch_count)
+            served, n_calls = slots_service.continuous_requests, len(calls.records)
+            t0 = time.time()
+            try:
+                outs = concurrently([lambda b=b: audio_of(*http_status(
+                    slots_url, "/api/v1/zero-shot", b), "zero-shot on a slot") for b in (
+                        zs_body(b64, "zero_shot", "3s_16k", ZS_SEED, win_size=DEFAULT_WIN),
+                        zs_body(b64, "zero_shot", "10s_24k", ZS_SEED + 1, win_size=DEFAULT_WIN))])
+            except RuntimeError as e:
+                fail(f"zero-shot on the slots: {e}")
+            wall = time.time() - t0
+            outs.append(audio_of(*http_status(slots_url, "/api/v1/zero-shot", zs_body(
+                b64, "cross_lingual", "3s_16k", ZS_SEED + 3, win_size=DEFAULT_WIN)),
+                "cross-lingual beside the slots"))
+            worker = calls.records[n_calls:]
+            if slots_service.continuous_requests - served != 2:
+                fail(f"zero-shot on the slots: continuous_requests rose by "
+                     f"{slots_service.continuous_requests - served}")
+            if [(r["route"], r["rows"]) for r in worker] != [("synthesize", 1)]:
+                fail(f"zero-shot on the slots: the worker served {worker}, expected the "
+                     f"cross-lingual request alone")
+            launched = (da.launch_count - counts[0], mg.launch_count - counts[1])
+            prediction, done = slots_prediction(batcher, before, n_layers)
+            prediction = tuple(a + b for a, b in zip(prediction, predicted_launches(worker, cfg)))
+            if launched != prediction or done["admits"] != 2:
+                fail(f"zero-shot on the slots: launches {launched}, predicted {prediction} from "
+                     f"{done}")
+            total = [a + b for a, b in zip(total, launched)]
+            audio_s = sum(n for n, _ in outs) / SAMPLE_RATE
+            rec["slots"] = dict(batcher_stats=done, worker_tokens=worker[0]["tokens"],
+                                zero_shot_wall_s=wall, audio_s=audio_s,
+                                attention_launches=launched[0], mlp_launches=launched[1])
+        print("zero_shot_batched", json.dumps(rec), flush=True)
+        return rec, tuple(total)
+    finally:
+        stop_servers(servers)
+
+
+# phase 5g: the solo route's bucket rule
+SOLO_LONG = ZS_TEXT  # its estimate (6 tokens a text token) holds on random weights
+SOLO_SHORT = "Call me back."  # a few text tokens: the estimate is the 32 bucket
+SOLO_SEEDS = 24  # seeds tried for each rule
+
+
+def solo_until(rule, url, text, estimated, calls, da, mg, cfg):
+    """Phase 5g: one-segment speed-1 requests of `text` through a window-mode
+    server's `Engine.synthesize`, seeds tried in turn (SOLO_SEEDS at most)
+    until one takes the bucket rule `estimated` (True: the estimated bucket
+    held its tokens; False: the realised bucket). Launches held. Returns
+    (record, launches)."""
+    from flowmirror_hydravox_tpu_torch.runtime.engine import SYNTH_BUCKETS, _bucket
+
+    tries, total = [], [0, 0]
+    for seed in range(SOLO_SEEDS):
+        recs, launched, _ = held_worker(f"{rule} seed {seed}", calls, da, mg, cfg,
+                                        lambda: tts(url, text, 2, seed=seed), [("synthesize", 1)])
+        total = [a + b for a, b in zip(total, launched)]
+        r = recs[0]
+        tries.append(dict(seed=seed, tokens=r["tokens"], token_bucket=r["token_bucket"],
+                          realised_bucket=_bucket(r["tokens"], SYNTH_BUCKETS),
+                          estimated=r["estimated"], total_time=r["total_time"]))
+        if r["estimated"] == estimated:
+            break
+    else:
+        fail(f"{rule}: no seed of {SOLO_SEEDS} took this rule: {tries}")
+    rec = dict(rule=rule, tries=tries, **tries[-1])
+    print("solo_route", json.dumps(rec), flush=True)
+    return rec, tuple(total)
+
+
+def drive_solo_rule(engine, frontend, da, mg):
+    """Phase 5g on the main weights: a request whose estimated bucket holds
+    its tokens (the other rule ran in phase 5e, on weights that do not stop
+    early). Returns (record, launches)."""
+    servers = start_servers(engine, frontend, window={})
+    try:
+        with EngineCalls(engine) as calls:
+            da.launch_count = mg.launch_count = 0
+            return solo_until("estimate_holds", servers["window"][2], SOLO_LONG, True, calls,
+                              da, mg, engine.cfg.llm)
+    finally:
+        stop_servers(servers)
+
 
 def main():
     if not (ROOT / "flowmirror_hydravox_tpu_torch" / "csrc").is_dir():
@@ -1433,7 +1942,12 @@ def main():
     prefill_cases = zero_shot_prefill_cases()
     print("zero-shot prefill shapes (B, T, S_max, cache_len, Hq):", json.dumps(prefill_cases),
           flush=True)
-    attention_cases = check_decode_attention(da, flush, prefill_cases.values())
+    # and in phase 5f's flash batches: prefills and first decode steps
+    batch_cases = batched_zero_shot_cases()
+    print("batched zero-shot shapes (B, T, S_max, cache_len, Hq):", json.dumps(batch_cases),
+          flush=True)
+    attention_cases = check_decode_attention(
+        da, flush, list(prefill_cases.values()) + list(batch_cases.values()))
     mlp_cases = check_mlp_gemv(mg, flush)
 
     t0 = time.time()
@@ -1449,8 +1963,13 @@ def main():
     serving, more = drive_continuous(engine, frontend, da, mg)
     streaming, streamed = drive_streams(engine, frontend, da, mg)
     zero_shot, zs_launched = drive_zero_shot(engine, frontend, da, mg, prefill_cases)
-    attention_launches, mlp_launches = (sum(x) for x in zip(launches, more, streamed,
-                                                            zs_launched))
+    pt_weights, pt_launched = drive_pt_weights(engine, da, mg)
+    zs_batched, zsb_launched = drive_zero_shot_batched(engine, frontend, da, mg, batch_cases)
+    solo_rule, solo_launched = drive_solo_rule(engine, frontend, da, mg)
+    solo_rule = {"estimate_holds": solo_rule,
+                 "estimate_falls_back": pt_weights.pop("solo_fallback")}
+    attention_launches, mlp_launches = (sum(x) for x in zip(
+        launches, more, streamed, zs_launched, pt_launched, zsb_launched, solo_launched))
     del flush
 
     # the kernels line: each kernel at its serving shape (bf16; decode
@@ -1493,7 +2012,9 @@ def main():
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "launch_floor_ms": launch_floor_ms, "attention_cases": attention_cases,
          "mlp_cases": mlp_cases, "backbone_rel_err": backbone_rel, "requests": requests,
-         "serving": serving, "streaming": streaming, "zero_shot": zero_shot, **kernels},
+         "serving": serving, "streaming": streaming, "zero_shot": zero_shot,
+         "pt_weights": pt_weights, "zero_shot_batched": zs_batched, "solo_route": solo_rule,
+         **kernels},
         indent=1))
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

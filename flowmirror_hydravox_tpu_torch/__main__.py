@@ -6,12 +6,16 @@ subset).
       [--spk2info FILE] [--continuous-batching SLOTS] [--continuous-heads K] \
       [--continuous-reserve N]
 
---model-dir holds llm.npz / flow.npz / hift.npz in the JAX package's flat npz
-format; a missing file means random weights from seed 0 (structure and
-latency testing). With random full-width LLM weights the text vocab follows
-the tokenizer's, padded to a multiple of 128. Serving dtypes: bf16 for the
-LLM and flow, f32 for HiFT; the frontend's extractors (the committed speech
-tokenizer and speaker encoder) f32, on the same device.
+--model-dir holds each model as `{name}.npz` in the JAX package's flat npz
+format or as the reference's `{name}.pt` (llm.pt / flow.pt / hift.pt,
+CosyVoice-3 key layout, weight-norm pairs folded; convert/torch_import.py);
+the npz is preferred when both are there (JAX __main__.py:28-46). A missing
+model means random weights from seed 0 (structure and latency testing).
+With random full-width LLM weights the text vocab follows the tokenizer's,
+padded to a multiple of 128; with llm.pt it is the checkpoint's. Serving
+dtypes: bf16 for the LLM and flow, f32 for HiFT; the frontend's extractors
+(the committed speech tokenizer and speaker encoder) f32, on the same
+device.
 
 --spk2info loads a speaker registry: a `.npz` as `Frontend.save_spk2info`
 writes it (embeddings, prompt tokens and mels), anything else as the
@@ -49,10 +53,11 @@ import numpy as np
 import torch
 
 from .config import HydraVoxConfig, tiny_config
+from .convert import torch_import
 from .device import resolve_device
 from .frontend.frontend import Frontend, SpeakerInfo
 from .frontend.tokenizer import get_tokenizer
-from .params import init_flow_params, init_hift_params, init_llm_params, load_params_npz
+from .params import init_flow_params, init_hift_params, init_llm_params
 from .runtime.engine import Engine
 from .runtime.server import serve
 
@@ -78,45 +83,64 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def _with_text_vocab(cfg: HydraVoxConfig, vocab: int) -> HydraVoxConfig:
+    return dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, backbone=dataclasses.replace(cfg.llm.backbone, vocab_size=vocab)))
+
+
+def load_models(tiny: bool, model_dir, tokenizer, device, dtype=torch.bfloat16):
+    """(cfg, {llm, flow, hift} trees on `device`), the LLM and flow at
+    `dtype` (bf16 to serve), HiFT f32: each model from `model_dir`
+    (`{name}.npz`, else `{name}.pt`), else random from seed 0. The text vocab
+    is llm.pt's, or, for a fresh full-width LLM, the tokenizer's padded to a
+    multiple of 128 (JAX __main__.py:111-126)."""
+    cfg = tiny_config() if tiny else HydraVoxConfig()
+    gen = torch.Generator(device=device).manual_seed(0)
+    paths = {name: torch_import.model_file(model_dir, name) for name in ("llm", "flow", "hift")}
+    llm_sd = None
+    if paths["llm"] and paths["llm"].endswith(".pt"):
+        llm_sd = torch_import.load_torch_pt(paths["llm"])
+        cfg = _with_text_vocab(cfg, torch_import.text_vocab(llm_sd))
+    elif paths["llm"] is None and not tiny:
+        padded = -(-tokenizer.vocab_size // 128) * 128
+        cfg = _with_text_vocab(cfg, padded)
+        logging.info("fresh init: text vocab follows the tokenizer (%d -> padded %d)",
+                     tokenizer.vocab_size, padded)
+    trees = {}
+    for name, init, leaf_dtype, sub in (("llm", init_llm_params, dtype, cfg.llm),
+                                        ("flow", init_flow_params, dtype, cfg.flow),
+                                        ("hift", init_hift_params, torch.float32, cfg.hift)):
+        if paths[name]:
+            trees[name] = torch_import.load_tree(paths[name], name, cfg, device, leaf_dtype,
+                                                 sd=llm_sd if name == "llm" else None)
+            logging.info("loaded %s", paths[name])
+        else:
+            trees[name] = init(sub, gen, device, leaf_dtype)
+    return cfg, trees
+
+
+def load_registry(frontend: Frontend, path: str):
+    """A speaker registry into `frontend`: a `.npz` as `save_spk2info`
+    writes it, anything else as the reference's spk2info.pt; a path that
+    does not exist is an error."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"speaker registry {path} does not exist")
+    if path.endswith(".npz"):
+        frontend.load_spk2info_npz(path)
+    else:
+        frontend.load_spk2info(path)
+
+
 def build(args):
     """(engine, frontend) as the server runs them."""
     device = resolve_device(args.device)
-    cfg = tiny_config() if args.tiny else HydraVoxConfig()
     tokenizer = get_tokenizer(args.tokenizer_path)
-
-    def npz(name):
-        path = os.path.join(args.model_dir, f"{name}.npz") if args.model_dir else None
-        return path if path and os.path.exists(path) else None
-
-    if not args.tiny and npz("llm") is None:
-        padded = -(-tokenizer.vocab_size // 128) * 128
-        cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
-            cfg.llm, backbone=dataclasses.replace(cfg.llm.backbone, vocab_size=padded)))
-        logging.info("fresh init: text vocab follows the tokenizer (%d -> padded %d)",
-                     tokenizer.vocab_size, padded)
-
-    gen = torch.Generator(device=device).manual_seed(0)
-    trees = {}
-    for name, init, dtype, sub in (("llm", init_llm_params, torch.bfloat16, cfg.llm),
-                                   ("flow", init_flow_params, torch.bfloat16, cfg.flow),
-                                   ("hift", init_hift_params, torch.float32, cfg.hift)):
-        path = npz(name)
-        if path:
-            trees[name] = load_params_npz(path, device, dtype)
-            logging.info("loaded %s", path)
-        else:
-            trees[name] = init(sub, gen, device, dtype)
-
+    cfg, trees = load_models(args.tiny, args.model_dir, tokenizer, device)
     engine = Engine(cfg, trees["llm"], trees["flow"], trees["hift"],
                     max_tokens=args.max_tokens, device=device)
     frontend = Frontend(cfg, tokenizer=tokenizer, device=device)
     if args.spk2info:
-        if not os.path.exists(args.spk2info):
-            raise FileNotFoundError(f"--spk2info {args.spk2info} does not exist")
-        if args.spk2info.endswith(".npz"):
-            frontend.load_spk2info_npz(args.spk2info)
-        else:
-            frontend.load_spk2info(args.spk2info)
+        load_registry(frontend, args.spk2info)
     if not frontend.available_speakers():
         frontend.add_speaker("default", SpeakerInfo(embedding=np.zeros(192, np.float32)))
     return engine, frontend

@@ -33,11 +33,12 @@ MTP_INTERMEDIATE = 22016  # HF-default intermediate of each MTP head layer
 
 
 def _to_tensor(arr, device, dtype, name):
+    """A C-contiguous tensor (the kernels take no strides) of `arr`."""
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":  # ml_dtypes bf16 has no torch.from_numpy
-        t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+        t = torch.from_numpy(np.array(arr, np.float32, order="C")).to(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.array(arr))  # a writable copy
+        t = torch.from_numpy(np.array(arr, order="C"))  # a writable copy
     if dtype is not None and t.is_floating_point() and name not in F32_LEAVES:
         t = t.to(dtype)
     return t.to(device)
@@ -278,3 +279,14 @@ def init_hift_params(cfg: HiFTConfig, generator: torch.Generator, device,
         "resblocks": resblocks,
         "conv_post": ini.conv(base // (2 ** len(cfg.upsample_rates)), n_fft2, 7),
     }
+
+
+def cast_like(new, old, device):
+    """`new` (nested dicts/lists of numpy arrays) as tensors on `device`,
+    each leaf at the dtype of the leaf of `old` that it replaces (the JAX
+    server's `_cast_like`, server.py:1401-1407)."""
+    if isinstance(new, dict):
+        return {k: cast_like(v, old[k], device) for k, v in new.items()}
+    if isinstance(new, (list, tuple)):
+        return [cast_like(v, o, device) for v, o in zip(new, old)]
+    return _to_tensor(new, device, old.dtype, "")

@@ -63,6 +63,7 @@ which pays XLA compiles; the port runs eagerly).
 
 from __future__ import annotations
 
+import contextlib
 import heapq
 import itertools
 import logging
@@ -181,6 +182,8 @@ class ContinuousBatcher:
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._started = False
         self._lock = threading.Lock()
+        self._tick_lock = threading.Lock()  # held by the thread for a whole tick
+        self._holds_waiting = 0  # callers of between_ticks not yet inside
 
     @torch.inference_mode()
     def _init_state(self) -> dict:
@@ -362,10 +365,27 @@ class ContinuousBatcher:
                 raise item
             yield item
 
+    @contextlib.contextmanager
+    def between_ticks(self):
+        """Hold the batcher between two ticks: no slot admits, decodes or
+        synthesises until the block ends (a weight reload swaps the engine's
+        trees here, so that no slot steps on half-swapped weights). The
+        thread waits after its tick while a caller waits here, since a lock
+        handed back at once would starve the caller."""
+        with self._lock:
+            self._holds_waiting += 1
+        with self._tick_lock:
+            with self._lock:
+                self._holds_waiting -= 1
+            yield
+
     def _loop(self):
         while not self._stop.is_set():
+            while self._holds_waiting:
+                time.sleep(0.001)
             try:
-                self._tick()
+                with self._tick_lock:
+                    self._tick()
             except Exception as e:  # the thread keeps serving; in-slot requests fail
                 logger.exception("continuous batcher tick failed")
                 with self._lock:

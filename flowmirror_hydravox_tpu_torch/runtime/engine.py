@@ -1,10 +1,10 @@
 """Inference engine: text tokens -> speech tokens -> mel -> 24 kHz waveform.
 
-Port of the two-stage path of flowmirror_hydravox_tpu/runtime/engine.py
-(`Engine(fused=False)`), for one utterance (`synthesize`, SFT or zero-shot
-with the LM's own prompt prefix), for the flash batch of several
-(`synthesize_batch`), and for voice conversion (`voice_convert`: stage 2
-alone on a source's speech tokens):
+Port of flowmirror_hydravox_tpu/runtime/engine.py, run eagerly in two
+stages, for one utterance (`synthesize`, SFT or zero-shot with the LM's own
+prompt prefix), for the flash batch of several (`synthesize_batch`, per-row
+prompts, LM prefixes and tts-portion lengths), and for voice conversion
+(`voice_convert`: stage 2 alone on a source's speech tokens):
 
   - stage 1: prompt assembly, KV-cache prefill and multi-head decode
     (models/llm.py), the attention of every layer going through the Hopper
@@ -16,7 +16,14 @@ alone on a source's speech tokens):
 The bucket ladders are the JAX package's: HiFT's convs are non-causal, so the
 padded tail changes the last samples, and the same buckets give the same wav
 (the continuous batcher's synthesis, `synthesize_tokens`, takes TOKEN_BUCKETS
-as the JAX batcher does).
+as the JAX batcher does). `synthesize` and `synthesize_batch` keep the
+output rule of the JAX engine's default `fused=True` (engine.py:1121-1170,
+:760-798): at speed 1, stage 2 runs at a bucket estimated from the text
+length before decoding (`_estimate_token_bucket`) whenever the realised
+tokens fit in it, else at the realised bucket. Only the bucket is JAX's; no
+graph is fused here, and stage 2 runs once either way, since the token count
+is known by then. `fused=False` gives the two-stage rule (always the
+realised bucket).
 
 Metrics follow the reference definitions (infer_speech_model.py:563-604):
 tps = tokens / llm_time, rtf = total_time / audio seconds. The two stages are
@@ -27,6 +34,7 @@ microseconds per request.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import threading
@@ -43,6 +51,7 @@ from ..models import hift as hift_model
 from ..models import llm as llm_model
 from ..noise import SeededVocoder, StreamNoise, TorchNoise
 from ..ops.sampling import SamplingParams
+from ..params import cast_like
 
 logger = logging.getLogger("hydravox.engine")
 
@@ -65,6 +74,9 @@ SYNTH_BUCKETS = (32, 64, 96, 128, 160, 192, 256, 384, 512, 768, 1024)
 # speech-token length bounds per text token (infer_speech_model.py)
 MIN_TOKEN_TEXT_RATIO = 2.0
 MAX_TOKEN_TEXT_RATIO = 20.0
+# speech tokens per tts text token that the estimated stage-2 bucket assumes
+# (the JAX Engine's `fused_est_ratio`, engine.py:93)
+FUSED_EST_RATIO = 6.0
 
 
 @dataclasses.dataclass
@@ -77,19 +89,27 @@ class SynthesisResult:
     tps: float
     rtf: float
     steps: int
+    token_bucket: int = 0  # stage 2's token bucket
+    estimated: bool = False  # whether it was the estimated bucket (fused rule)
 
 
 class Engine:
-    """Holds the three models' parameter trees on one device."""
+    """Holds the three models' parameter trees on one device.
+
+    `fused` (default True, as in JAX) selects the output rule of
+    `synthesize` and `synthesize_batch`: the estimated stage-2 bucket when
+    the tokens fit it (see the module docstring); False always takes the
+    realised bucket."""
 
     def __init__(self, cfg: HydraVoxConfig, llm_params, flow_params, hift_params,
-                 max_tokens: int = 1024, device="cuda"):
+                 max_tokens: int = 1024, device="cuda", fused: bool = True):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.llm_params = llm_params
         self.flow_params = flow_params
         self.hift_params = hift_params
         self.max_tokens = max_tokens
+        self.fused = fused
         self._generator = torch.Generator(device=self.device).manual_seed(int(time.time()))
         self._rng_lock = threading.Lock()
         self._streaming = None
@@ -130,8 +150,37 @@ class Engine:
                 self._streaming = StreamingSynthesizer(self)
             return self._streaming
 
+    def load_weights(self, trees: dict, hold=contextlib.nullcontext()):
+        """Hot reload (POST /api/v1/load_pt): `trees` ({llm, flow, hift}:
+        numpy trees in the JAX layout) go to the engine's device, each leaf
+        at the dtype of the live leaf it replaces, then are swapped in
+        together inside `hold` (the continuous batcher holds its slots
+        between two ticks there). A call already running keeps the trees it
+        started with."""
+        new = {name: cast_like(tree, getattr(self, f"{name}_params"), self.device)
+               for name, tree in trees.items()}
+        with hold:
+            for name, tree in new.items():
+                setattr(self, f"{name}_params", tree)
+
     def _tensor(self, arr, dtype):
         return torch.as_tensor(np.asarray(arr), dtype=dtype, device=self.device)
+
+    @staticmethod
+    def _estimate_token_bucket(tts_text_len: int, min_len: int, max_len: int,
+                               flow_prompt_len: int) -> int:
+        """Stage 2's token bucket estimated before decoding (engine.py:203-208)."""
+        est = min(max_len, max(min_len, int(tts_text_len * FUSED_EST_RATIO)))
+        return _bucket(max(flow_prompt_len + est, 1), SYNTH_BUCKETS)
+
+    @staticmethod
+    def _stage2_bucket(n_all: int, est_bkt: int):
+        """(token bucket, whether the estimate held) for `n_all` prompt and
+        generated tokens: `est_bkt` when they fit it (JAX keeps the fused
+        program's wav, engine.py:1140-1142), else the realised bucket."""
+        if n_all <= est_bkt:
+            return est_bkt, True
+        return _bucket(max(n_all, 1), SYNTH_BUCKETS), False
 
     # -- stages --------------------------------------------------------------
 
@@ -317,9 +366,12 @@ class Engine:
         n_tok, steps = res.num_tokens, res.steps
         llm_time = time.time() - t0
 
-        # ---- stage 2: flow + hift ----
+        # ---- stage 2: flow + hift, at the estimated bucket when the tokens
+        # fit it (the fused rule, speed 1), else at the realised one ----
         t0 = time.time()
-        tok_bkt = _bucket(max(lp + n_tok, 1), SYNTH_BUCKETS)
+        est_bkt = (self._estimate_token_bucket(tts_text_len, min_len, max_len, lp)
+                   if self.fused and speed == 1.0 else 0)
+        tok_bkt, estimated = self._stage2_bucket(lp + n_tok, est_bkt)
         flow_dtype = self.flow_params["input_embedding"].dtype
         with torch.profiler.record_function("engine.synth"):
             wav_dev, mel_dev = self._synth_body(
@@ -345,9 +397,12 @@ class Engine:
             tps=n_tok / llm_time if llm_time > 0 else 0.0,
             rtf=total / dur,
             steps=steps,
+            token_bucket=tok_bkt,
+            estimated=estimated,
         )
-        logger.info("synth: %d tokens in %d steps, tps=%.1f rtf=%.4f (llm %.3fs flow+hift %.3fs)",
-                    n_tok, steps, result.tps, result.rtf, llm_time, synth_time)
+        logger.info("synth: %d tokens in %d steps, tps=%.1f rtf=%.4f (llm %.3fs flow+hift %.3fs "
+                    "at the %s bucket %d)", n_tok, steps, result.tps, result.rtf, llm_time,
+                    synth_time, "estimated" if estimated else "realised", tok_bkt)
         return result
 
     @torch.inference_mode()
@@ -404,21 +459,30 @@ class Engine:
         prompt_mel=None,  # one shared (Lm, 80) array, or a per-row list
         spk_embedding=None,  # (192,) shared, or (B, 192) per row
         noise=None,
+        tts_text_lens=None,  # per-row tts-portion lengths; None: whole texts
+        llm_prompt_speech_tokens="same",  # LM-prefix override, see below
     ):
         """Flash-batch synthesis (engine.py:623-897, its two-stage form): B
-        utterances (the segments of one text, or coalesced requests) decode
-        in one `llm.generate_batched` loop, then flow + HiFT run once over all
-        rows at the bucket of the longest realised row. `noise` (default:
-        drawn from the engine's generator) feeds both the LM and HiFT, as one
-        JAX key does. Returns (list of B float32 wavs, stats dict with
-        llm_time, synth_time, total_time, tokens, steps, rtf).
+        utterances (the segments of one text, or coalesced requests, SFT and
+        zero-shot mixed) decode in one `llm.generate_batched` loop, then flow
+        + HiFT run once over all rows, with `synthesize`'s bucket rule over
+        the longest row (the estimate from the longest tts portion under
+        `fused`, for fewer than 4 rows or tight length bounds). `noise`
+        (default: drawn from the engine's generator) feeds both the LM and
+        HiFT, as one JAX key does. Returns (list of B float32 wavs, stats
+        dict with llm_time, synth_time, total_time, tokens, steps, rtf,
+        token_bucket, estimated).
 
-        Each row's token-length bounds come from its whole text, as the JAX
-        default `tts_text_lens=None` does for SFT rows (no prompt text).
-        Not ported: the fused single dispatch (:770-798), the warm-shape
-        synth-group planner (:512-, which exists for XLA compile reuse),
-        spec decode (:396-405) and the `llm_prompt_speech_tokens` override:
-        the prompt tokens feed both the LM and the flow."""
+        Row i's token-length bounds come from `tts_text_lens[i]` (capped at
+        its text's length), or from its whole text when None, as for SFT
+        rows with no prompt text. `llm_prompt_speech_tokens` is the LM's
+        prompt speech prefix, as in `synthesize`: "same" (each row's flow
+        prompt), a per-row list (None: that row's flow prompt; empty: no
+        prefix, cross-lingual and instruct2 rows), or one shared array. The
+        flow always takes each row's own prompt.
+        Not ported: the single dispatch itself (:770-798), the warm-shape
+        synth-group planner (:512-, which exists for XLA compile reuse) and
+        spec decode (:396-405)."""
         t_start = time.time()
         cfg = self.cfg
         sampling = sampling or cfg.tts_sampling
@@ -436,7 +500,16 @@ class Engine:
                       else np.asarray(x, dtype))
             return [shared] * bsz
 
-        sp_rows = _rows(prompt_speech_tokens, np.int32, (0,))
+        flow_sp_rows = _rows(prompt_speech_tokens, np.int32, (0,))
+        if isinstance(llm_prompt_speech_tokens, str):  # "same"
+            sp_rows = flow_sp_rows
+        elif isinstance(llm_prompt_speech_tokens, (list, tuple)):
+            if len(llm_prompt_speech_tokens) != bsz:
+                raise ValueError(f"{len(llm_prompt_speech_tokens)} LM prefixes for {bsz} rows")
+            sp_rows = [flow_sp_rows[i] if e is None else np.asarray(e, np.int32).reshape(-1)
+                       for i, e in enumerate(llm_prompt_speech_tokens)]
+        else:
+            sp_rows = [np.asarray(llm_prompt_speech_tokens, np.int32).reshape(-1)] * bsz
         pm_rows = _rows(prompt_mel, np.float32, (0, cfg.flow.output_size))
         if spk_embedding is None:
             spk_embedding = np.zeros((192,), np.float32)
@@ -450,17 +523,27 @@ class Engine:
             logger.warning("text rows longer than the largest prompt bucket %d truncated", tbkt)
             text_rows = [t[:tbkt] for t in text_rows]
         lts = [len(t) for t in text_rows]
-        lp_max = max(len(r) for r in sp_rows)
-        sbkt = _bucket(lp_max, PROMPT_BUCKETS) if lp_max else 0
-        sp_rows = [r[:sbkt] for r in sp_rows]
-        lps = [len(r) for r in sp_rows]
+        tts_lens = (lts if tts_text_lens is None
+                    else [min(int(n), lt) for n, lt in zip(tts_text_lens, lts)])
+
+        def _pad(rows):
+            """(B, bucket) int32 over PROMPT_BUCKETS (0 for no row), lengths."""
+            longest = max(len(r) for r in rows)
+            bkt = _bucket(longest, PROMPT_BUCKETS) if longest else 0
+            lens = [min(len(r), bkt) for r in rows]
+            pad = np.zeros((bsz, bkt), np.int32)
+            for i, r in enumerate(rows):
+                pad[i, :lens[i]] = r[:bkt]
+            return pad, lens
+
         text_pad = np.zeros((bsz, tbkt), np.int32)
-        sp_pad = np.zeros((bsz, sbkt), np.int32)
         for i in range(bsz):
             text_pad[i, :lts[i]] = text_rows[i]
-            sp_pad[i, :lps[i]] = sp_rows[i]
-        min_lens = [int(n * MIN_TOKEN_TEXT_RATIO) for n in lts]
-        max_lens = [min(int(n * MAX_TOKEN_TEXT_RATIO), self.max_tokens) for n in lts]
+        sp_pad, lps = _pad(sp_rows)  # the LM's prefixes
+        fsp_pad, flps = _pad(flow_sp_rows)  # the flow's prompts
+        sbkt = sp_pad.shape[1]
+        min_lens = [int(n * MIN_TOKEN_TEXT_RATIO) for n in tts_lens]
+        max_lens = [min(int(n * MAX_TOKEN_TEXT_RATIO), self.max_tokens) for n in tts_lens]
         sp = SamplingParams.make(sampling.top_p, sampling.top_k, sampling.win_size, sampling.tau_r)
 
         lm_max = max(len(r) for r in pm_rows)
@@ -491,13 +574,22 @@ class Engine:
         nums, steps = res.num_tokens, res.steps
         llm_time = time.time() - t0
 
-        # ---- stage 2: flow + hift over all rows at the realised bucket ----
+        # ---- stage 2: flow + hift over all rows, at the estimated bucket when
+        # every row fits it (the fused rule, for fewer than 4 rows or tight
+        # length bounds, engine.py:760-798), else at the realised one ----
         t0 = time.time()
-        tok_bkt = _bucket(max(max(lp + n for lp, n in zip(lps, nums)), 1), SYNTH_BUCKETS)
+        est_bkt = 0
+        if self.fused and (bsz < 4 or all(hi <= max(lo, 1) * 2
+                                          for lo, hi in zip(min_lens, max_lens))):
+            est_bkt = self._estimate_token_bucket(max(tts_lens), max(min_lens), max(max_lens),
+                                                  max(len(r) for r in flow_sp_rows))
+        tok_bkt, estimated = self._stage2_bucket(max(lp + n for lp, n in zip(flps, nums)),
+                                                 est_bkt)
         flow_dtype = self.flow_params["input_embedding"].dtype
         with torch.profiler.record_function("engine.synth"):
             wav_dev, _ = self._synth_body(
-                tok_bkt, pm_bucket, sbkt, res.tokens, nums, sp_dev, lps,
+                tok_bkt, pm_bucket, fsp_pad.shape[1], res.tokens, nums,
+                self._tensor(fsp_pad, torch.int32), flps,
                 self._tensor(pm, flow_dtype), pm_lens,
                 self._tensor(emb_rows, torch.float32), noise,
             )
@@ -508,7 +600,8 @@ class Engine:
         total = time.time() - t_start
         dur = sum(len(w) for w in wavs) / cfg.sample_rate
         stats = dict(llm_time=llm_time, synth_time=synth_time, total_time=total,
-                     tokens=list(nums), steps=steps, rtf=total / max(dur, 1e-9))
+                     tokens=list(nums), steps=steps, rtf=total / max(dur, 1e-9),
+                     token_bucket=tok_bkt, estimated=estimated)
         logger.info("flash batch x%d: %s tokens in %d steps, rtf=%.4f (llm %.3fs synth %.3fs)",
                     bsz, stats["tokens"], steps, stats["rtf"], llm_time, synth_time)
         return wavs, stats

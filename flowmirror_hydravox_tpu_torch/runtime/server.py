@@ -20,21 +20,33 @@ flowmirror_hydravox_tpu/runtime/server.py, with the reference's REST schema
        -> a WAV stream: a RIFF header with 0xFFFFFFFF sizes, then s16le PCM
           chunks (~1 s each, 50-150 ms of silence between segments) until
           the connection closes
+  POST /api/v1/load_pt    {llm_pt, flow_pt} -> hot reload of the reference's
+                           .pt weights into the live engine -> {..., data:
+                           {llm, flow}: the paths loaded}
+  GET  /api/v1/devices    -> {..., data: {platform, device_count, devices,
+                             default_backend}}: the torch device census
+  GET  /api/v1/samples    -> {..., data: {root, samples}} (runtime/samples.py)
+  POST /api/v1/samples/load {path} -> {..., data: {audio_base64, prompt_text}};
+                           a path outside the samples root -> 400
 
 Errors: unknown speaker -> 500 naming the speakers; bad JSON, a stream
 without text or speaker_id, zero-shot without prompt audio, voice conversion
 without either audio, a speaker to add without an id or audio or dataset, a
-bad dataset -> 400; unknown route -> 404; timeout (of a
+bad dataset, a bad sample path -> 400; unknown route -> 404; timeout (of a
 stream: before its first chunk) -> 408; a stream that fails after its first
 chunk is cut short. Requests take the JAX server's routes:
 
   - continuous batching (`continuous_slots` > 0, the launcher's default): a
-    tts request at the default sampling and the slots' head count bypasses
-    the worker queue; each of its segments becomes one request of the
-    `ContinuousBatcher` (runtime/continuous.py), which joins a decode in
-    flight at the next chunk boundary, and the segments' wavs are joined
-    with 50-150 ms pauses. A segment longer than the slots' ladders sends
-    the whole request to the worker before anything is admitted;
+    tts request, or a plain-mode zero-shot request, at the default sampling
+    and the slots' head count bypasses the worker queue (server.py:797-826);
+    each of its segments becomes one request of the `ContinuousBatcher`
+    (runtime/continuous.py), with its prompt and tts-portion length, which
+    joins a decode in flight at the next chunk boundary, and the segments'
+    wavs are joined with 50-150 ms pauses. A segment longer than the slots'
+    ladders sends the whole request to the worker before anything is
+    admitted. Cross-lingual and instruct2 requests (an LM prefix other than
+    the flow's prompt) take the worker; so do zero-shot requests at the
+    zero-shot default sampling (win_size 32), which is not the slots';
   - streams (server.py:143-169, :815-822): a default-config stream rides
     the slots too (`ContinuousBatcher.submit(stream=True)`, one slot
     request per segment, the first `continuous_reserve_stream` slots kept
@@ -46,19 +58,20 @@ chunk is cut short. Requests take the JAX server's routes:
     - a single-segment text, and each segment of a `last_prompt` text, goes
       through `Engine.synthesize`, with its speed; with `last_prompt` each
       segment's tokens and mel are the next one's zero-shot prompt;
-    - zero-shot (each segment through `Engine.synthesize`) and voice
-      conversion (`Engine.voice_convert`) in both serving modes: neither is
-      coalesced nor put on the slots yet;
+    - zero-shot alone (each segment through `Engine.synthesize`) and voice
+      conversion (`Engine.voice_convert`, never coalesced);
     - a multi-segment text goes through one flash batch,
       `Engine.synthesize_batch`, whatever its speed (the JAX server passes
       no speed there either), with 50-150 ms pauses between segments;
-    - window coalescing: when the worker takes a batchable request (SFT
-      tts, speed 1, no rolling prompt), it pulls further requests of the
-      same sampling and head count for up to `batch_window` s, `max_batch`
-      in all, and serves the group as one flash batch with per-row speaker
-      embeddings. A request that does not match ends the window and runs
-      right after the group, in arrival order. With `continuous_slots=0`
-      this is the JAX launcher's `--continuous-batching 0` mode.
+    - window coalescing: when the worker takes a batchable request (tts
+      with no rolling prompt, or zero-shot in any mode, at speed 1), it
+      pulls further requests of the same sampling and head count for up to
+      `batch_window` s, `max_batch` in all, and serves the group as one
+      flash batch with per-row speaker embeddings, prompts, LM prefixes and
+      tts-portion lengths (`_prepare_batch_rows`). A request that does not
+      match ends the window and runs right after the group, in arrival
+      order. With `continuous_slots=0` this is the JAX launcher's
+      `--continuous-batching 0` mode.
 
 An integer `seed` in extra_params (an addition to the JAX schema) makes a
 request reproducible: segment j draws its sampling and vocoder noise from
@@ -71,6 +84,7 @@ route.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import queue
@@ -85,11 +99,14 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
 from ..config import SamplingConfig
+from ..convert import torch_import
 from ..noise import RowNoise
 from ..ops.sampling import SamplingParams
 from ..utils.wavio import audio_to_base64, load_audio_from_base64
+from . import samples
 from .continuous import ContinuousBatcher
 from .engine import Engine
 from .profiling import MetricsAggregator
@@ -244,11 +261,12 @@ class TTSService:
         )
 
     def _batchable(self, task: dict) -> Optional[tuple]:
-        """The coalescing key (sampling, head count) of an SFT tts task at
-        speed 1 with no rolling prompt, else None (server.py:206-228);
-        malformed extra_params give None and fail later as the task's own
-        error."""
-        if task.get("type") != "tts" or task.get("last_prompt"):
+        """The coalescing key (sampling, head count) of a tts task with no
+        rolling prompt or of a zero-shot task (any mode), at speed 1, else
+        None (server.py:206-228); malformed extra_params give None and fail
+        later as the task's own error."""
+        kind = task.get("type")
+        if not (kind == "zero_shot" or (kind == "tts" and not task.get("last_prompt"))):
             return None
         extra = task.get("extra_params") or {}
         try:
@@ -349,45 +367,59 @@ class TTSService:
             return None
         return RowNoise([self.engine.next_noise() if n is None else n for n in noises])
 
-    def _sft_rows(self, task: dict):
-        """(text token rows, speaker embedding, prompt tokens, prompt mel) of
-        one tts task, one row per segment (server.py:827-846)."""
+    def _prepare_batch_rows(self, task: dict) -> list:
+        """One task's rows for the batched routes (server.py:848-895), one
+        per segment: (text tokens, tts-portion length, LM prefix or None,
+        prompt tokens or None, prompt mel or None, embedding (192,)). A tts
+        task's segments share its speaker's prompt (server.py:827-846); a
+        zero-shot task's rows are its mode's features from the request's
+        audio, as alone (`_zero_shot_features`): the tts-portion length
+        leaves out the prompt text, and cross-lingual and instruct2 rows
+        carry an empty LM prefix."""
+        if task["type"] == "zero_shot":
+            return [(np.asarray(f["text_tokens"], np.int32).reshape(-1), int(f["tts_text_len"]),
+                     f.get("llm_prompt_speech_tokens"), f.get("prompt_speech_tokens"),
+                     f.get("prompt_mel"),
+                     np.asarray(f["spk_embedding"], np.float32).reshape(-1)[:192])
+                    for f in self._zero_shot_features(task)]
         segments = self.frontend.text_normalize(task["text"], split=True)
         feats0 = self.frontend.frontend_sft(segments[0], task["speaker_id"])
         rows = [feats0["text_tokens"]] + [self.frontend.extract_text_tokens(s)
                                           for s in segments[1:]]
         emb = np.asarray(feats0["spk_embedding"], np.float32).reshape(-1)[:192]
-        return rows, emb, feats0.get("prompt_speech_tokens"), feats0.get("prompt_mel")
+        sp_t, pm_t = feats0.get("prompt_speech_tokens"), feats0.get("prompt_mel")
+        return [(np.asarray(tt, np.int32).reshape(-1), len(tt), None, sp_t, pm_t, emb)
+                for tt in rows]
 
     def _run_group(self, group: list):
         """One flash batch for the coalesced tasks (server.py:267-361): the
-        rows are every task's segments, with per-row speaker embeddings and
-        prompts; each task gets its own rows back, joined with pauses. A
-        task whose featurisation fails gets its error; if the batch fails,
-        every task in it gets the batch's error."""
+        rows are every task's segments, with per-row speaker embeddings,
+        prompts, LM prefixes and tts-portion lengths; each task gets its own
+        rows back, joined with pauses. A task whose featurisation fails gets
+        its error; if the batch fails, every task in it gets the batch's
+        error."""
         extra = group[0].get("extra_params") or {}
-        spans, token_rows, embs, sp_rows, pm_rows, noises = [], [], [], [], [], []
+        spans, rows, noises = [], [], []
         for task in group:
             try:
-                rows, emb, sp_t, pm_t = self._sft_rows(task)
-                noises += self._noises(task, len(rows))
+                task_rows = self._prepare_batch_rows(task)
+                noises += self._noises(task, len(task_rows))
             except Exception as e:
                 logger.exception("task %s failed", task["task_id"])
                 self._set_result(task, {"error": str(e)})
                 continue
-            spans.append((task, len(token_rows), len(token_rows) + len(rows)))
-            token_rows += rows
-            embs += [emb] * len(rows)
-            sp_rows += [sp_t] * len(rows)
-            pm_rows += [pm_t] * len(rows)
+            spans.append((task, len(rows), len(rows) + len(task_rows)))
+            rows += task_rows
         if not spans:
             return
+        token_rows, tts_lens, llm_rows, sp_rows, pm_rows, embs = zip(*rows)
         try:
             wavs, stats = self.engine.synthesize_batch(
-                token_rows, sampling=self._sampling(extra),
+                list(token_rows), sampling=self._sampling(extra),
                 inference_head_num=int(extra.get("inference_head_num", 2)),
-                prompt_speech_tokens=sp_rows, prompt_mel=pm_rows, spk_embedding=np.stack(embs),
-                noise=self._batch_noise(noises),
+                prompt_speech_tokens=list(sp_rows), prompt_mel=list(pm_rows),
+                spk_embedding=np.stack(embs), noise=self._batch_noise(noises),
+                tts_text_lens=list(tts_lens), llm_prompt_speech_tokens=list(llm_rows),
             )
         except Exception as e:
             logger.exception("coalesced batch failed")
@@ -493,7 +525,13 @@ class TTSService:
         tid = str(uuid.uuid4())
         task["task_id"] = tid
         task.setdefault("t_submit", time.time())
-        if self.batcher is not None and self._batchable(task) == self._continuous_key:
+        # tts and plain-mode zero-shot ride the slots; cross-lingual and
+        # instruct2 need an LM prefix other than the flow's prompt, which a
+        # slot does not carry (server.py:797-812)
+        continuous_ok = task.get("type") == "tts" or (
+            task.get("type") == "zero_shot" and task.get("mode", "zero_shot") == "zero_shot")
+        if (self.batcher is not None and continuous_ok
+                and self._batchable(task) == self._continuous_key):
             # featurisation, admission and the wait run on a pool thread, so
             # concurrent requests join the shared decode instead of queueing
             # behind the worker
@@ -507,18 +545,22 @@ class TTSService:
         return tid
 
     def _run_continuous(self, task: dict):
-        """Each segment of a tts task as one slot request, the wavs joined
-        with pauses (server.py:896-944). A segment outside the slots' ladders
-        sends the task to the worker before anything is admitted."""
+        """Each segment of a tts or plain zero-shot task as one slot request,
+        the wavs joined with pauses (server.py:896-944). A segment outside
+        the slots' ladders, or one with an LM-prefix override, sends the task
+        to the worker before anything is admitted (:906-913)."""
         try:
-            rows, emb, sp_t, pm_t = self._sft_rows(task)
-            if any(len(tt) > self.batcher.prompt_buckets[-1] for tt in rows) or (
-                    sp_t is not None and len(sp_t) > self.batcher.sp_buckets[-1]):
+            rows = self._prepare_batch_rows(task)
+            if any(len(tt) > self.batcher.prompt_buckets[-1]
+                   or (sp is not None and len(sp) > self.batcher.sp_buckets[-1])
+                   or llm_t is not None
+                   for tt, _, llm_t, sp, _, _ in rows):
                 self.tasks.put(task)
                 return
-            reqs = [self.batcher.submit(tt, emb, noise=noise, prompt_speech_tokens=sp_t,
-                                        prompt_mel=pm_t)
-                    for tt, noise in zip(rows, self._noises(task, len(rows)))]
+            reqs = [self.batcher.submit(tt, emb, noise=noise, prompt_speech_tokens=sp,
+                                        prompt_mel=pm, tts_text_len=tl)
+                    for (tt, tl, _, sp, pm, emb), noise in zip(rows,
+                                                               self._noises(task, len(rows)))]
             wavs = [self.batcher.result(req, timeout=self.timeout)[0] for req in reqs]
             result = {"output_audio": _with_pauses(wavs, self.engine.cfg.sample_rate),
                       "sample_rate": self.engine.cfg.sample_rate}
@@ -583,6 +625,31 @@ class TTSService:
         for thread in [self.worker] + self._stream_workers:
             thread.join(timeout=5)
 
+    def load_pt(self, llm_pt: Optional[str] = None, flow_pt: Optional[str] = None) -> dict:
+        """Hot reload of the reference's llm.pt / flow.pt into the live
+        engine (server.py:1381-1398), each leaf at the live leaf's dtype.
+        With slots, the trees are swapped between two of the batcher's
+        ticks. Returns {model: path} of what was loaded."""
+        paths = {name: path for name, path in (("llm", llm_pt), ("flow", flow_pt)) if path}
+        trees = {name: torch_import.convert(name, torch_import.load_torch_pt(path),
+                                            self.engine.cfg)
+                 for name, path in paths.items()}
+        self.engine.load_weights(trees, hold=(self.batcher.between_ticks() if self.batcher
+                                              else contextlib.nullcontext()))
+        logger.info("hot-reloaded %s", paths)
+        return paths
+
+    def device_census(self) -> dict:
+        """GET /api/v1/devices (server.py:1065-1080): the serving device's
+        platform (gpu or cpu) and its devices, where JAX lists jax.devices()."""
+        if self.engine.device.type == "cuda":
+            names = [torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())]
+            platform = "gpu"
+        else:
+            names, platform = ["cpu"], "cpu"
+        return {"platform": platform, "device_count": len(names), "devices": names,
+                "default_backend": str(self.engine.device)}
+
     def metrics_summary(self) -> dict:
         """The data of GET /api/v1/metrics (server.py:1049-1063)."""
         data = self.metrics.summary()
@@ -621,6 +688,11 @@ class _Handler(BaseHTTPRequestHandler):
             self._send(200, _response(True, "ok", data={"speakers": speakers}))
         elif self.path == "/api/v1/metrics":
             self._send(200, _response(True, "ok", data=self.service.metrics_summary()))
+        elif self.path == "/api/v1/devices":
+            self._send(200, _response(True, "ok", data=self.service.device_census()))
+        elif self.path == "/api/v1/samples":
+            self._send(200, _response(True, "ok", data={"root": samples.samples_root(),
+                                                        "samples": samples.list_samples()}))
         elif self.path in ("/health", "/"):
             self._send(200, {"status": "ok"})
         else:
@@ -646,6 +718,11 @@ class _Handler(BaseHTTPRequestHandler):
                 self._handle_add_speaker(body)
             elif self.path.startswith("/api/v1/speakers/remove/"):
                 self._handle_remove_speaker()
+            elif self.path == "/api/v1/load_pt":
+                self._send(200, _response(True, "loaded", data=self.service.load_pt(
+                    body.get("llm_pt"), body.get("flow_pt"))))
+            elif self.path == "/api/v1/samples/load":
+                self._handle_load_sample(body)
             else:
                 self._send(404, _response(False, "not found", error="not found"))
         except TimeoutError:
@@ -747,6 +824,16 @@ class _Handler(BaseHTTPRequestHandler):
         self._send(200 if ok else 404, _response(
             ok, "removed" if ok else "unknown speaker",
             error=None if ok else f"unknown speaker {spk}"))
+
+    def _handle_load_sample(self, body: dict):
+        """POST /api/v1/samples/load (server.py:1161-1171): one sample's audio
+        and transcript; a path outside the samples root or missing -> 400."""
+        try:
+            data = samples.load_sample(str(body.get("path", "")))
+        except ValueError as e:
+            self._send(400, _response(False, "bad sample path", error=str(e)))
+            return
+        self._send(200, _response(True, "ok", data=data))
 
     def _handle_tts_stream(self, body: dict):
         """A live WAV over the response body (server.py:1298-1347): the RIFF

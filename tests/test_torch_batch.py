@@ -144,7 +144,7 @@ def engines():
     trees = seeded_tiny_trees()  # the JAX init of flow and HiFT takes tens of seconds
     jax_engine = JaxEngine(CFG, *trees, max_tokens=MAX_TOKENS, fused=False)
     torch_engine = TorchEngine(CFG, *(from_numpy_tree(tr, "cpu") for tr in trees),
-                               max_tokens=MAX_TOKENS, device="cpu")
+                               max_tokens=MAX_TOKENS, device="cpu", fused=False)
     return jax_engine, torch_engine
 
 

@@ -1,6 +1,8 @@
 """Port Engine.synthesize against the JAX two-stage engine
-(`Engine(fused=False)`) on the same key, tiny config, f32 weights (the
-port's seeded init, shared with the other parity tests).
+(`Engine(fused=False)`, the port's `fused=False` rule; the default fused
+rule is held in tests/test_torch_solo_route.py) on the same key, tiny
+config, f32 weights (the port's seeded init, shared with the other parity
+tests).
 
 The port replays the JAX key chain for both the LM draws and the HiFT source
 (the JAX engine feeds one key to both). Tokens, token count and step count
@@ -28,7 +30,7 @@ def engines():
     trees = seeded_tiny_trees()  # the JAX init of flow and HiFT takes tens of seconds
     jax_engine = JaxEngine(cfg, *trees, max_tokens=MAX_TOKENS, fused=False)
     torch_engine = TorchEngine(cfg, *(from_numpy_tree(tr, "cpu") for tr in trees),
-                               max_tokens=MAX_TOKENS, device="cpu")
+                               max_tokens=MAX_TOKENS, device="cpu", fused=False)
     return jax_engine, torch_engine
 
 

@@ -44,7 +44,7 @@ def engines():
     trees = seeded_tiny_trees()
     jax_engine = JaxEngine(tiny_config(), *trees, max_tokens=MAX_TOKENS, fused=False)
     torch_engine = TorchEngine(jax_engine.cfg, *(from_numpy_tree(tr, "cpu") for tr in trees),
-                               max_tokens=MAX_TOKENS, device="cpu")
+                               max_tokens=MAX_TOKENS, device="cpu", fused=False)
     return jax_engine, torch_engine
 
 
