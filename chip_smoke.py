@@ -14,8 +14,9 @@ exits non-zero without either. Phases, each fatal on failure:
      engine pads them), the flash batches of zero-shot rows that phase 5f
      serves (B 2, 3 and 4: 3 s and 10 s zero-shot rows, cross-lingual and
      SFT rows padded to the longest; each batch's prefill and its first
-     decode step with every row's own cache_len), and at the edges of its
-     design (split boundaries,
+     decode step with every row's own cache_len), the spec verify blocks
+     (T = K = 5 at B 1 / S_max 512 and at B 4 / S_max 768 with diverging
+     cache_len), and at the edges of its design (split boundaries,
      row tiles, a row with cache_len 0), each twice (the two calls must be bit-equal), with times
      (CUDA events, L2 flushed before each launch), the plain version's and
      one library call's (SDPA with the same additive mask, a yardstick
@@ -23,7 +24,9 @@ exits non-zero without either. Phases, each fatal on failure:
      one-element zero_() timed the same way;
   3b. the fused SwiGLU-MLP GEMV against its plain version at the decode
      MLP's shapes (backbone 896 x 4864 at M = B x K rows, MTP heads
-     896 x 22016 at M = B) and at edges (M 9, 16, 65; a ragged I), bf16 and
+     896 x 22016 at M = B; the spec verify blocks at M 5, 20 and 40 of
+     both widths, head 0 on the block at the MTP width) and at edges (M 9,
+     16, 65; a ragged I), bf16 and
      f32, twice each (bit-equal), timed the same way; its yardstick
      is the torch.matmul form (three cuBLAS products and two elementwise
      ops: no single PyTorch call computes this function);
@@ -128,7 +131,27 @@ exits non-zero without either. Phases, each fatal on failure:
      (the main weights) and one outgrows it (the short text on phase 5e's
      never-stopping weights, the realised bucket); each rule and bucket
      printed, launches held;
-  6. the kernels line (launches: phases 5 to 5g), the card line, and the
+  5h. self-speculative MTP decoding (--spec-decode): first, f32 greedy
+     decoding (top_k 1, tau_r 2) of 100 tokens, llm.generate at heads 1
+     against llm.generate_speculative at heads 2 and 5 on other draws: the
+     tokens must be equal, or differ first where heads 1's two top logits
+     lie within 1e-4 (the margin printed); then, bf16, every route through
+     servers on an engine with the launcher's --spec-decode, beside the same
+     seeded requests on the main engine: /api/v1/tts on the solo route at
+     heads 2 and 5, a burst of three coalesced into one flash batch, a
+     /api/v1/tts/stream on the lane, and three /api/v1/tts with a stream
+     among them on 4 slots at heads 5, 1 reserved (the slots must be
+     speculative on the spec engine). Each WAV as in phase 5; launches held
+     to the code's prediction (spec: attention n_layers x (prefills +
+     verify blocks); MLP n_layers x verify blocks + draft heads + heads 0 on
+     the blocks + heads 0 for the first tokens). Printed per route and
+     mode: spec_acceptance, tokens per block forward, ms per decode step,
+     RTF; the streams' TTFT and underruns. Last, every kernel shape that
+     5h launched, recorded at the launch (decode attention with the
+     cache_len of the forward that read the most keys), at its dtype,
+     against the plain version and timed as in phases 3/3b, with its
+     launches in 5h;
+  6. the kernels line (launches: phases 5 to 5h), the card line, and the
      final JSON line.
 
 TF32 is off for matmuls and cuDNN convs throughout, so f32 is full f32 in
@@ -157,7 +180,7 @@ MAX_TOKENS = 300  # bounds each request's decode so the run stays short
 BURST_WINDOW = 0.25  # s: the coalescing window of the burst's server
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core f32, dense bf16
-N_TIMED = 50
+N_TIMED = 30
 FLUSH_WRITES = 16
 
 
@@ -233,17 +256,17 @@ ATTENTION_CASES = [(1, 1, 512, [0], 14), (1, 1, 512, [127], 14), (1, 2, 512, [12
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
-def check_decode_attention(da, flush, extra_cases=()):
-    """Phase 3: every case of ATTENTION_CASES and `extra_cases` against the
-    plain version, twice (the two calls must be bit-equal), timed. Returns
-    the per-case records."""
+def check_decode_attention(da, flush, cases, dtypes=("bfloat16", "float32")):
+    """Phase 3: every case (B, T, S_max, cache_len, Hq) at each of `dtypes`
+    against the plain version, twice (the two calls must be bit-equal),
+    timed. Returns the per-case records."""
     import torch
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(0)
     records = []
-    for dtype in (torch.bfloat16, torch.float32):
-        for b, t, s_max, lens, hq in ATTENTION_CASES + list(extra_cases):
+    for dtype in (getattr(torch, d) for d in dtypes):
+        for b, t, s_max, lens, hq in cases:
             q = torch.randn(b, t, hq, 64, generator=g, device="cuda").to(dtype)
             k = torch.randn(b, s_max, 2, 64, generator=g, device="cuda").to(dtype)
             v = torch.randn(b, s_max, 2, 64, generator=g, device="cuda").to(dtype)
@@ -300,17 +323,28 @@ MLP_CASES = [(m, 896, 4864) for m in (1, 2, 4, 5, 6, 8, 10, 40)] + \
 # (65), a ragged I (4864 + 8, odd 4863)
 MLP_EDGE_CASES = [(9, 896, 4864), (16, 896, 4864), (65, 896, 4864), (2, 896, 4872),
                   (3, 896, 4863)]
+# the spec verify blocks at K 5 before phase 5h serves them: kernel 1 at
+# T = K = 5 for one request (B 1) and for 4 slots at K 5 (B 4, diverging
+# cache lengths); kernel 2 at M = B x K of the backbone and of head 0 on the
+# block (5: one request; 20: 4 slots; 40: the 8 rows of the largest flash
+# batch, which 5h's 3-row burst does not reach). Phase 5h then records the
+# shape of every launch it makes and holds each one against the plain
+# version (check_served_shapes)
+SPEC_ATTENTION_CASES = [(1, 5, 512, [383], 14), (4, 5, 768, [37, 211, 402, 650], 14)]
+SPEC_MLP_CASES = [(5, 896, 4864), (20, 896, 4864), (40, 896, 4864), (5, 896, 22016),
+                  (20, 896, 22016), (40, 896, 22016)]
 
 
-def check_mlp_gemv(mg, flush):
-    """Phase 3b. Returns the per-case records."""
+def check_mlp_gemv(mg, flush, cases, dtypes=("bfloat16", "float32")):
+    """Phase 3b: every case (M, H, I) at each of `dtypes`, as phase 3.
+    Returns the per-case records."""
     import torch
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(2)
     records = []
-    for dtype in (torch.bfloat16, torch.float32):
-        for m, h, i in MLP_CASES + MLP_EDGE_CASES:
+    for dtype in (getattr(torch, d) for d in dtypes):
+        for m, h, i in cases:
             x = torch.randn(m, h, generator=g, device="cuda").to(dtype)
             gate, up, down = (
                 (torch.randn(shape, generator=g, device="cuda") * 0.05).to(dtype)
@@ -325,8 +359,7 @@ def check_mlp_gemv(mg, flush):
             if not torch.equal(mg.mlp_gemv_cuda(x, gate, up, down), out):
                 fail(f"mlp_gemv {dtype} M{m} H{h} I{i}: two calls differ")
             rec = dict(
-                dtype=str(dtype).replace("torch.", ""), M=m, H=h, I=i,
-                serving=(m, h, i) in MLP_CASES, max_abs_err=err,
+                dtype=str(dtype).replace("torch.", ""), M=m, H=h, I=i, max_abs_err=err,
                 kernel_ms=time_ms(lambda: mg.mlp_gemv_cuda(x, gate, up, down), flush),
                 ref_ms=time_ms(lambda: mg.mlp_gemv_ref(x, gate, up, down), flush),
                 # a yardstick, not one call: no single PyTorch call computes
@@ -488,6 +521,7 @@ class EngineCalls:
                                      tokens=len(res.speech_tokens), steps=res.steps,
                                      row_tokens=[len(res.speech_tokens)],
                                      token_bucket=res.token_bucket, estimated=res.estimated,
+                                     spec_acceptance=res.spec_acceptance,
                                      llm_time=res.llm_time, synth_time=res.synth_time,
                                      total_time=res.total_time))
             return res
@@ -505,6 +539,7 @@ class EngineCalls:
                                      row_tokens=list(stats["tokens"]),
                                      token_bucket=stats["token_bucket"],
                                      estimated=stats["estimated"],
+                                     spec_acceptance=stats["spec_acceptance"],
                                      llm_time=stats["llm_time"], synth_time=stats["synth_time"],
                                      total_time=stats["total_time"]))
             return wavs, stats
@@ -1541,10 +1576,12 @@ def slots_prediction(batcher, before, n_layers):
             n_layers * done["forwards"] + batcher.head_k * done["steps"]), done
 
 
-def held_worker(name, calls, da, mg, cfg, run, routes):
+def held_worker(name, calls, da, mg, cfg, run, routes, predict=None):
     """`run()` against a server's worker: its engine calls must be `routes`
     ((route, rows) pairs) and both kernels' launches the prediction from
-    them. Returns (records, launches, run's result)."""
+    them (`predict`, default `predicted_launches`). Returns (records,
+    launches, run's result)."""
+    predict = predict or predicted_launches
     before = (da.launch_count, mg.launch_count, len(calls.records))
     try:
         out = run()
@@ -1554,9 +1591,8 @@ def held_worker(name, calls, da, mg, cfg, run, routes):
     if [(r["route"], r["rows"]) for r in recs] != routes:
         fail(f"{name}: engine calls {[(r['route'], r['rows']) for r in recs]}, expected {routes}")
     launched = (da.launch_count - before[0], mg.launch_count - before[1])
-    if launched != predicted_launches(recs, cfg) or 0 in launched:
-        fail(f"{name}: (attention, mlp) launches {launched}, predicted "
-             f"{predicted_launches(recs, cfg)}")
+    if launched != predict(recs, cfg) or 0 in launched:
+        fail(f"{name}: (attention, mlp) launches {launched}, predicted {predict(recs, cfg)}")
     return recs, launched, out
 
 
@@ -1885,7 +1921,349 @@ def drive_solo_rule(engine, frontend, da, mg):
         stop_servers(servers)
 
 
+# phase 5h: self-speculative MTP decoding (--spec-decode) on every route
+SPEC_GREEDY_TEXT = "The greedy check decodes one hundred tokens with and without drafts."
+GREEDY_TOKENS = 100  # min_len = max_len: every position ignores the stop ids
+GREEDY_TIE = 1e-4  # a spec token may differ only where heads=1's top two logits tie
+SPEC_SOLO = {"heads2": ("Speculative heads draft the tokens that the first head checks.", 2),
+             "heads5": ("With five heads, four drafts wait for every verify block.", 5)}
+SPEC_SEED = 5151
+# the slots draft four tokens a step: 4 slots at K 5 verify blocks of
+# B 4 x T 5, and head 0 and the backbone's MLP run at M 20
+SPEC_SLOT_HEADS = 5
+
+
+def predicted_spec_launches(recs, cfg):
+    """(attention, MLP) launches of speculative decodes (engine calls or lane
+    sessions, each with its heads and steps): the prefill and one verify
+    block a step, each an attention launch per layer; per step the verify
+    block's MLP launch per layer, one per draft head (K - 1) and one for
+    head 0 on the block; and head 0 once for the first token."""
+    n_layers = cfg.backbone.num_layers
+    attention = mlp = 0
+    for r in recs:
+        k = max(2, min(int(r["heads"]), cfg.head_num))
+        attention += n_layers * (1 + r["steps"])
+        mlp += n_layers * r["steps"] + k * r["steps"] + 1
+    return attention, mlp
+
+
+def spec_slots_prediction(batcher, before, n_layers):
+    """`slots_prediction` for the slots of either kind: a spec slot's admission
+    adds head 0's first token (one MLP launch), and each of its steps runs
+    K heads (K - 1 drafts and head 0 on the block)."""
+    (attention, mlp), done = slots_prediction(batcher, before, n_layers)
+    return (attention, mlp + (done["admits"] if batcher.spec else 0)), done
+
+
+class ServedShapes:
+    """While active, records the shape of every launch of both kernels: the
+    wrappers that the dispatchers call are swapped for ones that record and
+    then call them (the launch counts stay the wrappers'). Decode attention
+    by (dtype, B, T, S_max, Hq), with a copy of the cache_len of each
+    forward (its layers share the tensor); the MLP by (dtype, M, H, I); each
+    with its launches. On exit each attention shape keeps the cache_len of
+    the forward that read the most keys."""
+
+    def __init__(self, da, mg):
+        from flowmirror_hydravox_tpu_torch.ops import attention
+
+        self._sites = ((attention, "decode_attention_cuda"), (mg, "mlp_gemv_cuda"))
+        self.attention, self.mlp = {}, {}
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        (att_mod, att_name), (mlp_mod, mlp_name) = self._sites
+        self._inner = inner_att, inner_mlp = getattr(att_mod, att_name), getattr(mlp_mod, mlp_name)
+
+        def attention(q, k_cache, v_cache, cache_len):
+            key = (str(q.dtype).replace("torch.", ""), q.shape[0], q.shape[1], k_cache.shape[1],
+                   q.shape[2])
+            with self._lock:
+                rec = self.attention.setdefault(key, {"launches": 0, "lens": [], "last": None})
+                rec["launches"] += 1
+                if rec["last"] is not cache_len:
+                    rec["last"] = cache_len
+                    rec["lens"].append(cache_len.clone())
+            return inner_att(q, k_cache, v_cache, cache_len)
+
+        def mlp(x, gate, up, down):
+            key = (str(x.dtype).replace("torch.", ""), x.shape[0], x.shape[1], gate.shape[1])
+            with self._lock:
+                self.mlp[key] = self.mlp.get(key, 0) + 1
+            return inner_mlp(x, gate, up, down)
+
+        setattr(att_mod, att_name, attention)
+        setattr(mlp_mod, mlp_name, mlp)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), inner in zip(self._sites, self._inner):
+            setattr(mod, name, inner)
+        for rec in self.attention.values():
+            rec["cache_len"] = max((t.tolist() for t in rec.pop("lens")), key=sum)
+            del rec["last"]
+
+
+def check_served_shapes(served, da, mg, flush, counted):
+    """5h.3: every kernel shape that phase 5h launched (`ServedShapes`), at
+    the dtype it served, against the plain version and timed, in the
+    harness of phases 3 and 3b; decode attention at the cache_len of the
+    forward that read the most keys. The recorded launches must cover the
+    ones the phase counted (`counted`; its warm-ups add more). Returns
+    {"attention": records, "mlp": records}, each record with its launches
+    in 5h."""
+    recorded = (sum(r["launches"] for r in served.attention.values()),
+                sum(served.mlp.values()))
+    if not (recorded[0] >= counted[0] > 0 and recorded[1] >= counted[1] > 0):
+        fail(f"5h: recorded launches {recorded}, counted {counted}")
+    out = {"attention": [], "mlp": []}
+    for (dtype, b, t, s_max, hq), rec in sorted(served.attention.items()):
+        (r,) = check_decode_attention(da, flush, [(b, t, s_max, rec["cache_len"], hq)], (dtype,))
+        out["attention"].append(dict(r, launches_5h=rec["launches"]))
+    for (dtype, m, h, i), launches in sorted(served.mlp.items()):
+        (r,) = check_mlp_gemv(mg, flush, [(m, h, i)], (dtype,))
+        out["mlp"].append(dict(r, launches_5h=launches))
+    for name, recs in out.items():
+        for r in recs:
+            print(f"5h served shape {name}", json.dumps(r), flush=True)
+    return out
+
+
+def tree_to(tree, dtype):
+    return {k: tree_to(v, dtype) if isinstance(v, dict) else v.to(dtype) for k, v in tree.items()}
+
+
+def check_spec_greedy(engine, frontend, da, mg):
+    """5h.1: f32 greedy decoding (top_k 1, tau_r 2 > 1, so the repetition
+    fallback never fires) of GREEDY_TOKENS tokens on the card: llm.generate at
+    heads 1, then llm.generate_speculative at heads 2 and 5 on other draws.
+    The spec tokens must equal heads 1's; a difference passes only where
+    heads 1's two top logits (stop ids masked: every position ignores them)
+    lie within GREEDY_TIE. Launches held. Returns (records, launches)."""
+    import torch
+
+    from flowmirror_hydravox_tpu_torch.models import llm as llm_model
+    from flowmirror_hydravox_tpu_torch.noise import TorchNoise
+    from flowmirror_hydravox_tpu_torch.ops.sampling import SamplingParams
+
+    cfg = engine.cfg.llm
+    params = tree_to(engine.llm_params, torch.float32)
+    text = np.asarray(frontend.extract_text_tokens(SPEC_GREEDY_TEXT), np.int32)
+    emb, plen = llm_model.build_inference_prompt(
+        params, cfg, engine._tensor(text, torch.int32), len(text),
+        torch.zeros(0, dtype=torch.int32, device=engine.device), 0)
+    greedy = SamplingParams.make(top_p=0.5, top_k=1, win_size=10, tau_r=2.0)
+    n, sts = GREEDY_TOKENS, cfg.speech_token_size
+    tops, mtp_logits = [], llm_model.mtp_logits
+
+    def recording(*args, **kwargs):
+        out = mtp_logits(*args, **kwargs)
+        tops.append(torch.topk(out[0, :sts], 2).values)
+        return out
+
+    def run(heads, seed):
+        noise = TorchNoise(torch.Generator(engine.device).manual_seed(seed))
+        before = (da.launch_count, mg.launch_count)
+        t0 = time.time()
+        if heads == 1:
+            res = llm_model.generate(params, cfg, emb, plen, n, n, greedy, noise,
+                                     inference_head_num=1, max_tokens=n)
+            rec = dict(heads=1, steps=res.steps)
+            predict = predicted_launches([rec], cfg)
+        else:
+            spec = llm_model.generate_speculative(params, cfg, emb, plen, n, n, greedy, noise,
+                                                  num_heads=heads, max_tokens=n)
+            res = spec.result
+            rec = dict(heads=heads, steps=res.steps, accepted=spec.accepted,
+                       drafted=spec.drafted, spec_acceptance=spec.accepted / max(spec.drafted, 1))
+            predict = predicted_spec_launches([rec], cfg)
+        tokens = res.tokens[:res.num_tokens].tolist()
+        rec.update(tokens=len(tokens), wall_s=time.time() - t0)
+        launched = (da.launch_count - before[0], mg.launch_count - before[1])
+        if launched != predict or 0 in launched:
+            fail(f"greedy heads {heads}: (attention, mlp) launches {launched}, "
+                 f"predicted {predict}")
+        rec.update(attention_launches=launched[0], mlp_launches=launched[1])
+        return tokens, rec
+
+    llm_model.mtp_logits = recording
+    try:
+        base, base_rec = run(1, 1)
+    finally:
+        llm_model.mtp_logits = mtp_logits
+    margins = [float(a - b) for a, b in torch.stack(tops).tolist()]
+    records = [base_rec]
+    if len(base) != n:
+        fail(f"greedy heads 1 decoded {len(base)} tokens, not {n}")
+    for heads in (2, 5):
+        tokens, rec = run(heads, heads)
+        diff = next((i for i, (a, b) in enumerate(zip(tokens, base)) if a != b), None)
+        rec.update(first_difference=diff, margin=None if diff is None else margins[diff])
+        if len(tokens) != n or (diff is not None and not margins[diff] <= GREEDY_TIE):
+            fail(f"greedy spec heads {heads}: {len(tokens)} tokens, first difference at "
+                 f"{diff}, heads 1's top-two margin there {rec['margin']} > {GREEDY_TIE}")
+        records.append(rec)
+    for rec in records:
+        print("spec greedy f32", json.dumps(rec), flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return records, (sum(r["attention_launches"] for r in records),
+                     sum(r["mlp_launches"] for r in records))
+
+
+def drive_spec(engine, frontend, da, mg):
+    """Phase 5h: 5h.1 (check_spec_greedy), then, bf16, each route through a
+    server on an engine built with the launcher's --spec-decode and, beside
+    it, the same seeded requests through a server on the main engine: the
+    solo route at heads 2 and 5, a burst of three served as one flash
+    batch, a stream on the lane, and three /api/v1/tts senders with a
+    stream among them on 4 slots, 1 reserved. Each WAV checked as in phase
+    5; every part's launches held. Printed per route and mode: acceptance,
+    tokens per block forward, ms per decode step, RTF; the streams' TTFT and
+    underruns. Returns (results, launches)."""
+    from flowmirror_hydravox_tpu_torch import __main__ as launcher
+    from flowmirror_hydravox_tpu_torch.runtime.engine import Engine
+
+    cfg = engine.cfg.llm
+    n_layers = cfg.backbone.num_layers
+    args = launcher.parse_args(["--device", "cuda", "--max-tokens", str(MAX_TOKENS),
+                                "--spec-decode"])
+    # the launcher's engine on the main weights, shared rather than drawn again
+    spec_engine = Engine(engine.cfg, engine.llm_params, engine.flow_params, engine.hift_params,
+                         max_tokens=args.max_tokens, device=engine.device,
+                         spec_decode=args.spec_decode)
+    greedy, launched = check_spec_greedy(engine, frontend, da, mg)
+    total = list(launched)
+    kinds = dict(window={}, burst={"batch_window": BURST_WINDOW},
+                 slots={"continuous_slots": SLOTS, "continuous_head_num": SPEC_SLOT_HEADS,
+                        "continuous_reserve_stream": 1})
+    servers = {mode: start_servers(eng, frontend, **kinds)
+               for mode, eng in (("spec", spec_engine), ("plain", engine))}
+    results = dict(greedy_f32=greedy, routes=[])
+
+    def add(rec, launched):
+        total[0] += launched[0]
+        total[1] += launched[1]
+        rec.update(attention_launches=launched[0], mlp_launches=launched[1])
+        print("spec route", json.dumps(rec), flush=True)
+        results["routes"].append(rec)
+
+    def engine_figures(recs, audio_s, spec):
+        tokens, steps = sum(r["tokens"] for r in recs), sum(r["steps"] for r in recs)
+        forwards = steps if spec else sum(max(r["steps"] - 1, 0) for r in recs)
+        return dict(tokens=tokens, steps=steps, tokens_per_forward=tokens / max(forwards, 1),
+                    ms_per_step=1e3 * sum(r["llm_time"] for r in recs) / max(steps, 1),
+                    rtf=sum(r["total_time"] for r in recs) / audio_s,
+                    spec_acceptance=[r["spec_acceptance"] for r in recs])
+
+    try:
+        for mode, eng in (("spec", spec_engine), ("plain", engine)):
+            spec = mode == "spec"
+            srv = servers[mode]
+            window_url, burst_url, slots_url = (srv[k][2] for k in ("window", "burst", "slots"))
+            predict = predicted_spec_launches if spec else predicted_launches
+            with EngineCalls(eng) as calls:
+                tts(window_url, "Warm up the verify blocks.", 2, seed=1)
+                del calls.records[:]
+                # the solo route at heads 2 and 5
+                for name, (text, heads) in SPEC_SOLO.items():
+                    recs, launched, (samples, _) = held_worker(
+                        f"5h {mode} {name}", calls, da, mg, cfg,
+                        lambda: tts(window_url, text, heads, seed=SPEC_SEED), [("synthesize", 1)],
+                        predict)
+                    add(dict(mode=mode, route="solo", name=name, heads=heads,
+                             **engine_figures(recs, samples / SAMPLE_RATE, spec)), launched)
+
+                # a burst of three, one coalesced flash batch
+                burst_service = srv["burst"][0].RequestHandlerClass.service
+                batched = burst_service.batched_requests
+
+                def burst():
+                    threads, out, errors = start_threads([
+                        lambda i=i: tts(burst_url, BURST[i], 2, seed=SPEC_SEED + 1 + i)
+                        for i in range(len(BURST))])
+                    join_threads(threads, errors, f"5h {mode} burst")
+                    return out
+
+                recs, launched, out = held_worker(f"5h {mode} flash batch", calls, da, mg, cfg,
+                                                  burst, [("synthesize_batch", len(BURST))],
+                                                  predict)
+                if burst_service.batched_requests - batched != len(BURST):
+                    fail(f"5h {mode}: the burst was not one coalesced group")
+                add(dict(mode=mode, route="flash_batch", rows=len(BURST),
+                         **engine_figures(recs, sum(n for n, _ in out) / SAMPLE_RATE, spec)),
+                    launched)
+
+            # a stream on the lane, then the slots with a stream among them
+            slot_service = srv["slots"][0].RequestHandlerClass.service
+            batcher = slot_service.batcher
+            if batcher.spec != spec:
+                fail(f"5h {mode}: the slots' spec_decode is {batcher.spec}")
+            with StreamWatch(eng, [srv["window"][0].RequestHandlerClass.service,
+                                   slot_service]) as watch:
+                before = (da.launch_count, mg.launch_count)
+                t0 = time.time()
+                pcm = tts_stream(window_url, STREAM_TEXT, SPEC_SEED + 10)
+                wall = time.time() - t0
+                (session,) = watch.sessions
+                sess = [dict(heads=2, steps=session["steps"])]
+                prediction = (predicted_spec_launches(sess, cfg) if spec
+                              else lane_launches(watch.sessions, 2, n_layers))
+                launched = (da.launch_count - before[0], mg.launch_count - before[1])
+                if launched != prediction or 0 in launched:
+                    fail(f"5h {mode} lane stream: launches {launched}, predicted {prediction}")
+                steps = session["steps"]
+                forwards = steps if spec else steps - 1
+                add(dict(mode=mode, route="stream_lane", tokens=len(session["tokens"]),
+                         steps=steps, tokens_per_forward=len(session["tokens"]) / max(forwards, 1),
+                         ms_per_step=1e3 * session["decode_s"] / max(steps, 1),
+                         spec_acceptance=session.get("spec_acceptance", -1.0),
+                         rtf=wall / (pcm.size / SAMPLE_RATE), **stream_timing(watch.streams[0])),
+                    launched)
+
+                tts(slots_url, "Warm up the decode slots.", SPEC_SLOT_HEADS, seed=2)
+                watch.clear()
+                before, counts = dict(batcher.stats), (da.launch_count, mg.launch_count)
+                served = slot_service.continuous_requests
+                t0 = time.time()
+                calls_ = [lambda i=i: tts(slots_url, STAGGER[i], SPEC_SLOT_HEADS,
+                                          seed=SPEC_SEED + 20 + i) for i in range(3)]
+                calls_.insert(1, lambda: tts_stream(slots_url, STREAM_TEXT, SPEC_SEED + 10,
+                                                    heads=SPEC_SLOT_HEADS))
+                threads, out, errors = start_threads(calls_)
+                join_threads(threads, errors, f"5h {mode} slots")
+                wall = time.time() - t0
+                launched = (da.launch_count - counts[0], mg.launch_count - counts[1])
+                prediction, done = spec_slots_prediction(batcher, before, n_layers)
+                if launched != prediction or 0 in launched:
+                    fail(f"5h {mode} slots: launches {launched}, predicted {prediction} from "
+                         f"{done}")
+                if (slot_service.continuous_requests - served != 4 or watch.sessions
+                        or len(watch.slot_requests) != 4):
+                    fail(f"5h {mode} slots: continuous_requests "
+                         f"+{slot_service.continuous_requests - served}, lane "
+                         f"{len(watch.sessions)}, {len(watch.slot_requests)} slot requests")
+                reqs = watch.slot_requests
+                (stream_rec,) = watch.streams
+                audio_s = (sum(o[0] for i, o in enumerate(out) if i != 1)
+                           + out[1].size) / SAMPLE_RATE
+                add(dict(mode=mode, route="slots", requests=4,
+                         tokens=sum(len(r.stats["tokens"]) for r in reqs), steps=done["steps"],
+                         tokens_per_forward=sum(len(r.stats["tokens"]) for r in reqs)
+                         / max(done["forwards"], 1),
+                         ms_per_step=1e3 * done["decode_s"] / max(done["steps"], 1),
+                         rtf=wall / audio_s,
+                         spec_acceptance=[r.stats.get("spec_acceptance", -1.0) for r in reqs],
+                         stream=stream_timing(stream_rec), batcher_stats=done), launched)
+    finally:
+        for srv in servers.values():
+            stop_servers(srv)
+    return results, tuple(total)
+
+
 def main():
+    t_start = time.time()
     if not (ROOT / "flowmirror_hydravox_tpu_torch" / "csrc").is_dir():
         fail("the port package is not beside this script; run it from a checkout")
     import torch
@@ -1947,8 +2325,11 @@ def main():
     print("batched zero-shot shapes (B, T, S_max, cache_len, Hq):", json.dumps(batch_cases),
           flush=True)
     attention_cases = check_decode_attention(
-        da, flush, list(prefill_cases.values()) + list(batch_cases.values()))
-    mlp_cases = check_mlp_gemv(mg, flush)
+        da, flush, ATTENTION_CASES + list(prefill_cases.values()) + list(batch_cases.values())
+        + [c for c in SPEC_ATTENTION_CASES if c not in ATTENTION_CASES])
+    mlp_cases = check_mlp_gemv(
+        mg, flush, MLP_CASES + [c for c in SPEC_MLP_CASES if c not in MLP_CASES]
+        + MLP_EDGE_CASES)
 
     t0 = time.time()
     engine, frontend = launcher.build(launcher.parse_args(
@@ -1959,17 +2340,34 @@ def main():
           f"built in {time.time() - t0:.1f} s", flush=True)
     backbone_rel = check_backbone(engine)
 
-    requests, launches = drive_main_path(engine, frontend, da, mg)
-    serving, more = drive_continuous(engine, frontend, da, mg)
-    streaming, streamed = drive_streams(engine, frontend, da, mg)
-    zero_shot, zs_launched = drive_zero_shot(engine, frontend, da, mg, prefill_cases)
-    pt_weights, pt_launched = drive_pt_weights(engine, da, mg)
-    zs_batched, zsb_launched = drive_zero_shot_batched(engine, frontend, da, mg, batch_cases)
-    solo_rule, solo_launched = drive_solo_rule(engine, frontend, da, mg)
+    phase_s = {"1-4": time.time() - t_start}
+
+    def phase(name, drive, *args):
+        t0 = time.time()
+        out = drive(*args)
+        phase_s[name] = time.time() - t0
+        return out
+
+    requests, launches = phase("5", drive_main_path, engine, frontend, da, mg)
+    serving, more = phase("5b", drive_continuous, engine, frontend, da, mg)
+    streaming, streamed = phase("5c", drive_streams, engine, frontend, da, mg)
+    zero_shot, zs_launched = phase("5d", drive_zero_shot, engine, frontend, da, mg, prefill_cases)
+    pt_weights, pt_launched = phase("5e", drive_pt_weights, engine, da, mg)
+    zs_batched, zsb_launched = phase("5f", drive_zero_shot_batched, engine, frontend, da, mg,
+                                     batch_cases)
+    solo_rule, solo_launched = phase("5g", drive_solo_rule, engine, frontend, da, mg)
     solo_rule = {"estimate_holds": solo_rule,
                  "estimate_falls_back": pt_weights.pop("solo_fallback")}
+    with ServedShapes(da, mg) as served:
+        spec, spec_launched = phase("5h", drive_spec, engine, frontend, da, mg)
+    t0 = time.time()
+    spec["kernels"] = check_served_shapes(served, da, mg, flush, spec_launched)
+    phase_s["5h kernels"] = time.time() - t0
+    phase_s["all"] = time.time() - t_start
+    print("phase seconds", json.dumps({k: round(v, 1) for k, v in phase_s.items()}), flush=True)
     attention_launches, mlp_launches = (sum(x) for x in zip(
-        launches, more, streamed, zs_launched, pt_launched, zsb_launched, solo_launched))
+        launches, more, streamed, zs_launched, pt_launched, zsb_launched, solo_launched,
+        spec_launched))
     del flush
 
     # the kernels line: each kernel at its serving shape (bf16; decode
@@ -2014,6 +2412,7 @@ def main():
          "mlp_cases": mlp_cases, "backbone_rel_err": backbone_rel, "requests": requests,
          "serving": serving, "streaming": streaming, "zero_shot": zero_shot,
          "pt_weights": pt_weights, "zero_shot_batched": zs_batched, "solo_route": solo_rule,
+         "spec_decode": spec, "phase_s": phase_s,
          **kernels},
         indent=1))
     print(json.dumps(kernels), flush=True)

@@ -4,7 +4,7 @@ subset).
   python -m flowmirror_hydravox_tpu_torch --api-port 8080 \
       [--tiny] [--model-dir DIR] [--max-tokens N] [--device cuda|cpu] \
       [--spk2info FILE] [--continuous-batching SLOTS] [--continuous-heads K] \
-      [--continuous-reserve N]
+      [--continuous-reserve N] [--spec-decode]
 
 --model-dir holds each model as `{name}.npz` in the JAX package's flat npz
 format or as the reference's `{name}.pt` (llm.pt / flow.pt / hift.pt,
@@ -40,6 +40,11 @@ Batching, as the JAX launcher's flags set it (:66-76):
     decodes as one flash batch, and concurrent batchable requests are
     coalesced by the server's 0.03 s window into one flash batch of up to 8
     requests (runtime/server.py); every stream takes the stream lane.
+
+`--spec-decode` (JAX :80-85): every decode at two heads or more, on every
+route (one utterance, the flash batch, the stream lane, the continuous
+slots), drafts with MTP heads 1..K-1 and verifies against head 0, the exact
+heads=1 output distribution; with slots it needs `--continuous-heads` >= 2.
 """
 
 from __future__ import annotations
@@ -80,6 +85,9 @@ def parse_args(argv=None):
                    help="inference_head_num served by the continuous slots")
     p.add_argument("--continuous-reserve", type=int, default=1,
                    help="continuous slots reserved for streams (0 = none)")
+    p.add_argument("--spec-decode", action="store_true",
+                   help="self-speculative MTP decoding: heads 1..K-1 draft, head 0 verifies "
+                        "(the exact heads=1 output distribution)")
     return p.parse_args(argv)
 
 
@@ -137,7 +145,7 @@ def build(args):
     tokenizer = get_tokenizer(args.tokenizer_path)
     cfg, trees = load_models(args.tiny, args.model_dir, tokenizer, device)
     engine = Engine(cfg, trees["llm"], trees["flow"], trees["hift"],
-                    max_tokens=args.max_tokens, device=device)
+                    max_tokens=args.max_tokens, device=device, spec_decode=args.spec_decode)
     frontend = Frontend(cfg, tokenizer=tokenizer, device=device)
     if args.spk2info:
         load_registry(frontend, args.spk2info)

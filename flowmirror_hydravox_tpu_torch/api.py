@@ -13,9 +13,10 @@ Weights load as the launcher loads them (`{name}.npz`, else the reference's
 `inference_*` call go to `Engine.synthesize` (or, streamed, to
 `StreamingSynthesizer.synthesize_stream`), `noise=` among them.
 
-Not yet: int8 weights (`quantize=`) and speculative decoding
-(`spec_decode=`) raise NotImplementedError until ROADMAP queue item 5 ports
-them; `prewarm` has no eager counterpart.
+`spec_decode=True` decodes at two heads or more by self-speculative MTP
+verification (JAX :46-48, :95). Not yet: int8 weights (`quantize=`) raise
+NotImplementedError until ROADMAP queue item 4 ports them; `prewarm` has
+no eager counterpart.
 """
 
 from __future__ import annotations
@@ -41,8 +42,10 @@ class HydraVox:
     Args:
       model_dir: llm / flow / hift as .npz or .pt; a missing model is random.
       tiny: the tiny smoke config instead of the full sizes.
-      quantize, spec_decode: not ported yet (ROADMAP queue item 5); anything
-        but None / "bf16" / False raises NotImplementedError.
+      quantize: not ported yet (ROADMAP queue item 4, int8 weights); anything
+        but None / "bf16" raises NotImplementedError.
+      spec_decode: self-speculative MTP verification for every decode at
+        two heads or more (heads 1..K-1 draft, head 0 verifies).
       tokenizer_path: an explicit tokenizer asset.
       spk2info: a speaker registry to preload (.npz or the reference's .pt).
       max_tokens: the decode's token cap.
@@ -55,11 +58,8 @@ class HydraVox:
                  spk2info: Optional[str] = None, max_tokens: int = 1024,
                  dtype=torch.bfloat16, spec_decode: bool = False, device="cuda"):
         if quantize not in (None, "", "none", "bf16"):
-            raise NotImplementedError(
-                f"quantize={quantize!r}: int8 serving is not ported yet (ROADMAP queue item 5)")
-        if spec_decode:
-            raise NotImplementedError(
-                "spec_decode: speculative decoding is not ported yet (ROADMAP queue item 5)")
+            raise NotImplementedError(f"quantize={quantize!r}: int8 serving is not ported yet "
+                                      f"(ROADMAP queue item 4, int8 weights)")
         from .__main__ import load_models, load_registry
 
         device = resolve_device(device)
@@ -67,7 +67,7 @@ class HydraVox:
         cfg, trees = load_models(tiny, model_dir, tokenizer, device, dtype)
         self.cfg = cfg
         self.engine = Engine(cfg, trees["llm"], trees["flow"], trees["hift"],
-                             max_tokens=max_tokens, device=device)
+                             max_tokens=max_tokens, device=device, spec_decode=spec_decode)
         self.frontend = Frontend(cfg, tokenizer=tokenizer, device=device)
         if spk2info:
             load_registry(self.frontend, spk2info)

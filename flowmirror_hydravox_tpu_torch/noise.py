@@ -8,14 +8,24 @@ hands them out in the order the JAX package draws it:
   - `sampling_batch(b, k, vocab)`: one flash-batch step's, (nucleus
     (b, k, KMAX), flat (b, k, vocab)) f32, per batch row and head;
   - `vocoder(b, t, nh)`: the NSF source's (rand_ini (b, nh) uniform [0, 1),
-    noise (b, t, nh) standard normal) f32.
+    noise (b, t, nh) standard normal) f32;
+  - speculative decoding (models/llm.py): `spec_first(vocab)`, the first
+    token's Gumbel (vocab,) (llm.py:541-547), and `spec_step(kd, vocab)`,
+    one step's (draft Gumbels (kd, vocab), accept uniforms (kd,), residual
+    Gumbel (vocab,), bonus Gumbel (vocab,)) (llm.py:659, :574, :592, :603,
+    :608); `spec_first_batch(b, vocab)` and `spec_step_batch(b, kd, vocab)`
+    the same with a leading axis of b flash-batch rows.
 
 `TorchNoise` draws from a `torch.Generator` on the device, for serving. Tests
 use a source that replays the JAX key chain instead, so that both packages see
 the same numbers. `RowNoise` gives each row of a flash batch a source of its
 own, so that a row draws what the same source would give it on a continuous
-slot. `StreamNoise` is a stream's pair of sources: its decode draws continue,
-and its vocoder draws restart from one seed on every chunk (`SeededVocoder`).
+slot (or alone): its draws therefore differ from the JAX flash batch's,
+which splits each step's key again into B row keys (llm.py:463-465 and, for
+speculative decoding, :757-764, :785, :795, :812-814). The parity tests
+replay that split for a flash batch fed one source, not a `RowNoise`.
+`StreamNoise` is a stream's pair of sources: its decode draws continue, and
+its vocoder draws restart from one seed on every chunk (`SeededVocoder`).
 """
 
 from __future__ import annotations
@@ -42,6 +52,22 @@ class TorchNoise:
     def sampling_batch(self, b: int, k: int, vocab: int):
         return self._gumbel((b, k, nucleus_kmax(vocab))), self._gumbel((b, k, vocab))
 
+    def spec_first(self, vocab: int):
+        return self._gumbel((vocab,))
+
+    def spec_step(self, kd: int, vocab: int):
+        return (self._gumbel((kd, vocab)),
+                torch.rand((kd,), generator=self.generator, device=self.device),
+                self._gumbel((vocab,)), self._gumbel((vocab,)))
+
+    def spec_first_batch(self, b: int, vocab: int):
+        return self._gumbel((b, vocab))
+
+    def spec_step_batch(self, b: int, kd: int, vocab: int):
+        return (self._gumbel((b, kd, vocab)),
+                torch.rand((b, kd), generator=self.generator, device=self.device),
+                self._gumbel((b, vocab)), self._gumbel((b, vocab)))
+
     def vocoder(self, b: int, t: int, nh: int):
         rand_ini = torch.rand((b, nh), generator=self.generator, device=self.device)
         noise = torch.randn((b, t, nh), generator=self.generator, device=self.device)
@@ -64,6 +90,13 @@ class RowNoise:
         nuc, flat = zip(*(s.sampling(k, vocab) for s in self._rows(b)))
         return torch.stack(nuc), torch.stack(flat)
 
+    def spec_first_batch(self, b: int, vocab: int):
+        return torch.stack([s.spec_first(vocab) for s in self._rows(b)])
+
+    def spec_step_batch(self, b: int, kd: int, vocab: int):
+        return tuple(torch.stack(d) for d in zip(*(s.spec_step(kd, vocab)
+                                                    for s in self._rows(b))))
+
     def vocoder(self, b: int, t: int, nh: int):
         rand_ini, noise = zip(*(s.vocoder(1, t, nh) for s in self._rows(b)))
         return torch.cat(rand_ini), torch.cat(noise)
@@ -85,9 +118,10 @@ class SeededVocoder:
 
 class StreamNoise:
     """A stream's two sources, as the JAX streamer splits its key once into a
-    decode key and a vocoder key (streaming.py:316): `sampling` continues
-    `decode`, and `vocoder` comes from `vocoder_source`, which must redraw
-    from one key on every call (`SeededVocoder`, or a replayed JAX key)."""
+    decode key and a vocoder key (streaming.py:316): `sampling` and the spec
+    draws continue `decode`, and `vocoder` comes from `vocoder_source`,
+    which must redraw from one key on every call (`SeededVocoder`, or a
+    replayed JAX key)."""
 
     def __init__(self, decode, vocoder_source):
         self.decode = decode
@@ -95,6 +129,12 @@ class StreamNoise:
 
     def sampling(self, k: int, vocab: int):
         return self.decode.sampling(k, vocab)
+
+    def spec_first(self, vocab: int):
+        return self.decode.spec_first(vocab)
+
+    def spec_step(self, kd: int, vocab: int):
+        return self.decode.spec_step(kd, vocab)
 
     def vocoder(self, b: int, t: int, nh: int):
         return self.vocoder_source.vocoder(b, t, nh)

@@ -102,11 +102,23 @@ def ras_dist(logits, token_history, num_decoded: int, params: SamplingParams,
              ignore_eos: bool, speech_token_size: int):
     """Exact marginal distribution of `ras_sample` as a (V,) vector:
     P(x) = P_nuc(x) [not repeated(x)] + (sum_c P_nuc(c) repeated(c)) P_flat(x)."""
-    v = logits.shape[0]
+    return ras_dist_rows(logits, token_history, torch.as_tensor(num_decoded), params,
+                         torch.as_tensor(ignore_eos), speech_token_size)
+
+
+def ras_dist_rows(logits, token_history, num_decoded, params: SamplingParams, ignore_eos,
+                  speech_token_size: int):
+    """`ras_dist` for rows at once, one per draft or verify position, each
+    with its own `num_decoded` and `ignore_eos`: the JAX vmaps over positions
+    (llm.py:571-574, :589-591) and over batch rows, written out as leading
+    axes. logits (..., V); token_history (..., L), broadcasting against the
+    logits' leading axes; num_decoded and ignore_eos tensors of (or
+    broadcasting to) the leading shape. Returns (..., V) f32."""
+    v = logits.shape[-1]
     dev = logits.device
     is_stop = torch.arange(v, device=dev) >= speech_token_size
-    masked = torch.where(torch.as_tensor(ignore_eos, device=dev) & is_stop, -torch.inf,
-                         logits.to(torch.float32))
+    ignore = torch.as_tensor(ignore_eos, device=dev)[..., None]
+    masked = torch.where(ignore & is_stop, -torch.inf, logits.to(torch.float32))
     probs = torch.softmax(masked, dim=-1)
 
     kmax = nucleus_kmax(v)
@@ -114,19 +126,23 @@ def ras_dist(logits, token_history, num_decoded: int, params: SamplingParams,
     excl_cum = torch.cumsum(top_vals, dim=-1) - top_vals
     keep = (excl_cum < params.top_p) & (torch.arange(kmax, device=dev) < min(params.top_k, kmax))
     kept = torch.where(keep, top_vals, 0.0)
-    p_nuc_top = kept / torch.clamp_min(torch.sum(kept), 1e-30)
-    p_nuc = torch.zeros(v, dtype=torch.float32, device=dev).index_add_(0, top_idx, p_nuc_top)
+    p_nuc_top = kept / torch.clamp_min(torch.sum(kept, dim=-1, keepdim=True), 1e-30)
+    p_nuc = torch.zeros_like(probs).scatter_add_(-1, top_idx, p_nuc_top)
 
-    in_window = _in_window(token_history, num_decoded, params.win_size)
-    counts = torch.zeros(v, dtype=torch.float32, device=dev).index_add_(
-        0, torch.clamp(token_history, 0, v - 1).long(), in_window.to(torch.float32))
+    lead = probs.shape[:-1]
+    hist = token_history.to(dev).expand(*lead, token_history.shape[-1])
+    num = torch.as_tensor(num_decoded, device=dev).expand(lead)[..., None]
+    in_window = _in_window(hist, num, params.win_size)
+    counts = torch.zeros_like(probs).scatter_add_(
+        -1, torch.clamp(hist, 0, v - 1).long(), in_window.to(torch.float32))
     repeated = counts >= params.repeat_threshold
-    fallback_mass = torch.sum(torch.where(repeated, p_nuc, 0.0))
+    fallback_mass = torch.sum(torch.where(repeated, p_nuc, 0.0), dim=-1, keepdim=True)
     return torch.where(repeated, 0.0, p_nuc) + fallback_mass * probs
 
 
 def sample_dist(dist, gumbel):
-    """Categorical draw from an explicit probability vector (..., V)."""
+    """Categorical draw from explicit probability vectors (..., V), one
+    Gumbel row each. Returns (...,) int64."""
     return _gumbel_argmax(torch.log(torch.clamp_min(dist, 1e-30)), gumbel)
 
 

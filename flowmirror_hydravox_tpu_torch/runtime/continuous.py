@@ -1,6 +1,6 @@
-"""Continuous (in-flight) batching for the multi-head LM decode: the
-non-speculative subset of flowmirror_hydravox_tpu/runtime/continuous.py,
-whole utterances and streams.
+"""Continuous (in-flight) batching for the multi-head LM decode: a port of
+flowmirror_hydravox_tpu/runtime/continuous.py, whole utterances and streams,
+blind multi-head slots and speculative ones.
 
 A fixed set of decode slots shares one KV cache of (L, slots, cache_cap,
 Hkv, D). New requests are admitted into free slots between chunks: they join
@@ -57,8 +57,18 @@ feeds the request's HiFT draw. That is the JAX per-slot key chain (:364-366,
 :1374, :837-841), so a request whose source replays a JAX key decodes the
 tokens of `llm.generate` with that key.
 
-Not ported: the spec-decode slots (:319-348, :675-) and `prewarm` (:889-,
-which pays XLA compiles; the port runs eagerly).
+`spec_decode=True` (:25-30, :263-271, :319-348, :675-770) makes the slots
+draft with MTP heads 1..K-1 and verify against head 0, the exact heads=1
+output distribution: the admission draws the request's first token from
+head 0 (`noise.spec_first`), each chunk step is `llm.spec_step_batched`
+over all slots on each active slot's `noise.spec_step` draws, and slots
+commit 1..K tokens a step and drift apart. A slot's draws follow the solo
+spec loop's, so a request decodes the tokens of `llm.generate_speculative`
+on the same source. Streams take the plain admission there, without a
+burst (:1035). Each finished request's stats carry its `spec_acceptance`.
+
+Not ported: `prewarm` (:889-, which pays XLA compiles; the port runs
+eagerly).
 """
 
 from __future__ import annotations
@@ -98,7 +108,9 @@ class _Request:
                  # the carried flow/HiFT state, the first chunk's time and
                  # each chunk's (synthesis s, samples)
                  "stream", "chunk_q", "prompt_pad", "sched_offset", "hift_cache", "t_first",
-                 "chunks")
+                 "chunks",
+                 # speculative slots: (accepted, drafted) drafts at the finish
+                 "spec_pair")
 
     def __init__(self, text_tokens, spk_embedding, min_len, max_len, noise,
                  prompt_speech_tokens, prompt_mel, stream=False, prompt_pad=0):
@@ -123,6 +135,7 @@ class _Request:
         self.hift_cache = None
         self.t_first = None
         self.chunks = []
+        self.spec_pair = None
 
     def fail(self, error: str):
         """End the request with `error`; a stream's reader gets None and
@@ -137,16 +150,23 @@ class ContinuousBatcher:
     """Fixed-slot continuous decode over an Engine's parameters and device."""
 
     def __init__(self, engine, slots: int = 4, head_num: int = 4,
-                 sampling: Optional[SamplingParams] = None, reserve_stream_slots: int = 0):
+                 sampling: Optional[SamplingParams] = None, reserve_stream_slots: int = 0,
+                 spec_decode: bool = False):
         """One batcher serves ONE (head_num, sampling) configuration: the
         slots share each step's MTP heads and draw, so requests with another
         head count or sampling go through the Engine's paths instead.
-        `reserve_stream_slots` (at most slots - 1) slots take streams only."""
+        `reserve_stream_slots` (at most slots - 1) slots take streams only.
+        `spec_decode` makes the slots speculative (see the module
+        docstring); it needs head_num >= 2."""
         self.engine = engine
         self.cfg = engine.cfg.llm
         self.sampling = sampling or SamplingParams.make()
         self.slots = slots
+        self.spec = bool(spec_decode)
         self.head_k = max(1, min(int(head_num), self.cfg.head_num))
+        if self.spec and self.head_k < 2:
+            raise ValueError("spec_decode slots need head_num >= 2 (heads 1..K-1 draft, "
+                             "head 0 verifies)")
         self.max_tokens = engine.max_tokens
         self.streamer = engine.streaming()
         self.reserve_stream_slots = max(0, min(int(reserve_stream_slots), slots - 1))
@@ -165,9 +185,10 @@ class ContinuousBatcher:
         # submit -> slot latencies for /api/v1/metrics
         self.admission_lat_s: deque = deque(maxlen=512)
         # decode work done, for launch predictions: admits (prefills), steps
-        # (MTP heads + draw), forwards (decode-step backbone blocks), the
-        # streams' admission bursts included, and the seconds spent in
-        # chunks and in synthesis
+        # (MTP heads + draw; with spec_decode, draft heads + head 0 on the
+        # block), forwards (decode-step backbone blocks), the streams'
+        # admission bursts included, and the seconds spent in chunks and in
+        # synthesis
         self.stats = dict(admits=0, steps=0, forwards=0, decode_s=0.0, synth_s=0.0)
         self._state = None
         self._slot_req: list = [None] * slots
@@ -192,9 +213,14 @@ class ContinuousBatcher:
         dtype = self.engine.llm_params["speech_embedding"].dtype
         dev = self.engine.device
         s = self.slots
+        cache = qwen2.init_kv_cache(bb, s, self.cache_cap, dtype=dtype, device=dev)
+        last_hidden = torch.zeros((s, bb.hidden_size), dtype=dtype, device=dev)
+        if self.spec:
+            return llm_model.spec_state(cache, last_hidden, [0] * s, [0] * s, [0] * s,
+                                        max_tokens=self.max_tokens, head_k=self.head_k,
+                                        finished=[True] * s)
         return dict(
-            cache=qwen2.init_kv_cache(bb, s, self.cache_cap, dtype=dtype, device=dev),
-            last_hidden=torch.zeros((s, bb.hidden_size), dtype=dtype, device=dev),
+            cache=cache, last_hidden=last_hidden,
             tokens=torch.full((s, self.max_tokens + self.head_k), -1, dtype=torch.int32,
                               device=dev),
             num=[0] * s, finished=[True] * s, max_len=[0] * s,
@@ -238,6 +264,22 @@ class ContinuousBatcher:
         st["min_len_t"][slot] = req.min_len
         st["num"][slot], st["max_len"][slot] = 0, req.max_len
         st["finished"][slot] = False  # live only once its row is whole
+        if self.spec:
+            self._admit_spec(slot, req, row_cache.length, last_hidden)
+
+    def _admit_spec(self, slot: int, req: _Request, length, last_hidden):
+        """The spec admission's first token, from head 0 on the prompt hidden
+        (:319-348), on the request's `noise.spec_first`: init_spec_state for
+        this row."""
+        st, dev = self._state, self.engine.device
+        st["max_len_t"][slot] = req.max_len
+        row = slice(slot, slot + 1)
+        llm_model.set_first_tokens(st, *llm_model.spec_first_tokens(
+            self.engine.llm_params, self.cfg, last_hidden, st["min_len_t"][row],
+            st["max_len_t"][row], self.sampling,
+            req.noise.spec_first(self.cfg.vocab_size).to(dev)[None]), rows=row)
+        st["cache_pos"][slot] = int(length[0])
+        st["accepted"][slot] = st["drafted"][slot] = 0
 
     def _admit_stream(self, slot: int, req: _Request) -> int:
         """Prefill a stream and run its decode burst on a one-row state over
@@ -275,6 +317,8 @@ class ContinuousBatcher:
 
     def _chunk(self):
         """Up to CHUNK_STEPS group-decode steps over all slots (:410-442)."""
+        if self.spec:
+            return self._spec_chunk()
         st = self._state
         k, vocab = self.head_k, self.cfg.vocab_size
         dev = self.engine.device
@@ -298,6 +342,31 @@ class ContinuousBatcher:
                 torch.stack(flat), head_k=k)
             self.stats["steps"] += 1
             self.stats["forwards"] += int(ran)
+
+    def _spec_chunk(self):
+        """Up to CHUNK_STEPS draft-and-verify steps over all slots (:675-770):
+        an active slot draws its request's `noise.spec_step`, a finished or
+        empty one is fed zeros and emits nothing."""
+        st = self._state
+        kd, vocab = self.head_k - 1, self.cfg.vocab_size
+        dev = self.engine.device
+        zeros = (torch.zeros((kd, vocab), device=dev), torch.zeros(kd, device=dev),
+                 torch.zeros(vocab, device=dev), torch.zeros(vocab, device=dev))
+        for _ in range(CHUNK_STEPS):
+            if all(st["finished"]):
+                break
+            draws = []
+            for i, req in enumerate(self._slot_req):
+                if st["finished"][i]:
+                    draws.append(zeros)
+                    continue
+                draws.append(tuple(d.to(dev) for d in req.noise.spec_step(kd, vocab)))
+                self._slot_steps[i] += 1
+            llm_model.spec_step_batched(
+                self.engine.llm_params, self.cfg, st, self.sampling,
+                tuple(torch.stack(d) for d in zip(*draws)), head_k=self.head_k)
+            self.stats["steps"] += 1
+            self.stats["forwards"] += 1
 
     def submit(self, text_tokens: np.ndarray, spk_embedding: Optional[np.ndarray] = None,
                noise=None, prompt_speech_tokens: Optional[np.ndarray] = None,
@@ -432,7 +501,9 @@ class ContinuousBatcher:
             req.t_admit = time.time()
             self.admission_lat_s.append(req.t_admit - req.t_submit)
             try:
-                steps = self._admit_stream(i, req) if req.stream else self._admit(i, req)
+                # spec slots admit streams without the burst (:1035)
+                steps = (self._admit_stream(i, req) if req.stream and not self.spec
+                         else self._admit(i, req))
             except Exception as e:  # fails only this request; the slot stays empty
                 logger.exception("admit failed")
                 req.fail(str(e))
@@ -455,6 +526,7 @@ class ContinuousBatcher:
                     self._emit_stream_row(i, req, chunk_time)
                 elif st["finished"][i]:
                     req.t_decoded = time.time()
+                    self._record_spec(i, req)
                     num = st["num"][i]
                     logger.info("slot %d decode done: %d tokens in %d steps (%.2fs since "
                                 "submit)", i, num, self._slot_steps[i],
@@ -517,11 +589,24 @@ class ContinuousBatcher:
             req.sched_offset += this_hop
         if st["finished"][i]:
             req.t_decoded = time.time()
+            self._record_spec(i, req)
             logger.info("slot %d stream decode done: %d tokens in %d steps (%.2fs since "
                         "submit)", i, num, steps, req.t_decoded - req.t_submit)
             tokens = row if row is not None else st["tokens"][i, :num].cpu().numpy()
             self._queue_stream_chunk(req, tokens, True, steps, chunk_time)
             self._slot_req[i] = None
+
+    def _record_spec(self, i: int, req: _Request):
+        """A finished spec slot's (accepted, drafted) drafts (:1164-1167)."""
+        if self.spec:
+            req.spec_pair = (self._state["accepted"][i], self._state["drafted"][i])
+
+    @staticmethod
+    def _add_spec_stats(req: _Request):
+        """The request's acceptance rate into its stats (:1258-1262)."""
+        if req.spec_pair is not None:
+            acc, drafted = req.spec_pair
+            req.stats["spec_acceptance"] = acc / drafted if drafted else 0.0
 
     def _queue_stream_chunk(self, req: _Request, tokens, finalize: bool, steps: int,
                             chunk_time: float):
@@ -556,6 +641,7 @@ class ContinuousBatcher:
                                  latency=time.time() - req.t_submit,
                                  ttft=req.t_first - req.t_submit, chunk_time=chunk_time,
                                  chunks=list(req.chunks))
+                self._add_spec_stats(req)
                 req.chunk_q.put(None)
                 req.done.set()
         except Exception as e:  # the error flows back through the stream
@@ -577,6 +663,7 @@ class ContinuousBatcher:
             req.stats = dict(tokens=tokens[:num].tolist(), steps=steps,
                              latency=time.time() - req.t_submit,
                              synth_time=time.time() - t0, chunk_time=chunk_time)
+            self._add_spec_stats(req)
         except Exception as e:  # the error flows back through the request
             logger.exception("continuous synth failed")
             req.error = str(e)

@@ -23,7 +23,10 @@ length before decoding (`_estimate_token_bucket`) whenever the realised
 tokens fit in it, else at the realised bucket. Only the bucket is JAX's; no
 graph is fused here, and stage 2 runs once either way, since the token count
 is known by then. `fused=False` gives the two-stage rule (always the
-realised bucket).
+realised bucket). `spec_decode=True` decodes every request at two heads or
+more by self-speculative MTP verification (`llm.generate_speculative` and
+`generate_batched_speculative`, engine.py:227-245, :388-405), the exact
+heads=1 output distribution.
 
 Metrics follow the reference definitions (infer_speech_model.py:563-604):
 tps = tokens / llm_time, rtf = total_time / audio seconds. The two stages are
@@ -91,6 +94,8 @@ class SynthesisResult:
     steps: int
     token_bucket: int = 0  # stage 2's token bucket
     estimated: bool = False  # whether it was the estimated bucket (fused rule)
+    # speculative decoding only: drafts accepted / drafts proposed (else -1)
+    spec_acceptance: float = -1.0
 
 
 class Engine:
@@ -99,10 +104,17 @@ class Engine:
     `fused` (default True, as in JAX) selects the output rule of
     `synthesize` and `synthesize_batch`: the estimated stage-2 bucket when
     the tokens fit it (see the module docstring); False always takes the
-    realised bucket."""
+    realised bucket.
+
+    `spec_decode`: decodes at two heads or more draft with MTP heads
+    1..K-1 and verify against head 0 (engine.py:116-124): one utterance
+    (`llm.generate_speculative`), the flash batch
+    (`generate_batched_speculative`), streams (`generate_spec_until`) and,
+    through the server, the continuous slots."""
 
     def __init__(self, cfg: HydraVoxConfig, llm_params, flow_params, hift_params,
-                 max_tokens: int = 1024, device="cuda", fused: bool = True):
+                 max_tokens: int = 1024, device="cuda", fused: bool = True,
+                 spec_decode: bool = False):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.llm_params = llm_params
@@ -110,6 +122,7 @@ class Engine:
         self.hift_params = hift_params
         self.max_tokens = max_tokens
         self.fused = fused
+        self.spec_decode = bool(spec_decode)
         self._generator = torch.Generator(device=self.device).manual_seed(int(time.time()))
         self._rng_lock = threading.Lock()
         self._streaming = None
@@ -163,6 +176,12 @@ class Engine:
             for name, tree in new.items():
                 setattr(self, f"{name}_params", tree)
 
+    def speculates(self, head_num: int) -> bool:
+        """Whether a decode at `head_num` heads verifies drafts: with
+        spec_decode, from two heads on; one head has nothing to draft with
+        and takes the plain decode (engine.py:234)."""
+        return self.spec_decode and int(head_num) >= 2
+
     def _tensor(self, arr, dtype):
         return torch.as_tensor(np.asarray(arr), dtype=dtype, device=self.device)
 
@@ -185,17 +204,23 @@ class Engine:
     # -- stages --------------------------------------------------------------
 
     def _generate(self, text_pad, lt, sp_pad, lp, min_len, max_len, sampling, head_num, noise):
-        """Stage 1: text tokens + prompt speech tokens -> GenerateResult."""
+        """Stage 1: text tokens + prompt speech tokens -> (GenerateResult,
+        spec_acceptance: accepted / drafted drafts, -1 when not speculating)."""
         cfg = self.cfg.llm
         cache_cap = 2 + len(text_pad) + len(sp_pad) + self.max_tokens + head_num
         emb, plen = llm_model.build_inference_prompt(
             self.llm_params, cfg, self._tensor(text_pad, torch.int32), lt,
             self._tensor(sp_pad, torch.int32), lp,
         )
+        if self.speculates(head_num):
+            spec = llm_model.generate_speculative(
+                self.llm_params, cfg, emb, plen, min_len, max_len, sampling, noise,
+                num_heads=head_num, max_tokens=self.max_tokens, cache_len_cap=cache_cap)
+            return spec.result, spec.accepted / max(spec.drafted, 1)
         return llm_model.generate(
             self.llm_params, cfg, emb, plen, min_len, max_len, sampling, noise,
             inference_head_num=head_num, max_tokens=self.max_tokens, cache_len_cap=cache_cap,
-        )
+        ), -1.0
 
     def _synth_body(self, token_bucket: int, pm_bucket: int, sp_bucket: int, tokens, num,
                     sp_tokens, sp_len, prompt_mel, pm_len, embedding, noise):
@@ -252,18 +277,25 @@ class Engine:
         text_pad[:lt] = text_tokens
         return text_pad, lt, tts_text_len
 
-    def _prefill(self, text_pad, lt: int, sp_pad, lp: int, head_num: int) -> dict:
+    def _prefill(self, text_pad, lt: int, sp_pad, lp: int, head_num: int, min_len: int,
+                 max_len: int, sampling: SamplingParams, noise) -> dict:
         """Prompt assembly and KV-cache prefill: the decode state that
-        `llm.generate_until` resumes (the streaming LM)."""
+        `llm.generate_until` resumes (the streaming LM), or, when the engine
+        speculates at `head_num`, `llm.init_spec_state`'s, whose first token
+        draws from `noise`, for `generate_spec_until`."""
         cfg = self.cfg.llm
         emb, plen = llm_model.build_inference_prompt(
             self.llm_params, cfg, self._tensor(text_pad, torch.int32), lt,
             self._tensor(sp_pad, torch.int32), lp,
         )
+        cap = 2 + len(text_pad) + len(sp_pad) + self.max_tokens + head_num
+        if self.speculates(head_num):
+            return llm_model.init_spec_state(
+                self.llm_params, cfg, emb, plen, min_len, max_len, sampling, noise,
+                num_heads=head_num, max_tokens=self.max_tokens, cache_len_cap=cap)
         return llm_model.init_generate_state(
             self.llm_params, cfg, emb, plen, inference_head_num=head_num,
-            max_tokens=self.max_tokens,
-            cache_len_cap=2 + len(text_pad) + len(sp_pad) + self.max_tokens + head_num,
+            max_tokens=self.max_tokens, cache_len_cap=cap,
         )
 
     @staticmethod
@@ -361,8 +393,8 @@ class Engine:
         # ---- stage 1: LLM ----
         t0 = time.time()
         with torch.profiler.record_function("engine.llm"):
-            res = self._generate(text_pad, lt, llm_sp_pad, llm_lp, min_len, max_len, sp,
-                                 head_num, noise)
+            res, spec_acceptance = self._generate(text_pad, lt, llm_sp_pad, llm_lp, min_len,
+                                                  max_len, sp, head_num, noise)
         n_tok, steps = res.num_tokens, res.steps
         llm_time = time.time() - t0
 
@@ -399,6 +431,7 @@ class Engine:
             steps=steps,
             token_bucket=tok_bkt,
             estimated=estimated,
+            spec_acceptance=spec_acceptance,
         )
         logger.info("synth: %d tokens in %d steps, tps=%.1f rtf=%.4f (llm %.3fs flow+hift %.3fs "
                     "at the %s bucket %d)", n_tok, steps, result.tps, result.rtf, llm_time,
@@ -471,7 +504,8 @@ class Engine:
         (default: drawn from the engine's generator) feeds both the LM and
         HiFT, as one JAX key does. Returns (list of B float32 wavs, stats
         dict with llm_time, synth_time, total_time, tokens, steps, rtf,
-        token_bucket, estimated).
+        token_bucket, estimated, spec_acceptance: the rows' accepted over
+        drafted drafts, -1 when not speculating).
 
         Row i's token-length bounds come from `tts_text_lens[i]` (capped at
         its text's length), or from its whole text when None, as for SFT
@@ -480,9 +514,8 @@ class Engine:
         prompt), a per-row list (None: that row's flow prompt; empty: no
         prefix, cross-lingual and instruct2 rows), or one shared array. The
         flow always takes each row's own prompt.
-        Not ported: the single dispatch itself (:770-798), the warm-shape
-        synth-group planner (:512-, which exists for XLA compile reuse) and
-        spec decode (:396-405)."""
+        Not ported: the single dispatch itself (:770-798) and the warm-shape
+        synth-group planner (:512-, which exists for XLA compile reuse)."""
         t_start = time.time()
         cfg = self.cfg
         sampling = sampling or cfg.tts_sampling
@@ -565,12 +598,18 @@ class Engine:
             prompts = [llm_model.build_inference_prompt(
                 self.llm_params, llm_cfg, text_dev[i], lts[i], sp_dev[i], lps[i])
                 for i in range(bsz)]
-            res = llm_model.generate_batched(
-                self.llm_params, llm_cfg, torch.stack([e for e, _ in prompts]),
-                [n for _, n in prompts], min_lens, max_lens, sp, noise,
-                inference_head_num=head_num, max_tokens=self.max_tokens,
-                cache_len_cap=2 + tbkt + sbkt + self.max_tokens + head_num,
-            )
+            args = (self.llm_params, llm_cfg, torch.stack([e for e, _ in prompts]),
+                    [n for _, n in prompts], min_lens, max_lens, sp, noise)
+            cap = 2 + tbkt + sbkt + self.max_tokens + head_num
+            spec_acceptance = -1.0
+            if self.speculates(head_num):
+                spec = llm_model.generate_batched_speculative(
+                    *args, num_heads=head_num, max_tokens=self.max_tokens, cache_len_cap=cap)
+                res, spec_acceptance = spec.result, spec.accepted / max(spec.drafted, 1)
+            else:
+                res = llm_model.generate_batched(
+                    *args, inference_head_num=head_num, max_tokens=self.max_tokens,
+                    cache_len_cap=cap)
         nums, steps = res.num_tokens, res.steps
         llm_time = time.time() - t0
 
@@ -601,7 +640,8 @@ class Engine:
         dur = sum(len(w) for w in wavs) / cfg.sample_rate
         stats = dict(llm_time=llm_time, synth_time=synth_time, total_time=total,
                      tokens=list(nums), steps=steps, rtf=total / max(dur, 1e-9),
-                     token_bucket=tok_bkt, estimated=estimated)
+                     token_bucket=tok_bkt, estimated=estimated,
+                     spec_acceptance=spec_acceptance)
         logger.info("flash batch x%d: %s tokens in %d steps, rtf=%.4f (llm %.3fs synth %.3fs)",
                     bsz, stats["tokens"], steps, stats["rtf"], llm_time, synth_time)
         return wavs, stats

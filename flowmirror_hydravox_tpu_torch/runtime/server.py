@@ -163,7 +163,10 @@ class TTSService:
     count (the HTTP handler merges the defaults under the client's values,
     so otherwise no request would match the slots), with its first
     `continuous_reserve_stream` slots kept for streams. Its requests run on a
-    pool of max(8, 2 x slots) threads that featurise, submit and wait."""
+    pool of max(8, 2 x slots) threads that featurise, submit and wait. On an
+    engine with spec_decode the slots draft and verify too, so every route
+    keeps the heads=1 output distribution; slots at one head have nothing to
+    draft with and are refused (server.py:107-112, :128-130)."""
 
     def __init__(self, engine: Engine, frontend, request_timeout: float = 60.0,
                  batch_window: float = 0.03, max_batch: int = 8,
@@ -187,6 +190,9 @@ class TTSService:
         self.batcher = None
         self._continuous_key = None
         self._cont_pool = None
+        if continuous_slots > 0 and engine.spec_decode and continuous_head_num < 2:
+            raise ValueError("--spec-decode with --continuous-batching needs "
+                             "--continuous-heads >= 2 (heads 1..K-1 draft, head 0 verifies)")
         if continuous_slots > 0:
             self.default_extra["inference_head_num"] = int(continuous_head_num)
             default = self._sampling(self.default_extra)
@@ -195,7 +201,7 @@ class TTSService:
                 engine, slots=continuous_slots, head_num=continuous_head_num,
                 sampling=SamplingParams.make(default.top_p, default.top_k, default.win_size,
                                              default.tau_r),
-                reserve_stream_slots=continuous_reserve_stream)
+                reserve_stream_slots=continuous_reserve_stream, spec_decode=engine.spec_decode)
             self._cont_pool = ThreadPoolExecutor(max_workers=max(8, 2 * continuous_slots),
                                                  thread_name_prefix="continuous")
         # the worker launches on the device's default stream, as the

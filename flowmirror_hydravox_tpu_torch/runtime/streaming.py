@@ -20,14 +20,17 @@ token2wav and tts).
     One dispatch buys the eager port nothing; it keeps the output rule.
 
 The LM is the resumable decode of models/llm.py (`init_generate_state`, then
-`generate_until` each chunk's target), through both Hopper kernels on the
-card. A session draws from a `noise.StreamNoise` (`Engine.stream_noise`): the
-decode draws continue from chunk to chunk, and every chunk's NSF source
-redraws from the one vocoder key, as the JAX streamer reuses `hift_rng`.
+`generate_until` each chunk's target; on an engine that speculates at the
+request's heads, `init_spec_state`, then `generate_spec_until`, JAX `_spec`
+and `_decode_init_until` :62-100), through both Hopper kernels on the card.
+Pausing at a chunk target changes no draw, so a stream's tokens equal a
+one-shot decode's. A session draws from a `noise.StreamNoise`
+(`Engine.stream_noise`): the decode draws continue from chunk to chunk, and
+every chunk's NSF source redraws from the one vocoder key, as the JAX
+streamer reuses `hift_rng`.
 
 Not ported: the jit caches and `prewarm_ladder` (:408-466), which pay for
-XLA compiles and have no eager counterpart, and the speculative decode
-(`generate_spec_until`), which waits for the spec-decode slice.
+XLA compiles and have no eager counterpart.
 """
 
 from __future__ import annotations
@@ -90,8 +93,9 @@ class StreamingSynthesizer:
     ) -> Generator[np.ndarray, None, None]:
         """Yields 24 kHz float32 waveform chunks (~1 s each). `noise`
         (default `Engine.stream_noise()`) is a StreamNoise. A `session` dict,
-        when given, receives the speech tokens, the decode steps and each
-        chunk's synthesis seconds and samples (`chunks`)."""
+        when given, receives the speech tokens, the decode steps and
+        seconds (`decode_s`), each chunk's synthesis seconds and samples
+        (`chunks`), and, when the decode speculates, its `spec_acceptance`."""
         engine, cfg = self.engine, self.cfg
         sampling = sampling or cfg.tts_sampling
         head_num = inference_head_num or cfg.llm.inference_head_num
@@ -105,7 +109,7 @@ class StreamingSynthesizer:
         max_len = min(int(tts_text_len * max_token_text_ratio), engine.max_tokens)
         sp = SamplingParams.make(sampling.top_p, sampling.top_k, sampling.win_size, sampling.tau_r)
         session = {} if session is None else session
-        session.update(tokens=[], steps=0, chunks=[])
+        session.update(tokens=[], steps=0, chunks=[], decode_s=0.0)
 
         la = cfg.flow.pre_lookahead_len
         hop = self.token_hop_len
@@ -113,13 +117,27 @@ class StreamingSynthesizer:
         first_hop = hop + prompt_pad
         first_target = min(first_hop + la, max_len)
 
-        state = engine._prefill(text_pad, lt, sp_pad, lp, head_num)
+        spec = engine.speculates(head_num)
+        state = engine._prefill(text_pad, lt, sp_pad, lp, head_num, min_len, max_len, sp, noise)
+
+        def progress():
+            """(tokens (L,), num, finished) of either decode's state."""
+            if spec:
+                return state["tokens"][0], state["num"][0], state["finished"][0]
+            return state["tokens"], state["num"], state["finished"]
 
         def decode_to(target):
-            llm_model.generate_until(engine.llm_params, cfg.llm, state, target, min_len,
-                                     max_len, sp, noise, inference_head_num=head_num)
-            n = state["num"]
-            return state["tokens"][:n].cpu().numpy(), state["finished"] or n >= max_len
+            t0 = time.time()
+            if spec:
+                llm_model.generate_spec_until(engine.llm_params, cfg.llm, state, target, sp,
+                                              noise, num_heads=head_num)
+            else:
+                llm_model.generate_until(engine.llm_params, cfg.llm, state, target, min_len,
+                                         max_len, sp, noise, inference_head_num=head_num)
+            tokens, n, finished = progress()
+            out = tokens[:n].cpu().numpy()
+            session["decode_s"] += time.time() - t0
+            return out, finished or n >= max_len
 
         def chunk(tokens, token_offset, finalize, hift_cache, quantize=False):
             t0 = time.time()
@@ -151,7 +169,10 @@ class StreamingSynthesizer:
             wav, _ = chunk(produced, token_offset, True, hift_cache)  # the final flush
             yield wav
         finally:
-            session.update(tokens=state["tokens"][:state["num"]].tolist(), steps=state["steps"])
+            tokens, n, _ = progress()
+            session.update(tokens=tokens[:n].tolist(), steps=state["steps"])
+            if spec:
+                session["spec_acceptance"] = state["accepted"][0] / max(state["drafted"][0], 1)
 
     def _token2wav(self, tokens, prompt_tokens, prompt_mel, spk_embedding, token_offset: int,
                    noise, finalize: bool, hift_cache, quantize: bool = False):

@@ -7,7 +7,11 @@ CPU):
   package's frontend on the committed extractors and the same key: tokens
   exact through the engine, wav within WAV_LSB int16 steps; then the
   registry helpers and a stream of the same text;
-- `quantize` and `spec_decode` raise until ROADMAP queue item 5 ports them;
+- `HydraVox(spec_decode=True).inference_sft` against the JAX
+  `HydraVox(spec_decode=True)` on the same trees and key: wav within
+  WAV_LSB int16 steps (the tokens of a speculative decode differ from a
+  blind multi-head one's on the same key);
+- `quantize` raises until ROADMAP queue item 4 (int8 weights) ports it;
 - `GET /api/v1/devices`, `GET /api/v1/samples` and `POST
   /api/v1/samples/load`, a path outside the samples root giving 400."""
 
@@ -24,6 +28,7 @@ import torch
 
 from flowmirror_hydravox_tpu import api as jax_api
 from flowmirror_hydravox_tpu.config import tiny_config as jax_tiny_config
+from flowmirror_hydravox_tpu.frontend.frontend import SpeakerInfo as JaxSpeakerInfo
 from flowmirror_hydravox_tpu.runtime.engine import Engine as JaxEngine
 from flowmirror_hydravox_tpu_torch.api import HydraVox
 from flowmirror_hydravox_tpu_torch.params import flatten_params
@@ -39,19 +44,25 @@ PROMPT = voiced(16000, 1.5, 30)
 
 
 @pytest.fixture(scope="module")
-def hydravox(tmp_path_factory):
+def weights(tmp_path_factory):
     root = tmp_path_factory.mktemp("weights")
     for name, tree in zip(("llm", "flow", "hift"), seeded_tiny_trees()):
         np.savez(root / f"{name}.npz", **flatten_params(tree))
-    return HydraVox(str(root), tiny=True, max_tokens=MAX_TOKENS, dtype=torch.float32,
+    return str(root)
+
+
+@pytest.fixture(scope="module")
+def hydravox(weights):
+    return HydraVox(weights, tiny=True, max_tokens=MAX_TOKENS, dtype=torch.float32,
                     device="cpu")
 
 
-def _jax_hydravox(port: HydraVox):
+def _jax_hydravox(port: HydraVox, spec_decode: bool = False):
     """The JAX HydraVox on the same trees, built without its random init."""
     hv = object.__new__(jax_api.HydraVox)
     hv.cfg = jax_tiny_config()
-    hv.engine = JaxEngine(hv.cfg, *seeded_tiny_trees(), max_tokens=MAX_TOKENS)
+    hv.engine = JaxEngine(hv.cfg, *seeded_tiny_trees(), max_tokens=MAX_TOKENS,
+                          spec_decode=spec_decode)
     hv.frontend = _jax_frontend(port.frontend)
     hv.sample_rate = hv.cfg.sample_rate
     hv._streamer = None
@@ -81,11 +92,25 @@ def test_inference_zero_shot_matches_jax(hydravox, tmp_path):
     assert chunks and all(np.isfinite(c).all() and len(c) > 0 for c in chunks)
 
 
-@pytest.mark.parametrize("kwargs", [dict(quantize="int8"), dict(spec_decode=True)],
-                         ids=["quantize", "spec_decode"])
+@pytest.mark.parametrize("kwargs", [dict(quantize="int8")], ids=["quantize"])
 def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue item 5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue item 4, int8 weights"):
         HydraVox(tiny=True, device="cpu", **kwargs)
+
+
+def test_spec_decode_matches_jax(weights):
+    port = HydraVox(weights, tiny=True, max_tokens=MAX_TOKENS, dtype=torch.float32,
+                    device="cpu", spec_decode=True)
+    ref = _jax_hydravox(port, spec_decode=True)
+    # the zero embedding both HydraVox objects register when their registry is empty
+    ref.frontend.add_speaker("default", JaxSpeakerInfo(embedding=np.zeros(192, np.float32)))
+    assert port.engine.spec_decode and ref.engine.spec_decode
+    key = jax.random.PRNGKey(4)
+    (want,) = ref.inference_sft("Speak this line.", "default", inference_head_num=2, rng=key)
+    (got,) = port.inference_sft("Speak this line.", "default", inference_head_num=2,
+                                noise=JaxReplayNoise(key))
+    assert got["tts_speech"].shape == want["tts_speech"].shape and len(got["tts_speech"]) > 0
+    np.testing.assert_allclose(got["tts_speech"], want["tts_speech"], atol=WAV_LSB, rtol=0)
 
 
 def _call(url, body=None):

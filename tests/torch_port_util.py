@@ -10,7 +10,16 @@ key chain and hands the port the exact numbers JAX draws:
   - each flash-batch step: llm.py:463 splits (rng, rng_step); llm.py:465
     splits rng_step into per-row keys; each row's key then goes through the
     per-head chain above (the vmap at llm.py:466-471);
-  - the vocoder: hift.py:228 splits the key into (rng_ini, rng_noise).
+  - the vocoder: hift.py:228 splits the key into (rng_ini, rng_noise);
+  - speculative decoding, the solo loop and a slot (one chain): the first
+    token splits (rng, r0) and draws a Gumbel (V,) from r0 (llm.py:541-547);
+    each step splits rng five ways (llm.py:659), r_draft again into one key
+    per draft (:574), and draws the drafts' Gumbels, the accept uniforms
+    from r_acc (:592), the residual's Gumbel from r_res (:603) and the
+    bonus's from r_bonus (:608);
+  - speculative decoding in a flash batch: r0 and each step's four keys are
+    split again into B row keys first (llm.py:757-764, :785, :795,
+    :812-814).
 
 The JAX engine feeds one key to both the LM and HiFT (engine.py:1151, :1170),
 so the replay starts its step chain and its vocoder draws from the same key.
@@ -69,6 +78,34 @@ def _batch_step_draws(rng, b, k, kmax, vocab):
     return rng, nuc, flat
 
 
+def _gumbels(keys, vocab):
+    return jax.vmap(lambda key: jax.random.gumbel(key, (vocab,), jnp.float32))(keys)
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2))
+def _spec_first_draws(rng, b, vocab):
+    """b = 0: the solo chain's (V,) draw; else the flash batch's (b, V)."""
+    rng, r0 = jax.random.split(rng)
+    return rng, (jax.random.gumbel(r0, (vocab,), jnp.float32) if b == 0
+                 else _gumbels(jax.random.split(r0, b), vocab))
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2, 3))
+def _spec_step_draws(rng, b, kd, vocab):
+    """b = 0: one step of the solo chain; else a flash-batch step's B rows."""
+    rng, r_draft, r_acc, r_res, r_bonus = jax.random.split(rng, 5)
+
+    def row(rd, ra, rr, rb):
+        return (_gumbels(jax.random.split(rd, kd), vocab), jax.random.uniform(ra, (kd,)),
+                jax.random.gumbel(rr, (vocab,), jnp.float32),
+                jax.random.gumbel(rb, (vocab,), jnp.float32))
+
+    if b == 0:
+        return rng, row(r_draft, r_acc, r_res, r_bonus)
+    return rng, jax.vmap(row)(*(jax.random.split(r, b) for r in (r_draft, r_acc, r_res,
+                                                                  r_bonus)))
+
+
 @functools.partial(jax.jit, static_argnums=(1, 2, 3))
 def _vocoder_draws(rng, b, t, nh):
     rng_ini, rng_noise = jax.random.split(rng)
@@ -94,6 +131,24 @@ class JaxReplayNoise:
         self._rng, nuc, flat = _batch_step_draws(self._rng, b, k, min(64, vocab), vocab)
         self.steps += 1
         return t(nuc).to(self.device), t(flat).to(self.device)
+
+    def spec_first(self, vocab: int):
+        self._rng, g = _spec_first_draws(self._rng, 0, vocab)
+        return t(g).to(self.device)
+
+    def spec_first_batch(self, b: int, vocab: int):
+        self._rng, g = _spec_first_draws(self._rng, b, vocab)
+        return t(g).to(self.device)
+
+    def spec_step(self, kd: int, vocab: int):
+        self._rng, draws = _spec_step_draws(self._rng, 0, kd, vocab)
+        self.steps += 1
+        return tuple(t(d).to(self.device) for d in draws)
+
+    def spec_step_batch(self, b: int, kd: int, vocab: int):
+        self._rng, draws = _spec_step_draws(self._rng, b, kd, vocab)
+        self.steps += 1
+        return tuple(t(d).to(self.device) for d in draws)
 
     def vocoder(self, b: int, length: int, nh: int):
         ri, rn = _vocoder_draws(self.key, b, length, nh)
