@@ -151,8 +151,29 @@ exits non-zero without either. Phases, each fatal on failure:
      cache_len of the forward that read the most keys), at its dtype,
      against the plain version and timed as in phases 3/3b, with its
      launches in 5h;
-  6. the kernels line (launches: phases 5 to 5h), the card line, and the
-     final JSON line.
+  5i. weight-only int8 (--quantize int8): an engine built as the
+     launcher's --quantize int8 builds it, on the main weights (every
+     quantized matrix must be int8 beside its f32 scale; both trees' LLM
+     weight bytes printed), behind servers: /api/v1/tts on the solo route at
+     heads 1, 2 and 5, a burst of three coalesced into one flash batch, a
+     /api/v1/tts/stream on the lane, three /api/v1/tts with a stream among
+     them on 4 slots (1 reserved), and one request at heads 2 on an int8
+     engine with --spec-decode. Each WAV as in phase 5; launches held per
+     route (decode attention as before; kernel 2's int8 form where the
+     dense form ran, and the dense form not at all); the counts are set to
+     0 before these routes and read after them. Beside them, the same
+     seeded solo heads-2 request and slot load on the main engine: ms per
+     decode step, int8 against bf16, printed. Then phase 5e's llm.pt (seed
+     1) is hot-reloaded into the int8 slots while 3 senders keep them busy
+     (a request in a slot at the swap): the live tree must be the
+     checkpoint's, quantized. Then tools/eval_int8.py on the main weights
+     (2 utterances x 100 greedy tokens: token agreement, per-head KL and
+     top-1 agreement), and every shape of the int8 form that 5i launched
+     against its plain version, timed beside the dense kernel on the
+     dequantized weights and the torch.matmul yardstick, with its byte
+     bound;
+  6. the kernels line (launches: phases 5 to 5i; the int8 form's: 5i), the
+     card line, and the final JSON line.
 
 TF32 is off for matmuls and cuDNN convs throughout, so f32 is full f32 in
 every comparison, and cuDNN takes deterministic algorithms, so a seeded
@@ -1596,6 +1617,62 @@ def held_worker(name, calls, da, mg, cfg, run, routes, predict=None):
     return recs, launched, out
 
 
+def reload_under_load(batcher, url, path, seed0):
+    """POST /api/v1/load_pt of the llm.pt at `path` to the slots server at
+    `url` while SLOTS - 1 senders (seeds seed0 + i) keep its slots busy:
+    repeated while the swap found every slot empty, RELOAD_TRIES times at
+    most. A request must be in a slot at the swap
+    (`ContinuousBatcher.between_ticks`), and every request must finish.
+    Returns the reload's record."""
+    import contextlib
+
+    swaps, between = [], batcher.between_ticks
+
+    @contextlib.contextmanager
+    def watched_between():
+        with between():
+            swaps.append([r for r in batcher._slot_req if r is not None])
+            yield
+
+    stop, errors, sent = threading.Event(), [], [0]
+
+    def sender(i):
+        while not stop.is_set():
+            try:
+                tts(url, STAGGER[i], 2, seed=seed0 + i)
+                sent[0] += 1
+            except Exception as e:  # reported below
+                errors.append(f"sender {i}: {e}")
+                return
+
+    senders = [threading.Thread(target=sender, args=(i,)) for i in range(SLOTS - 1)]
+    batcher.between_ticks = watched_between
+    reload_s = []
+    try:
+        for th in senders:
+            th.start()
+        time.sleep(1.0)  # the senders' first requests are in the slots by now
+        while len(swaps) < RELOAD_TRIES and not (swaps and swaps[-1]):
+            t0 = time.time()
+            code, body = http_status(url, "/api/v1/load_pt", {"llm_pt": path})
+            reload_s.append(time.time() - t0)
+            if code != 200 or body["data"] != {"llm": path}:
+                fail(f"/api/v1/load_pt: {code} {body}")
+    finally:
+        stop.set()
+        for th in senders:
+            th.join(timeout=900)
+        batcher.between_ticks = between
+    if errors or any(th.is_alive() for th in senders):
+        fail("requests around the reload: " + ("; ".join(errors) or "did not finish"))
+    if not swaps[-1]:
+        fail(f"/api/v1/load_pt: every slot empty at each of {len(swaps)} swaps")
+    if any(r.error is not None or not r.done.is_set() for r in swaps[-1]):
+        fail("a request in a slot at the swap did not finish")
+    return dict(reload_s=reload_s, reloads=len(swaps), in_flight_at_swap=[len(w) for w in swaps],
+                requests=sent[0])
+
+
 def drive_pt_weights(engine, da, mg):
     """Phase 5e: seeded full-width llm.pt / flow.pt / hift.pt in the
     reference layout, served through the launcher's `build(--model-dir)`:
@@ -1608,7 +1685,6 @@ def drive_pt_weights(engine, da, mg):
     must finish, and the same seeded request must decode other tokens after
     it. Last, on the reloaded weights, phase 5g's request whose estimated
     bucket is too small. Returns (record, launches)."""
-    import contextlib
     import shutil
     import tempfile
 
@@ -1649,20 +1725,13 @@ def drive_pt_weights(engine, da, mg):
                             slots={"continuous_slots": SLOTS, "continuous_head_num": 2})
     window_url, slots_url = servers["window"][2], servers["slots"][2]
     batcher = servers["slots"][0].RequestHandlerClass.service.batcher
-    submitted, swaps = [], []
-    submit, between = batcher.submit, batcher.between_ticks
+    submitted, submit = [], batcher.submit
 
     def record_submit(*args, **kwargs):
         submitted.append(submit(*args, **kwargs))
         return submitted[-1]
 
-    @contextlib.contextmanager
-    def watched_between():
-        with between():
-            swaps.append([r for r in batcher._slot_req if r is not None])
-            yield
-
-    batcher.submit, batcher.between_ticks = record_submit, watched_between
+    batcher.submit = record_submit
     try:
         with EngineCalls(pt_engine) as calls:
             da.launch_count = mg.launch_count = 0
@@ -1678,39 +1747,8 @@ def drive_pt_weights(engine, da, mg):
             before, counts = dict(batcher.stats), (da.launch_count, mg.launch_count)
             tts(slots_url, PT_TEXT, 2, seed=PT_SEED)
             tokens_before = submitted[-1].stats["tokens"]
-            stop, errors, sent = threading.Event(), [], [0]
-
-            def sender(i):
-                while not stop.is_set():
-                    try:
-                        tts(slots_url, STAGGER[i], 2, seed=2000 + i)
-                        sent[0] += 1
-                    except Exception as e:  # reported below
-                        errors.append(f"sender {i}: {e}")
-                        return
-
-            senders = [threading.Thread(target=sender, args=(i,)) for i in range(SLOTS - 1)]
-            for th in senders:
-                th.start()
-            time.sleep(1.0)  # the senders' first requests are in the slots by now
-            # the reload again (same file) while the swap found every slot
-            # empty, at most RELOAD_TRIES times
-            path, rec["reload_s"] = str(reload_dir / "llm.pt"), []
-            while len(swaps) < RELOAD_TRIES and not (swaps and swaps[-1]):
-                t0 = time.time()
-                code, body = http_status(slots_url, "/api/v1/load_pt", {"llm_pt": path})
-                rec["reload_s"].append(time.time() - t0)
-                if code != 200 or body["data"] != {"llm": path}:
-                    fail(f"/api/v1/load_pt: {code} {body}")
-            stop.set()
-            for th in senders:
-                th.join(timeout=900)
-            if errors or any(th.is_alive() for th in senders):
-                fail("requests around the reload: " + ("; ".join(errors) or "did not finish"))
-            if not swaps[-1]:
-                fail(f"/api/v1/load_pt: every slot empty at each of {len(swaps)} swaps")
-            if any(r.error is not None or not r.done.is_set() for r in swaps[-1]):
-                fail("a request in a slot at the swap did not finish")
+            reload = reload_under_load(batcher, slots_url, str(reload_dir / "llm.pt"), 2000)
+            rec["reload_s"] = reload["reload_s"]
             check_served_trees(pt_engine, reload_sd)
             tts(slots_url, PT_TEXT, 2, seed=PT_SEED)
             tokens_after = submitted[-1].stats["tokens"]
@@ -1726,15 +1764,15 @@ def drive_pt_weights(engine, da, mg):
             rec["solo_fallback"], more = solo_until("estimate_falls_back", window_url, SOLO_SHORT,
                                                     False, calls, da, mg, cfg.llm)
             total = [a + b for a, b in zip(total, more)]
-            rec["slots"] = dict(requests=sent[0] + 2, reloads=len(swaps),
-                                in_flight_at_swap=[len(w) for w in swaps],
+            rec["slots"] = dict(requests=reload["requests"] + 2, reloads=reload["reloads"],
+                                in_flight_at_swap=reload["in_flight_at_swap"],
                                 tokens_before=len(tokens_before), tokens_after=len(tokens_after),
                                 batcher_stats=done, attention_launches=launched[0],
                                 mlp_launches=launched[1])
         print("pt_weights", json.dumps(rec), flush=True)
         return rec, tuple(total)
     finally:
-        batcher.submit, batcher.between_ticks = submit, between
+        batcher.submit = submit
         stop_servers(servers)
         del pt_engine
         torch.cuda.empty_cache()
@@ -1961,20 +1999,23 @@ class ServedShapes:
     wrappers that the dispatchers call are swapped for ones that record and
     then call them (the launch counts stay the wrappers'). Decode attention
     by (dtype, B, T, S_max, Hq), with a copy of the cache_len of each
-    forward (its layers share the tensor); the MLP by (dtype, M, H, I); each
-    with its launches. On exit each attention shape keeps the cache_len of
-    the forward that read the most keys."""
+    forward (its layers share the tensor); the MLP by (dtype, M, H, I), its
+    int8 form apart (`mlp_int8`); each with its launches. On exit each
+    attention shape keeps the cache_len of the forward that read the most
+    keys."""
 
     def __init__(self, da, mg):
         from flowmirror_hydravox_tpu_torch.ops import attention
 
-        self._sites = ((attention, "decode_attention_cuda"), (mg, "mlp_gemv_cuda"))
-        self.attention, self.mlp = {}, {}
+        self._sites = ((attention, "decode_attention_cuda"), (mg, "mlp_gemv_cuda"),
+                       (mg, "mlp_gemv_int8_cuda"))
+        self.attention, self.mlp, self.mlp_int8 = {}, {}, {}
         self._lock = threading.Lock()
 
     def __enter__(self):
-        (att_mod, att_name), (mlp_mod, mlp_name) = self._sites
-        self._inner = inner_att, inner_mlp = getattr(att_mod, att_name), getattr(mlp_mod, mlp_name)
+        (att_mod, att_name), (mlp_mod, mlp_name), (_, int8_name) = self._sites
+        self._inner = inner_att, inner_mlp, inner_int8 = (
+            getattr(att_mod, att_name), getattr(mlp_mod, mlp_name), getattr(mlp_mod, int8_name))
 
         def attention(q, k_cache, v_cache, cache_len):
             key = (str(q.dtype).replace("torch.", ""), q.shape[0], q.shape[1], k_cache.shape[1],
@@ -1987,14 +2028,22 @@ class ServedShapes:
                     rec["lens"].append(cache_len.clone())
             return inner_att(q, k_cache, v_cache, cache_len)
 
-        def mlp(x, gate, up, down):
+        def record_mlp(shapes, x, gate):
             key = (str(x.dtype).replace("torch.", ""), x.shape[0], x.shape[1], gate.shape[1])
             with self._lock:
-                self.mlp[key] = self.mlp.get(key, 0) + 1
+                shapes[key] = shapes.get(key, 0) + 1
+
+        def mlp(x, gate, up, down):
+            record_mlp(self.mlp, x, gate)
             return inner_mlp(x, gate, up, down)
+
+        def mlp_int8(x, gate, up, down, scales):
+            record_mlp(self.mlp_int8, x, gate)
+            return inner_int8(x, gate, up, down, scales)
 
         setattr(att_mod, att_name, attention)
         setattr(mlp_mod, mlp_name, mlp)
+        setattr(mlp_mod, int8_name, mlp_int8)
         return self
 
     def __exit__(self, *exc):
@@ -2112,6 +2161,52 @@ def check_spec_greedy(engine, frontend, da, mg):
                      sum(r["mlp_launches"] for r in records))
 
 
+def slots_with_stream(url, service, watch, da, mg, heads, seed0, stream_seed, what, n_layers):
+    """Three /api/v1/tts senders (seeds seed0 + i) and a stream among them
+    (`stream_seed`) on the slots of `service` at `heads`, watched by the
+    StreamWatch `watch`: all four must ride the slots, and both kernels'
+    launches (`da`, `mg`) equal the prediction from the batcher's stats.
+    Returns (record, launches)."""
+    batcher = service.batcher
+    watch.clear()
+    before, counts = dict(batcher.stats), (da.launch_count, mg.launch_count)
+    served = service.continuous_requests
+    t0 = time.time()
+    calls = [lambda i=i: tts(url, STAGGER[i], heads, seed=seed0 + i) for i in range(3)]
+    calls.insert(1, lambda: tts_stream(url, STREAM_TEXT, stream_seed, heads=heads))
+    threads, out, errors = start_threads(calls)
+    join_threads(threads, errors, what)
+    wall = time.time() - t0
+    launched = (da.launch_count - counts[0], mg.launch_count - counts[1])
+    prediction, done = spec_slots_prediction(batcher, before, n_layers)
+    if launched != prediction or 0 in launched:
+        fail(f"{what}: launches {launched}, predicted {prediction} from {done}")
+    if (service.continuous_requests - served != 4 or watch.sessions
+            or len(watch.slot_requests) != 4):
+        fail(f"{what}: continuous_requests +{service.continuous_requests - served}, lane "
+             f"{len(watch.sessions)}, {len(watch.slot_requests)} slot requests")
+    reqs = watch.slot_requests
+    (stream_rec,) = watch.streams
+    audio_s = (sum(o[0] for i, o in enumerate(out) if i != 1) + out[1].size) / SAMPLE_RATE
+    tokens = sum(len(r.stats["tokens"]) for r in reqs)
+    return dict(route="slots", requests=4, tokens=tokens, steps=done["steps"],
+                tokens_per_forward=tokens / max(done["forwards"], 1),
+                ms_per_step=1e3 * done["decode_s"] / max(done["steps"], 1), rtf=wall / audio_s,
+                spec_acceptance=[r.stats.get("spec_acceptance", -1.0) for r in reqs],
+                stream=stream_timing(stream_rec), batcher_stats=done), launched
+
+
+def engine_figures(recs, audio_s, spec=False):
+    """Tokens, steps, tokens per block forward, ms per decode step and RTF of
+    the engine calls `recs` (EngineCalls records) that made `audio_s` s."""
+    tokens, steps = sum(r["tokens"] for r in recs), sum(r["steps"] for r in recs)
+    forwards = steps if spec else sum(max(r["steps"] - 1, 0) for r in recs)
+    return dict(tokens=tokens, steps=steps, tokens_per_forward=tokens / max(forwards, 1),
+                ms_per_step=1e3 * sum(r["llm_time"] for r in recs) / max(steps, 1),
+                rtf=sum(r["total_time"] for r in recs) / audio_s,
+                spec_acceptance=[r["spec_acceptance"] for r in recs])
+
+
 def drive_spec(engine, frontend, da, mg):
     """Phase 5h: 5h.1 (check_spec_greedy), then, bf16, each route through a
     server on an engine built with the launcher's --spec-decode and, beside
@@ -2148,14 +2243,6 @@ def drive_spec(engine, frontend, da, mg):
         rec.update(attention_launches=launched[0], mlp_launches=launched[1])
         print("spec route", json.dumps(rec), flush=True)
         results["routes"].append(rec)
-
-    def engine_figures(recs, audio_s, spec):
-        tokens, steps = sum(r["tokens"] for r in recs), sum(r["steps"] for r in recs)
-        forwards = steps if spec else sum(max(r["steps"] - 1, 0) for r in recs)
-        return dict(tokens=tokens, steps=steps, tokens_per_forward=tokens / max(forwards, 1),
-                    ms_per_step=1e3 * sum(r["llm_time"] for r in recs) / max(steps, 1),
-                    rtf=sum(r["total_time"] for r in recs) / audio_s,
-                    spec_acceptance=[r["spec_acceptance"] for r in recs])
 
     try:
         for mode, eng in (("spec", spec_engine), ("plain", engine)):
@@ -2223,43 +2310,318 @@ def drive_spec(engine, frontend, da, mg):
                     launched)
 
                 tts(slots_url, "Warm up the decode slots.", SPEC_SLOT_HEADS, seed=2)
-                watch.clear()
-                before, counts = dict(batcher.stats), (da.launch_count, mg.launch_count)
-                served = slot_service.continuous_requests
-                t0 = time.time()
-                calls_ = [lambda i=i: tts(slots_url, STAGGER[i], SPEC_SLOT_HEADS,
-                                          seed=SPEC_SEED + 20 + i) for i in range(3)]
-                calls_.insert(1, lambda: tts_stream(slots_url, STREAM_TEXT, SPEC_SEED + 10,
-                                                    heads=SPEC_SLOT_HEADS))
-                threads, out, errors = start_threads(calls_)
-                join_threads(threads, errors, f"5h {mode} slots")
-                wall = time.time() - t0
-                launched = (da.launch_count - counts[0], mg.launch_count - counts[1])
-                prediction, done = spec_slots_prediction(batcher, before, n_layers)
-                if launched != prediction or 0 in launched:
-                    fail(f"5h {mode} slots: launches {launched}, predicted {prediction} from "
-                         f"{done}")
-                if (slot_service.continuous_requests - served != 4 or watch.sessions
-                        or len(watch.slot_requests) != 4):
-                    fail(f"5h {mode} slots: continuous_requests "
-                         f"+{slot_service.continuous_requests - served}, lane "
-                         f"{len(watch.sessions)}, {len(watch.slot_requests)} slot requests")
-                reqs = watch.slot_requests
-                (stream_rec,) = watch.streams
-                audio_s = (sum(o[0] for i, o in enumerate(out) if i != 1)
-                           + out[1].size) / SAMPLE_RATE
-                add(dict(mode=mode, route="slots", requests=4,
-                         tokens=sum(len(r.stats["tokens"]) for r in reqs), steps=done["steps"],
-                         tokens_per_forward=sum(len(r.stats["tokens"]) for r in reqs)
-                         / max(done["forwards"], 1),
-                         ms_per_step=1e3 * done["decode_s"] / max(done["steps"], 1),
-                         rtf=wall / audio_s,
-                         spec_acceptance=[r.stats.get("spec_acceptance", -1.0) for r in reqs],
-                         stream=stream_timing(stream_rec), batcher_stats=done), launched)
+                rec, launched = slots_with_stream(slots_url, slot_service, watch, da, mg,
+                                                  SPEC_SLOT_HEADS, SPEC_SEED + 20, SPEC_SEED + 10,
+                                                  f"5h {mode} slots", n_layers)
+                add(dict(mode=mode, **rec), launched)
     finally:
         for srv in servers.values():
             stop_servers(srv)
     return results, tuple(total)
+
+
+# phase 5i: weight-only int8 (--quantize int8)
+INT8_SOLO = {"heads1": ("Integer weights speak this sentence with a single head.", 1),
+             "heads2": ("Integer weights speak this sentence two tokens at a time.", 2),
+             "heads5": ("With five heads the integer weights decode this sentence.", 5)}
+INT8_SEED = 6161
+INT8_EVAL = dict(utterances=2, tokens=100)  # tools/eval_int8.py on the main weights
+
+
+class Int8Form:
+    """Kernel 2's int8 form under the name of the bf16 form's counter, so
+    that the launch helpers of phases 5-5h hold its launches."""
+
+    def __init__(self, mg):
+        self._mg = mg
+
+    @property
+    def launch_count(self):
+        return self._mg.int8_launch_count
+
+    @launch_count.setter
+    def launch_count(self, value):
+        self._mg.int8_launch_count = value
+
+
+def mlp_int8_bound(m: int, h: int, i: int, dtype) -> tuple:
+    """(bound_ms, bound_by) of the int8 form: bytes (x and the output in x's
+    type, the three int8 weights and their f32 scales, each once) over the
+    HBM rate vs operations (as `mlp_bound`) over the peak of x's type, in
+    which the weights are multiplied."""
+    nbytes = 2 * m * h * dtype.itemsize + 3 * h * i + 4 * (2 * i + h)
+    flops = 6 * m * h * i + 4 * m * i
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[str(dtype).replace("torch.", "")]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_mlp_gemv_int8(mg, flush, cases, dtypes=("bfloat16",)):
+    """Kernel 2's int8 form at each case (M, H, I) and dtype of x against
+    its plain version, twice (the two calls must be bit-equal), timed as in
+    phase 3b, beside the dense form of the kernel on the dequantized weights
+    (`dense_kernel_ms`, in x's dtype) and the matmul_q-form yardstick: three
+    products on the dequantized weights and the two elementwise ops
+    (`library_ms`). Returns the per-case records."""
+    import torch
+    import torch.nn.functional as F
+
+    from flowmirror_hydravox_tpu_torch.ops import quant
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    records = []
+    for dtype in (getattr(torch, d) for d in dtypes):
+        for m, h, i in cases:
+            x = torch.randn(m, h, generator=g, device="cuda").to(dtype)
+            pairs = [quant.quantize_weight_int8(
+                torch.randn(shape, generator=g, device="cuda") * 0.05)
+                for shape in ((h, i), (h, i), (i, h))]
+            weights, scales = [w for w, _ in pairs], tuple(sc for _, sc in pairs)
+            dense = [(w.float() * sc).to(dtype) for w, sc in pairs]
+            what = f"mlp_gemv_int8 {dtype} M{m} H{h} I{i}"
+            out = mg.mlp_gemv_int8_cuda(x, *weights, scales)
+            torch.cuda.synchronize()
+            ref = mg.mlp_gemv_ref(x, *weights, scales).float()
+            err = (out.float() - ref).abs().max().item()
+            lim = TOL[str(dtype).replace("torch.", "")] * (1.0 + ref.abs().max().item())
+            if not err <= lim:
+                fail(f"{what}: err {err} > {lim}")
+            if not torch.equal(mg.mlp_gemv_int8_cuda(x, *weights, scales), out):
+                fail(f"{what}: two calls differ")
+            rec = dict(
+                dtype=str(dtype).replace("torch.", ""), M=m, H=h, I=i, max_abs_err=err,
+                kernel_ms=time_ms(lambda: mg.mlp_gemv_int8_cuda(x, *weights, scales), flush),
+                ref_ms=time_ms(lambda: mg.mlp_gemv_ref(x, *weights, scales), flush),
+                dense_kernel_ms=time_ms(lambda: mg.mlp_gemv_cuda(x, *dense), flush),
+                library_ms=time_ms(lambda: (F.silu(x @ dense[0]) * (x @ dense[1])) @ dense[2],
+                                   flush),
+            )
+            rec["library_ratio"] = rec["kernel_ms"] / rec["library_ms"]
+            rec["dense_ratio"] = rec["kernel_ms"] / rec["dense_kernel_ms"]
+            rec["bound_ms"], rec["bound_by"] = mlp_int8_bound(m, h, i, dtype)
+            records.append(rec)
+            print("mlp_gemv_int8", json.dumps(rec), flush=True)
+    return records
+
+
+def check_int8_shapes(served, mg, flush, counted):
+    """5i's shape check: every shape of the int8 form that phase 5i launched
+    (`ServedShapes.mlp_int8`), at the dtype it served, in
+    `check_mlp_gemv_int8`. The recorded launches must cover the ones the
+    phase counted. Returns the records, each with its launches in 5i."""
+    recorded = sum(served.mlp_int8.values())
+    if not recorded >= counted > 0:
+        fail(f"5i: recorded launches of the int8 form {recorded}, counted {counted}")
+    out = []
+    for (dtype, m, h, i), launches in sorted(served.mlp_int8.items()):
+        (r,) = check_mlp_gemv_int8(mg, flush, [(m, h, i)], (dtype,))
+        out.append(dict(r, launches_5i=launches))
+        print("5i served shape mlp_int8", json.dumps(out[-1]), flush=True)
+    return out
+
+
+def check_int8_tree(params, what):
+    """Every matrix that ops/quant.py quantizes must be int8 beside its f32
+    scale."""
+    import torch
+
+    from flowmirror_hydravox_tpu_torch.ops import quant
+
+    groups = ((params["backbone"]["layers"], quant.QWEN2_LAYER_MATS),
+              (params["mtp_block"], quant.MTP_HEAD_MATS), (params, ("llm_decoder",)))
+    bad = [n for leaves, names in groups for n in names
+           if leaves[n].dtype != torch.int8
+           or getattr(leaves.get(n + quant.SCALE_SUFFIX), "dtype", None) != torch.float32]
+    if bad:
+        fail(f"{what}: not int8 with scales: {bad}")
+
+
+def drive_int8(engine, frontend, da, mg):
+    """Phase 5i: an engine built as the launcher's --quantize int8 builds it,
+    on the main (seed-0 bf16) weights, behind servers: /api/v1/tts on the
+    solo route at heads 1, 2 and 5, a burst of three coalesced into one
+    flash batch, a /api/v1/tts/stream on the lane, three /api/v1/tts with a
+    stream among them on 4 slots (1 reserved), and one request at heads 2 on
+    an int8 engine with --spec-decode. Each WAV as in phase 5; every route's
+    launches held to the prediction (decode attention; kernel 2's int8 form
+    in place of its dense form, which must not launch at all). Beside them,
+    the same seeded solo heads-2 request and slot load on the main engine
+    (ms per decode step, int8 against bf16). Last, phase 5e's llm.pt (seed
+    1) is hot-reloaded into the int8 slots while 3 senders keep them busy:
+    the live tree must be that checkpoint's, quantized. Returns (results,
+    launches (attention, dense MLP, int8 MLP), the int8 tree the routes
+    served)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from flowmirror_hydravox_tpu_torch import __main__ as launcher
+    from flowmirror_hydravox_tpu_torch.convert import torch_import
+    from flowmirror_hydravox_tpu_torch.ops import quant
+    from flowmirror_hydravox_tpu_torch.params import flatten_params, from_numpy_tree
+    from flowmirror_hydravox_tpu_torch.runtime.engine import Engine
+
+    cfg = engine.cfg.llm
+    n_layers = cfg.backbone.num_layers
+    int8c = Int8Form(mg)
+    args = launcher.parse_args(["--device", "cuda", "--max-tokens", str(MAX_TOKENS),
+                                "--quantize", "int8"])
+    t0 = time.time()
+    # the launcher's engine on the main weights, not drawn again; the spec
+    # engine shares its int8 tree (quantize_llm_params leaves int8 as it is)
+    q_engine = Engine(engine.cfg, engine.llm_params, engine.flow_params, engine.hift_params,
+                      max_tokens=args.max_tokens, device=engine.device, quantize=args.quantize)
+    spec_engine = Engine(engine.cfg, q_engine.llm_params, engine.flow_params, engine.hift_params,
+                         max_tokens=args.max_tokens, device=engine.device,
+                         quantize=args.quantize, spec_decode=True)
+    torch.cuda.synchronize()
+    int8_tree = q_engine.llm_params
+    check_int8_tree(int8_tree, "the int8 engine")
+    dense_bytes = quant.tree_bytes(engine.llm_params)[0]
+    int8_bytes, int8_leaf_bytes = quant.tree_bytes(int8_tree)
+    results = dict(build_s=time.time() - t0, routes=[], bf16_beside=[],
+                   llm_bytes={"bf16": dense_bytes, "int8": int8_bytes,
+                              "int8_leaves": int8_leaf_bytes})
+    print(f"int8: engines built in {results['build_s']:.1f} s; LLM weight bytes bf16 "
+          f"{dense_bytes}, int8 {int8_bytes} ({int8_leaf_bytes} of them int8)", flush=True)
+
+    slot_kwargs = {"continuous_slots": SLOTS, "continuous_head_num": 2,
+                   "continuous_reserve_stream": 1}
+    servers = start_servers(q_engine, frontend, window={}, burst={"batch_window": BURST_WINDOW},
+                            slots=slot_kwargs)
+    spec_servers = start_servers(spec_engine, frontend, window={})
+    dense_servers = start_servers(engine, frontend, window={}, slots=slot_kwargs)
+    window_url, burst_url, slots_url = (servers[k][2] for k in ("window", "burst", "slots"))
+    spec_url = spec_servers["window"][2]
+    slot_service = servers["slots"][0].RequestHandlerClass.service
+    batcher = slot_service.batcher
+    total, dense_total = [0, 0], [0, 0]  # (attention, int8 MLP); (attention, dense MLP)
+
+    def add(key, rec, launched, counts):
+        counts[0] += launched[0]
+        counts[1] += launched[1]
+        rec.update(attention_launches=launched[0], mlp_launches=launched[1])
+        print(f"int8 {key}", json.dumps(rec), flush=True)
+        results[key].append(rec)
+
+    try:
+        # first use of each server's route and of the int8 form, uncounted
+        for url in (window_url, spec_url, slots_url, *(v[2] for v in dense_servers.values())):
+            tts(url, "Warm up the integer weights.", 2, seed=1)
+        with StreamWatch(q_engine, [servers["window"][0].RequestHandlerClass.service,
+                                    slot_service]) as watch:
+            # the counts from here are 5i's int8 routes'
+            da.launch_count = mg.launch_count = mg.int8_launch_count = 0
+            with EngineCalls(q_engine) as calls:
+                for name, (text, heads) in INT8_SOLO.items():
+                    recs, launched, (samples, _) = held_worker(
+                        f"5i {name}", calls, da, int8c, cfg,
+                        lambda: tts(window_url, text, heads, seed=INT8_SEED), [("synthesize", 1)])
+                    add("routes", dict(route="solo", name=name, heads=heads,
+                                       **engine_figures(recs, samples / SAMPLE_RATE)),
+                        launched, total)
+                burst_service = servers["burst"][0].RequestHandlerClass.service
+                batched = burst_service.batched_requests
+
+                def burst():
+                    threads, out, errors = start_threads([
+                        lambda i=i: tts(burst_url, BURST[i], 2, seed=INT8_SEED + 1 + i)
+                        for i in range(len(BURST))])
+                    join_threads(threads, errors, "5i burst")
+                    return out
+
+                recs, launched, out = held_worker("5i flash batch", calls, da, int8c, cfg, burst,
+                                                  [("synthesize_batch", len(BURST))])
+                if burst_service.batched_requests - batched != len(BURST):
+                    fail("5i: the burst was not one coalesced group")
+                add("routes", dict(route="flash_batch", rows=len(BURST), **engine_figures(
+                    recs, sum(n for n, _ in out) / SAMPLE_RATE)), launched, total)
+
+            before = (da.launch_count, int8c.launch_count)
+            t0 = time.time()
+            pcm = tts_stream(window_url, STREAM_TEXT, INT8_SEED + 10)
+            wall = time.time() - t0
+            (session,) = watch.sessions
+            prediction = lane_launches(watch.sessions, 2, n_layers)
+            launched = (da.launch_count - before[0], int8c.launch_count - before[1])
+            if launched != prediction or 0 in launched:
+                fail(f"5i lane stream: launches {launched}, predicted {prediction}")
+            add("routes", dict(route="stream_lane", tokens=len(session["tokens"]),
+                               steps=session["steps"],
+                               ms_per_step=1e3 * session["decode_s"] / max(session["steps"], 1),
+                               rtf=wall / (pcm.size / SAMPLE_RATE),
+                               **stream_timing(watch.streams[0])), launched, total)
+            rec, launched = slots_with_stream(slots_url, slot_service, watch, da, int8c, 2,
+                                              INT8_SEED + 20, INT8_SEED + 10, "5i slots",
+                                              n_layers)
+            add("routes", rec, launched, total)
+        with EngineCalls(spec_engine) as calls:
+            recs, launched, (samples, _) = held_worker(
+                "5i spec heads2", calls, da, int8c, cfg,
+                lambda: tts(spec_url, SPEC_SOLO["heads2"][0], 2, seed=INT8_SEED),
+                [("synthesize", 1)], predicted_spec_launches)
+            add("routes", dict(route="spec_solo", heads=2, **engine_figures(
+                recs, samples / SAMPLE_RATE, spec=True)), launched, total)
+        counted = (da.launch_count, mg.int8_launch_count)
+        if counted != tuple(total) or mg.launch_count != 0 or 0 in counted:
+            fail(f"5i: (attention, int8 MLP) launches {counted}, the routes' {total}; the "
+                 f"dense MLP form launched {mg.launch_count} times")
+
+        # the same seeded solo request and slot load on the main (bf16) engine
+        dense_slot_service = dense_servers["slots"][0].RequestHandlerClass.service
+        with EngineCalls(engine) as calls:
+            text, heads = INT8_SOLO["heads2"]
+            recs, launched, (samples, _) = held_worker(
+                "5i bf16 heads2", calls, da, mg, cfg,
+                lambda: tts(dense_servers["window"][2], text, heads, seed=INT8_SEED),
+                [("synthesize", 1)])
+            add("bf16_beside", dict(route="solo", name="heads2", heads=heads,
+                                    **engine_figures(recs, samples / SAMPLE_RATE)),
+                launched, dense_total)
+        with StreamWatch(engine, [dense_slot_service]) as watch:
+            rec, launched = slots_with_stream(dense_servers["slots"][2], dense_slot_service, watch,
+                                              da, mg, 2, INT8_SEED + 20, INT8_SEED + 10,
+                                              "5i bf16 slots", n_layers)
+            add("bf16_beside", rec, launched, dense_total)
+
+        # phase 5e's llm.pt hot-reloaded into the busy int8 slots
+        tmp = pathlib.Path(tempfile.mkdtemp(prefix="hydravox_int8_"))
+        try:
+            sd = write_reference_checkpoints(engine.cfg, tmp, PT_SEED, ("llm",))["llm"]
+            before, counts = dict(batcher.stats), (da.launch_count, int8c.launch_count)
+            reload = reload_under_load(batcher, slots_url, str(tmp / "llm.pt"), 4000)
+            launched = (da.launch_count - counts[0], int8c.launch_count - counts[1])
+            prediction, done = slots_prediction(batcher, before, n_layers)
+            if launched != prediction or mg.launch_count != dense_total[1]:
+                fail(f"5i reload: launches {launched}, predicted {prediction} from {done}")
+            check_int8_tree(q_engine.llm_params, "the int8 engine after /api/v1/load_pt")
+            want = flatten_params(quant.quantize_llm_params(from_numpy_tree(torch_import.convert(
+                "llm", {k: v.float().numpy() for k, v in sd.items()}, engine.cfg), "cuda",
+                torch.bfloat16)))
+            live = flatten_params(q_engine.llm_params)
+            bad = sorted(k for k in want if k not in live or not torch.equal(live[k], want[k]))
+            if live.keys() != want.keys() or bad:
+                fail(f"5i reload: the live tree is not llm.pt's, quantized: {bad[:5]}")
+            total[0] += launched[0]
+            total[1] += launched[1]
+            results["reload"] = dict(reload, batcher_stats=done, attention_launches=launched[0],
+                                     mlp_launches=launched[1])
+            print("int8 reload", json.dumps(results["reload"]), flush=True)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    finally:
+        for srv in (servers, spec_servers, dense_servers):
+            stop_servers(srv)
+    del q_engine, spec_engine
+    torch.cuda.empty_cache()
+    solo = [r["ms_per_step"] for r in results["routes"] + results["bf16_beside"]
+            if r["route"] == "solo" and r["heads"] == 2]
+    slots = [r["ms_per_step"] for r in results["routes"] + results["bf16_beside"]
+             if r["route"] == "slots"]
+    print(f"5i ms per decode step, int8 against bf16: solo heads 2 {solo[0]:.3f} / "
+          f"{solo[1]:.3f}, slots {slots[0]:.3f} / {slots[1]:.3f}", flush=True)
+    return results, (total[0] + dense_total[0], dense_total[1], total[1]), int8_tree
 
 
 def main():
@@ -2286,6 +2648,7 @@ def main():
     from flowmirror_hydravox_tpu_torch.ops import decode_attention as da
     from flowmirror_hydravox_tpu_torch.ops import mlp_gemv as mg
     from flowmirror_hydravox_tpu_torch.ops import nvcc_build
+    from flowmirror_hydravox_tpu_torch.tools import eval_int8
 
     t0 = time.time()
     build_errors = []
@@ -2363,11 +2726,22 @@ def main():
     t0 = time.time()
     spec["kernels"] = check_served_shapes(served, da, mg, flush, spec_launched)
     phase_s["5h kernels"] = time.time() - t0
+    with ServedShapes(da, mg) as served:
+        int8, int8_launched, int8_tree = phase("5i", drive_int8, engine, frontend, da, mg)
+    t0 = time.time()
+    int8["eval_int8"] = eval_int8.evaluate(engine.cfg.llm, engine.llm_params, int8_tree,
+                                           device=engine.device, **INT8_EVAL)
+    print("eval_int8", json.dumps(int8["eval_int8"]), flush=True)
+    phase_s["5i eval"] = time.time() - t0
+    del int8_tree
+    t0 = time.time()
+    int8["kernels"] = check_int8_shapes(served, mg, flush, int8_launched[2])
+    phase_s["5i kernels"] = time.time() - t0
     phase_s["all"] = time.time() - t_start
     print("phase seconds", json.dumps({k: round(v, 1) for k, v in phase_s.items()}), flush=True)
     attention_launches, mlp_launches = (sum(x) for x in zip(
         launches, more, streamed, zs_launched, pt_launched, zsb_launched, solo_launched,
-        spec_launched))
+        spec_launched, int8_launched[:2]))
     del flush
 
     # the kernels line: each kernel at its serving shape (bf16; decode
@@ -2378,6 +2752,11 @@ def main():
                if c["dtype"] == "bfloat16" and c["B"] == 1 and c["T"] == 2 and c["cache_len"] == [255])
     mlp = next(c for c in mlp_cases
                if c["dtype"] == "bfloat16" and c["M"] == 2 and c["I"] == 4864)
+    # the int8 form at its serving shape, as 5i served it (solo at heads 2)
+    mlp_int8 = next((c for c in int8["kernels"]
+                     if c["dtype"] == "bfloat16" and c["M"] == 2 and c["I"] == 4864), None)
+    if mlp_int8 is None:
+        fail("5i served no bf16 M 2 x 4864 launch of the int8 form")
     kernels = {"kernels": [{
         "name": "decode_attention",
         "route": "cuda",
@@ -2404,6 +2783,20 @@ def main():
         "bound_by": mlp["bound_by"],
         "launch_floor_ms": launch_floor_ms,
         "library_ms": mlp["library_ms"],  # the torch.matmul form, a yardstick
+    }, {
+        "name": "mlp_gemv_int8",
+        "route": "cuda",
+        "source": "flowmirror_hydravox_tpu_torch/csrc/mlp_gemv.cu",
+        "replaces": "flowmirror_hydravox_tpu/ops/pallas_mlp.py:52",
+        "launches": int8_launched[2],
+        "max_abs_err": max(c["max_abs_err"] for c in int8["kernels"]),
+        "ms": mlp_int8["kernel_ms"],
+        "plain_ms": mlp_int8["ref_ms"],
+        "bound_ms": mlp_int8["bound_ms"],
+        "bound_by": mlp_int8["bound_by"],
+        "launch_floor_ms": launch_floor_ms,
+        # the torch.matmul form on the dequantized weights, a yardstick
+        "library_ms": mlp_int8["library_ms"],
     }]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -2412,7 +2805,7 @@ def main():
          "mlp_cases": mlp_cases, "backbone_rel_err": backbone_rel, "requests": requests,
          "serving": serving, "streaming": streaming, "zero_shot": zero_shot,
          "pt_weights": pt_weights, "zero_shot_batched": zs_batched, "solo_route": solo_rule,
-         "spec_decode": spec, "phase_s": phase_s,
+         "spec_decode": spec, "int8": int8, "phase_s": phase_s,
          **kernels},
         indent=1))
     print(json.dumps(kernels), flush=True)

@@ -4,7 +4,7 @@ subset).
   python -m flowmirror_hydravox_tpu_torch --api-port 8080 \
       [--tiny] [--model-dir DIR] [--max-tokens N] [--device cuda|cpu] \
       [--spk2info FILE] [--continuous-batching SLOTS] [--continuous-heads K] \
-      [--continuous-reserve N] [--spec-decode]
+      [--continuous-reserve N] [--spec-decode] [--quantize none|bf16|int8]
 
 --model-dir holds each model as `{name}.npz` in the JAX package's flat npz
 format or as the reference's `{name}.pt` (llm.pt / flow.pt / hift.pt,
@@ -45,6 +45,12 @@ Batching, as the JAX launcher's flags set it (:66-76):
 route (one utterance, the flash batch, the stream lane, the continuous
 slots), drafts with MTP heads 1..K-1 and verifies against head 0, the exact
 heads=1 output distribution; with slots it needs `--continuous-heads` >= 2.
+
+`--quantize int8` (default: the HYDRAVOX_QUANTIZE environment variable; JAX
+:62-65) serves the LLM as weight-only int8 with per-output-channel scales
+(ops/quant.py) on every route, the decode MLP through the int8 form of the
+MLP kernel; the flow and HiFT stay bf16 and f32. A hot reload
+(/api/v1/load_pt) quantizes the new LLM again.
 """
 
 from __future__ import annotations
@@ -88,6 +94,10 @@ def parse_args(argv=None):
     p.add_argument("--spec-decode", action="store_true",
                    help="self-speculative MTP decoding: heads 1..K-1 draft, head 0 verifies "
                         "(the exact heads=1 output distribution)")
+    p.add_argument("--quantize", default=os.environ.get("HYDRAVOX_QUANTIZE"),
+                   choices=[None, "none", "bf16", "int8"],
+                   help="weight-only LLM quantization (int8: per-output-channel scales; "
+                        "the flow and HiFT are not quantized)")
     return p.parse_args(argv)
 
 
@@ -145,7 +155,8 @@ def build(args):
     tokenizer = get_tokenizer(args.tokenizer_path)
     cfg, trees = load_models(args.tiny, args.model_dir, tokenizer, device)
     engine = Engine(cfg, trees["llm"], trees["flow"], trees["hift"],
-                    max_tokens=args.max_tokens, device=device, spec_decode=args.spec_decode)
+                    max_tokens=args.max_tokens, device=device, spec_decode=args.spec_decode,
+                    quantize=args.quantize)
     frontend = Frontend(cfg, tokenizer=tokenizer, device=device)
     if args.spk2info:
         load_registry(frontend, args.spk2info)

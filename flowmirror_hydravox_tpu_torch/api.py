@@ -14,9 +14,9 @@ Weights load as the launcher loads them (`{name}.npz`, else the reference's
 `StreamingSynthesizer.synthesize_stream`), `noise=` among them.
 
 `spec_decode=True` decodes at two heads or more by self-speculative MTP
-verification (JAX :46-48, :95). Not yet: int8 weights (`quantize=`) raise
-NotImplementedError until ROADMAP queue item 4 ports them; `prewarm` has
-no eager counterpart.
+verification (JAX :46-48, :95); `quantize="int8"` serves the LLM as
+weight-only int8 (JAX :42, :95; ops/quant.py). `prewarm` has no eager
+counterpart.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ import torch
 from .device import resolve_device
 from .frontend.frontend import Frontend, SpeakerInfo
 from .frontend.tokenizer import get_tokenizer
+from .ops.quant import check_mode
 from .runtime.engine import Engine
 
 logger = logging.getLogger("hydravox.api")
@@ -42,8 +43,8 @@ class HydraVox:
     Args:
       model_dir: llm / flow / hift as .npz or .pt; a missing model is random.
       tiny: the tiny smoke config instead of the full sizes.
-      quantize: not ported yet (ROADMAP queue item 4, int8 weights); anything
-        but None / "bf16" raises NotImplementedError.
+      quantize: None / "none" / "bf16" (the LLM as loaded) or "int8"
+        (weight-only int8 LLM, ops/quant.py); anything else raises ValueError.
       spec_decode: self-speculative MTP verification for every decode at
         two heads or more (heads 1..K-1 draft, head 0 verifies).
       tokenizer_path: an explicit tokenizer asset.
@@ -57,17 +58,17 @@ class HydraVox:
                  quantize: Optional[str] = None, tokenizer_path: Optional[str] = None,
                  spk2info: Optional[str] = None, max_tokens: int = 1024,
                  dtype=torch.bfloat16, spec_decode: bool = False, device="cuda"):
-        if quantize not in (None, "", "none", "bf16"):
-            raise NotImplementedError(f"quantize={quantize!r}: int8 serving is not ported yet "
-                                      f"(ROADMAP queue item 4, int8 weights)")
         from .__main__ import load_models, load_registry
+
+        check_mode(quantize)
 
         device = resolve_device(device)
         tokenizer = get_tokenizer(tokenizer_path)
         cfg, trees = load_models(tiny, model_dir, tokenizer, device, dtype)
         self.cfg = cfg
         self.engine = Engine(cfg, trees["llm"], trees["flow"], trees["hift"],
-                             max_tokens=max_tokens, device=device, spec_decode=spec_decode)
+                             max_tokens=max_tokens, device=device, spec_decode=spec_decode,
+                             quantize=quantize)
         self.frontend = Frontend(cfg, tokenizer=tokenizer, device=device)
         if spk2info:
             load_registry(self.frontend, spk2info)

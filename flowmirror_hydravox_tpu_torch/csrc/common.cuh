@@ -1,7 +1,8 @@
 // Helpers of the port's Hopper kernels (sm_90a): 16-byte vector loads with
-// f32 conversion, f32 stores to the storage type, cp.async, the bf16
-// tensor-core mma.sync tile, warp reductions, and the integer ticket that
-// elects the last block of a group to merge the group's partials.
+// f32 conversion, f32 stores to the storage type, cp.async, int8 to bf16
+// conversion, the bf16 tensor-core mma.sync tile, warp reductions, and the
+// integer ticket that elects the last block of a group to merge the group's
+// partials.
 //
 // Included by decode_attention.cu and mlp_gemv.cu; ops/nvcc_build.py
 // rebuilds a library when this header is newer than it.
@@ -56,6 +57,22 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four int8 values (the bytes of q, lowest first) as two bf16 pairs: lo
+// holds bytes 0 and 1 (byte 0 in the low half), hi bytes 2 and 3. Exact:
+// each byte, offset by 128, goes into the mantissa of 2^23 and the offset
+// is subtracted in f32; an integer of magnitude <= 128 is a bf16, the high
+// half of its f32.
+__device__ __forceinline__ void int8x4_to_bf16x2(uint32_t q, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = q ^ 0x80808080u;  // each byte as v + 128
+  constexpr float kBias = 8388736.f;   // 2^23 + 128
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - kBias;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - kBias;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - kBias;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - kBias;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
 }
 
 // D += A B for one m16n8k16 bf16 tile with f32 accumulators (PTX ISA

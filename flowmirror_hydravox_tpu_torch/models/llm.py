@@ -21,7 +21,10 @@ flowmirror_hydravox_tpu/models/llm.py on the SFT path.
 
 Every decode-step MLP (the MTP heads' and the backbone's) goes through
 `ops.mlp_gemv.mlp_gemv`, the fused SwiGLU GEMV kernel on the card; the
-prompt prefill's MLP stays torch.matmul.
+prompt prefill's MLP stays torch.matmul. On a weight-only int8 tree
+(ops/quant.py) the MLP takes the kernel's int8 form and every other product
+against an LLM leaf (the heads' v/o projections, `llm_decoder`) goes through
+`matmul_q`.
 
 The decode loops are Python loops with one host read per step (the sampled
 ids): it decides how many tokens to accept and whether to stop, as the JAX
@@ -35,7 +38,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..config import LLMConfig
-from ..ops.mlp_gemv import mlp_gemv
+from ..ops.quant import matmul_q
 from ..ops.sampling import (SamplingParams, ras_dist_rows, ras_sample_heads,
                             ras_sample_heads_batched, sample_dist)
 from . import qwen2
@@ -59,10 +62,10 @@ class SpecResult(NamedTuple):
 def _mtp_head_apply(head: dict, x, eps: float):
     """Single head, pointwise. x: (..., H) -> (..., H)."""
     attn_in = qwen2._rms_norm(x, head["input_layernorm"], eps)
-    v = attn_in @ head["v_proj_w"] + head["v_proj_b"]
-    x = x + v @ head["o_proj_w"]
+    v = matmul_q(attn_in, head, "v_proj_w") + head["v_proj_b"]
+    x = x + matmul_q(v, head, "o_proj_w")
     mlp_in = qwen2._rms_norm(x, head["post_attention_layernorm"], eps)
-    return x + mlp_gemv(mlp_in, head["gate_proj_w"], head["up_proj_w"], head["down_proj_w"])
+    return x + qwen2.decode_mlp(head, mlp_in)
 
 
 def mtp_logits(params: dict, cfg: LLMConfig, hidden, num_heads: int, first: int = 0):
@@ -73,7 +76,7 @@ def mtp_logits(params: dict, cfg: LLMConfig, hidden, num_heads: int, first: int 
         _mtp_head_apply({k: v[i] for k, v in params["mtp_block"].items()}, hidden, eps)
         for i in range(first, first + num_heads)
     ]
-    return (torch.stack(outs) @ params["llm_decoder"]).to(torch.float32)
+    return matmul_q(torch.stack(outs), params, "llm_decoder").to(torch.float32)
 
 
 def build_inference_prompt(params: dict, cfg: LLMConfig, text_token, text_len: int,

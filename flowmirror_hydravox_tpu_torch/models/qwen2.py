@@ -9,6 +9,10 @@ decode step's block goes through `mlp_gemv` (the fused SwiGLU GEMV kernel on
 the card); the prompt prefill keeps `_mlp_block` (torch.matmul), as the JAX
 package leaves that product to XLA. The caller names the route.
 
+A tree of weight-only int8 (ops/quant.py) serves as it is: every projection
+goes through `matmul_q`, and the decode MLP through the kernel's int8 form
+with the leaves' scales (`decode_mlp`).
+
 Unlike the JAX package, whose arrays are immutable, the cache tensors are
 updated in place: `forward_block_with_cache` writes the block into the same
 storage and returns a cache that shares it, with the new length.
@@ -24,6 +28,7 @@ import torch.nn.functional as F
 from ..config import Qwen2Config
 from ..ops.attention import decode_attention_dispatch
 from ..ops.mlp_gemv import mlp_gemv
+from ..ops.quant import MLP_MATS, matmul_q, mlp_scales
 from ..ops.rope import apply_rope_halved, rope_cos_sin
 
 
@@ -57,12 +62,22 @@ def embed_tokens(params: dict, token_ids):
 
 
 def _mlp_block(layer: dict, x):
-    gate = F.silu(x @ layer["gate_proj_w"])
-    return (gate * (x @ layer["up_proj_w"])) @ layer["down_proj_w"]
+    gate = F.silu(matmul_q(x, layer, "gate_proj_w"))
+    return matmul_q(gate * matmul_q(x, layer, "up_proj_w"), layer, "down_proj_w")
+
+
+def decode_mlp(layer: dict, x):
+    """A decode step's MLP through `mlp_gemv`, with the scales of int8 leaves."""
+    weights = [layer[n] for n in MLP_MATS]
+    scales = mlp_scales(layer)
+    if scales is None:
+        return mlp_gemv(x, *weights)
+    return mlp_gemv(x, *weights, scales=scales)
 
 
 def layer_slices(params: dict, n_layers: int):
-    """Per-layer views {name: leaf[i]} of the stacked layer leaves."""
+    """Per-layer views {name: leaf[i]} of the stacked layer leaves (the
+    `@q8scale` leaves of an int8 tree among them)."""
     return [{k: v[i] for k, v in params["layers"].items()} for i in range(n_layers)]
 
 
@@ -77,8 +92,8 @@ def forward_block_with_cache(params: dict, cfg: Qwen2Config, inputs_embeds, cach
     caller keeps cache.length + K <= S_max (indexing past the end raises).
 
     `decode_step` names the call site: True for the sampled tokens of a
-    decode step, whose MLP goes through `mlp_gemv`; False for a prompt
-    prefill, whose MLP stays `_mlp_block`.
+    decode step, whose MLP goes through `mlp_gemv` (`decode_mlp`); False for
+    a prompt prefill, whose MLP stays `_mlp_block`.
 
     Returns (hidden (B, K, H) after the final norm, cache with the new length).
     """
@@ -91,11 +106,11 @@ def forward_block_with_cache(params: dict, cfg: Qwen2Config, inputs_embeds, cach
     x = inputs_embeds
     for i, layer in enumerate(layer_slices(params, cfg.num_layers)):
         attn_in = _rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps)
-        q = (attn_in @ layer["q_proj_w"] + layer["q_proj_b"]).reshape(
+        q = (matmul_q(attn_in, layer, "q_proj_w") + layer["q_proj_b"]).reshape(
             b, kblk, cfg.num_heads, cfg.head_dim)
-        k = (attn_in @ layer["k_proj_w"] + layer["k_proj_b"]).reshape(
+        k = (matmul_q(attn_in, layer, "k_proj_w") + layer["k_proj_b"]).reshape(
             b, kblk, cfg.num_kv_heads, cfg.head_dim)
-        v = (attn_in @ layer["v_proj_w"] + layer["v_proj_b"]).reshape(
+        v = (matmul_q(attn_in, layer, "v_proj_w") + layer["v_proj_b"]).reshape(
             b, kblk, cfg.num_kv_heads, cfg.head_dim)
         q = apply_rope_halved(q, cos, sin)
         k = apply_rope_halved(k, cos, sin)
@@ -103,11 +118,10 @@ def forward_block_with_cache(params: dict, cfg: Qwen2Config, inputs_embeds, cach
         k_cache_l[rows, positions] = k.to(k_cache_l.dtype)
         v_cache_l[rows, positions] = v.to(v_cache_l.dtype)
         attn = decode_attention_dispatch(q.contiguous(), k_cache_l, v_cache_l, cache.length)
-        x = x + attn.reshape(b, kblk, -1) @ layer["o_proj_w"]
+        x = x + matmul_q(attn.reshape(b, kblk, -1), layer, "o_proj_w")
         mlp_in = _rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps)
         if decode_step:
-            x = x + mlp_gemv(mlp_in, layer["gate_proj_w"], layer["up_proj_w"],
-                             layer["down_proj_w"])
+            x = x + decode_mlp(layer, mlp_in)
         else:
             x = x + _mlp_block(layer, mlp_in)
 

@@ -17,10 +17,23 @@ of each column tile, elected by an integer ticket in a per-device buffer that
 the kernel leaves zeroed, so calls on one device must share one stream (the
 port's do).
 
+`mlp_gemv_int8_cuda` launches the kernel's int8-weight form, for the trees
+of weight-only int8 (ops/quant.py): gate, up and down int8 with their f32
+per-output-column scales (s_g, s_u, s_d), x float32 or bfloat16:
+
+    a = (x @ g8) * s_g;  b = (x @ u8) * s_u      (f32 sums)
+    out = round_T((round_T(silu(a) * b) @ d8) * s_d)
+
+This is the JAX `_mlp_block` over `matmul_q` (qwen2.py:110-112,
+llm.py:94-96), which rounds each product to x's dtype before its scale;
+the kernel rounds only h and the output. It has a launch counter of its
+own, `int8_launch_count`.
+
 `mlp_gemv` is the decode MLP of the port (every decode-step backbone block and
 every MTP head): the kernel for a CUDA tensor, the plain version for a CPU
-tensor. There is no fallback: a CUDA tensor launches the kernel or raises.
-The kernel is built at first use (ops/nvcc_build.py) and loaded with ctypes.
+tensor, the int8 form when the weights are int8 (`scales` given). There is no
+fallback: a CUDA tensor launches the kernel or raises. The kernel is built at
+first use (ops/nvcc_build.py) and loaded with ctypes.
 """
 
 from __future__ import annotations
@@ -48,16 +61,20 @@ _TARGET_BLOCKS = {1: 132, 2: 132, 5: 196}
 _MAX_CHUNK = 1024
 
 launch_count = 0  # kernel launches through mlp_gemv_cuda
+int8_launch_count = 0  # launches of the int8 form, through mlp_gemv_int8_cuda
 _lib = None
 _lib_lock = threading.Lock()
 
 
-def mlp_gemv_ref(x, gate, up, down):
-    """Plain version of the kernel's contract. x (M, H) -> (M, H) in x's dtype."""
-    a = x.float() @ gate.float()
-    b = x.float() @ up.float()
+def mlp_gemv_ref(x, gate, up, down, scales=None):
+    """Plain version of the kernel's contract. x (M, H) -> (M, H) in x's
+    dtype; with `scales` (s_g, s_u, s_d), the int8 form's."""
+    s_g, s_u, s_d = ((s.reshape(-1).float() for s in scales) if scales is not None
+                     else (1.0, 1.0, 1.0))
+    a = (x.float() @ gate.float()) * s_g
+    b = (x.float() @ up.float()) * s_u
     h = (F.silu(a) * b).to(x.dtype)
-    return (h.float() @ down.float()).to(x.dtype)
+    return ((h.float() @ down.float()) * s_d).to(x.dtype)
 
 
 def build_library(force: bool = False):
@@ -76,6 +93,10 @@ def _library():
             lib.hv_mlp_gemv.restype = ctypes.c_int
             lib.hv_mlp_gemv.argtypes = (
                 [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            )
+            lib.hv_mlp_gemv_int8.restype = ctypes.c_int
+            lib.hv_mlp_gemv_int8.argtypes = (
+                [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
             )
             lib.hv_mlp_gemv_cols_per_block.restype = ctypes.c_int
             lib.hv_mlp_gemv_cols_per_block.argtypes = [ctypes.c_int, ctypes.c_int]
@@ -105,19 +126,16 @@ def plan_splits(m: int, hdim: int, idim: int, row_groups: tuple, cols_per_block:
     return row_groups[k], row_blocks, -(-idim // chunk), chunk
 
 
-def mlp_gemv_cuda(x, gate, up, down):
-    """Launch the Hopper kernel. x (M, H), gate/up (H, I), down (I, H), all
-    contiguous, 16-byte aligned, on one CUDA device and of one dtype (float32
-    or bfloat16); M >= 1, I >= 1, H a multiple of 8. Returns (M, H) in x's
-    dtype."""
-    global launch_count
+def _check(x, gate, up, down, weight_dtype):
+    """The inputs the kernel takes, else raise. Returns (M, H, I)."""
     if not x.is_cuda:
-        raise ValueError("mlp_gemv_cuda needs CUDA tensors")
+        raise ValueError("the MLP GEMV kernel needs CUDA tensors")
     for name, w in (("gate", gate), ("up", up), ("down", down)):
         if w.device != x.device:
             raise ValueError(f"{name} is on {w.device}, x on {x.device}")
-    if x.dtype not in _DTYPES or any(w.dtype != x.dtype for w in (gate, up, down)):
-        raise TypeError(f"x/gate/up/down must share float32 or bfloat16, got "
+    want = x.dtype if weight_dtype is None else weight_dtype
+    if x.dtype not in _DTYPES or any(w.dtype != want for w in (gate, up, down)):
+        raise TypeError(f"x must be float32 or bfloat16 and gate/up/down {want}, got "
                         f"{x.dtype}/{gate.dtype}/{up.dtype}/{down.dtype}")
     if x.dim() != 2 or gate.dim() != 2:
         raise ValueError(f"bad shapes x {tuple(x.shape)} gate {tuple(gate.shape)}")
@@ -134,7 +152,10 @@ def mlp_gemv_cuda(x, gate, up, down):
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    return m, hdim, idim
 
+
+def _launch(entry, x, gate, up, down, scale_ptrs, m, hdim, idim):
     lib, cols, k_step = _library()
     groups, cols = _ROW_GROUPS[x.dtype], cols[x.dtype]
     mg, row_blocks, splits, chunk = plan_splits(m, hdim, idim, groups, cols, k_step)
@@ -145,26 +166,62 @@ def mlp_gemv_cuda(x, gate, up, down):
             if splits > 1 else None)
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.hv_mlp_gemv(
+    rc = getattr(lib, entry)(
         _DTYPES[x.dtype], x.data_ptr(), gate.data_ptr(), up.data_ptr(), down.data_ptr(),
-        h.data_ptr(), part.data_ptr() if part is not None else None,
+        *scale_ptrs, h.data_ptr(), part.data_ptr() if part is not None else None,
         nvcc_build.ticket_buffer(x.device, row_blocks * tiles).data_ptr(), out.data_ptr(),
         m, hdim, idim, ldh, mg, splits, chunk, stream,
     )
     if rc != 0:
         raise RuntimeError(f"mlp-gemv kernel launch failed (code {rc})")
+    return out
+
+
+def mlp_gemv_cuda(x, gate, up, down):
+    """Launch the Hopper kernel. x (M, H), gate/up (H, I), down (I, H), all
+    contiguous, 16-byte aligned, on one CUDA device and of one dtype (float32
+    or bfloat16); M >= 1, I >= 1, H a multiple of 8. Returns (M, H) in x's
+    dtype."""
+    global launch_count
+    m, hdim, idim = _check(x, gate, up, down, None)
+    out = _launch("hv_mlp_gemv", x, gate, up, down, (), m, hdim, idim)
     launch_count += 1
     return out
 
 
-def mlp_gemv(x, gate, up, down):
+def mlp_gemv_int8_cuda(x, gate, up, down, scales):
+    """Launch the kernel's int8 form. x (M, H) float32 or bfloat16; gate/up
+    (H, I), down (I, H) int8, contiguous and 16-byte aligned; `scales` (s_g,
+    s_u, s_d) f32 on x's device, contiguous, of I, I and H elements ((1, O)
+    or (O,)). Returns (M, H) in x's dtype."""
+    global int8_launch_count
+    m, hdim, idim = _check(x, gate, up, down, torch.int8)
+    if scales is None or len(scales) != 3:
+        raise ValueError("the int8 form needs the (gate, up, down) scales")
+    for name, s, n in zip(("s_g", "s_u", "s_d"), scales, (idim, idim, hdim)):
+        if s.dtype != torch.float32 or s.device != x.device:
+            raise TypeError(f"{name} must be float32 on {x.device}, got {s.dtype} on {s.device}")
+        if s.numel() != n or s.shape[-1] != n or not s.is_contiguous():
+            raise ValueError(f"{name} must be {n} contiguous scales, got {tuple(s.shape)}")
+    out = _launch("hv_mlp_gemv_int8", x, gate, up, down, [s.data_ptr() for s in scales],
+                  m, hdim, idim)
+    int8_launch_count += 1
+    return out
+
+
+def mlp_gemv(x, gate, up, down, scales=None):
     """The decode MLP on rows (..., H): the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors; the int8 form when the weights are int8, which
+    then need their `scales` (s_g, s_u, s_d)."""
     rows = x.reshape(-1, x.shape[-1])
+    quantized = gate.dtype == torch.int8
+    if quantized != (scales is not None):
+        raise ValueError("int8 weights take their scales, and only int8 weights do")
     if x.is_cuda:
-        out = mlp_gemv_cuda(rows.contiguous(), gate, up, down)
+        out = (mlp_gemv_int8_cuda(rows.contiguous(), gate, up, down, scales) if quantized
+               else mlp_gemv_cuda(rows.contiguous(), gate, up, down))
     elif x.device.type == "cpu":
-        out = mlp_gemv_ref(rows, gate, up, down)
+        out = mlp_gemv_ref(rows, gate, up, down, scales)
     else:
         raise ValueError(f"the MLP GEMV has no path for device {x.device}")
     return out.reshape(x.shape)

@@ -26,7 +26,10 @@ is known by then. `fused=False` gives the two-stage rule (always the
 realised bucket). `spec_decode=True` decodes every request at two heads or
 more by self-speculative MTP verification (`llm.generate_speculative` and
 `generate_batched_speculative`, engine.py:227-245, :388-405), the exact
-heads=1 output distribution.
+heads=1 output distribution. `quantize="int8"` serves the LLM as
+weight-only int8 (ops/quant.py; engine.py:178-197): every route then runs
+on the int8 tree, the decode MLP through the int8 form of the MLP kernel;
+the flow and HiFT are never quantized.
 
 Metrics follow the reference definitions (infer_speech_model.py:563-604):
 tps = tokens / llm_time, rtf = total_time / audio seconds. The two stages are
@@ -53,8 +56,9 @@ from ..models import flow as flow_model
 from ..models import hift as hift_model
 from ..models import llm as llm_model
 from ..noise import SeededVocoder, StreamNoise, TorchNoise
+from ..ops.quant import check_mode, quantize_llm_params
 from ..ops.sampling import SamplingParams
-from ..params import cast_like
+from ..params import cast_like, from_numpy_tree
 
 logger = logging.getLogger("hydravox.engine")
 
@@ -110,14 +114,23 @@ class Engine:
     1..K-1 and verify against head 0 (engine.py:116-124): one utterance
     (`llm.generate_speculative`), the flash batch
     (`generate_batched_speculative`), streams (`generate_spec_until`) and,
-    through the server, the continuous slots."""
+    through the server, the continuous slots.
+
+    `quantize`: None, "none" or "bf16" keeps the LLM tree as given; "int8"
+    quantizes it (`ops.quant.quantize_llm_params`), and a hot reload
+    (`load_weights`) quantizes the new tree again; anything else raises
+    ValueError (engine.py:178-186)."""
 
     def __init__(self, cfg: HydraVoxConfig, llm_params, flow_params, hift_params,
                  max_tokens: int = 1024, device="cuda", fused: bool = True,
-                 spec_decode: bool = False):
+                 spec_decode: bool = False, quantize: Optional[str] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.llm_params = llm_params
+        self.quantize = quantize
+        # the dtype a reloaded LLM tree is cast to before the policy applies
+        # (engine.py:133-137), read before quantization rewrites the tree
+        self._llm_dtype = llm_params["backbone"]["embed_tokens"].dtype
+        self.llm_params = self._prepare_llm_params(llm_params)
         self.flow_params = flow_params
         self.hift_params = hift_params
         self.max_tokens = max_tokens
@@ -163,15 +176,27 @@ class Engine:
                 self._streaming = StreamingSynthesizer(self)
             return self._streaming
 
+    def _prepare_llm_params(self, params: dict) -> dict:
+        """The LLM tree under the engine's `quantize` policy."""
+        check_mode(self.quantize)
+        return quantize_llm_params(params) if self.quantize == "int8" else params
+
     def load_weights(self, trees: dict, hold=contextlib.nullcontext()):
         """Hot reload (POST /api/v1/load_pt): `trees` ({llm, flow, hift}:
-        numpy trees in the JAX layout) go to the engine's device, each leaf
-        at the dtype of the live leaf it replaces, then are swapped in
-        together inside `hold` (the continuous batcher holds its slots
-        between two ticks there). A call already running keeps the trees it
-        started with."""
-        new = {name: cast_like(tree, getattr(self, f"{name}_params"), self.device)
-               for name, tree in trees.items()}
+        numpy trees in the JAX layout) go to the engine's device and are
+        swapped in together inside `hold` (the continuous batcher holds its
+        slots between two ticks there). The LLM is cast to the dtype the
+        engine was built with and then takes the `quantize` policy again
+        (JAX `set_llm_params`, engine.py:188-197); the flow and HiFT take
+        each leaf at the dtype of the live leaf it replaces. A call already
+        running keeps the trees it started with."""
+        new = {}
+        for name, tree in trees.items():
+            if name == "llm":
+                new[name] = self._prepare_llm_params(
+                    from_numpy_tree(tree, self.device, self._llm_dtype))
+            else:
+                new[name] = cast_like(tree, getattr(self, f"{name}_params"), self.device)
         with hold:
             for name, tree in new.items():
                 setattr(self, f"{name}_params", tree)

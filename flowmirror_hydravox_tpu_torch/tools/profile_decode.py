@@ -1,7 +1,7 @@
 """Where one full-width SFT synthesis spends its time on the card.
 
     python -m flowmirror_hydravox_tpu_torch.tools.profile_decode [--heads 2] [--max-tokens 200] \
-        [--synth-overlap REPS]
+        [--synth-overlap REPS] [--quantize int8]
 
 Needs a CUDA GPU. Builds the engine as the server's launcher does (default
 HydraVoxConfig(), random weights: LLM and flow bf16, HiFT f32), runs one warm-up
@@ -15,6 +15,15 @@ hand-written kernel's device time and share of the LM stage (decode
 attention; the fused MLP GEMV), and the host time of one call of each at its
 serving shape. Device numbers are null when the profiler saw no device
 activity.
+
+`--quantize int8` traces the same synthesis (same weights, text and seed)
+again on an engine built with `quantize="int8"` (ops/quant.py), beside the
+dense one: for each, the LLM weight bytes a decode step reads, wall and
+device-busy ms per step, the LM stage's idle share and launches per step
+(under "int8"; the dense figures stay at the top level). It then times
+four seeded requests on a 4-slot `ContinuousBatcher` at `--heads`, dense,
+int8, int8, dense, in this process alone (no server): ms per slot step
+(`int8.slot_steps`).
 
 `--synth-overlap REPS` adds why the continuous batcher synthesises on its
 decode thread, between chunks, where the JAX batcher has a synthesis thread:
@@ -40,9 +49,10 @@ import torch
 from torch.autograd import DeviceType
 
 from .. import __main__ as launcher
+from ..ops.quant import tree_bytes
 from ..ops.sampling import SamplingParams
 from ..runtime.continuous import ContinuousBatcher
-from ..runtime.engine import SynthesisResult
+from ..runtime.engine import Engine, SynthesisResult
 
 TEXT = "The quick brown fox jumps over the lazy dog and then keeps on running."
 OUT = os.path.join("chiprun_out", "profile_decode.json")
@@ -121,6 +131,16 @@ def analyse(prof, res: SynthesisResult, top: int = 15) -> dict:
     }
 
 
+def weight_bytes_per_step(params: dict, heads: int, head_num: int) -> int:
+    """LLM weight bytes a decode step at `heads` heads reads: the backbone's
+    layers, the live leaves of `heads` MTP heads (their q/k projections are
+    never multiplied) and the decoder, scales included."""
+    mtp = sum(tree_bytes(v)[0] for k, v in params["mtp_block"].items()
+              if not k.startswith(("q_proj", "k_proj")))
+    decoder = sum(tree_bytes(v)[0] for k, v in params.items() if k.startswith("llm_decoder"))
+    return tree_bytes(params["backbone"]["layers"])[0] + mtp * heads // head_num + decoder
+
+
 def host_us(fn, n: int = 200) -> float:
     """Host time of one call, launches queued without waiting for the card."""
     fn()
@@ -150,6 +170,24 @@ def wrapper_host_us() -> dict:
             "mlp_gemv": host_us(lambda: mlp_gemv(x, gate, up, down))}
 
 
+def slot_run(engine, rows, heads: int = 2, side=None) -> dict:
+    """Seeded requests `rows` (request i on seed i) on a 4-slot
+    ContinuousBatcher at `heads`, with `side` (a thread) running meanwhile
+    when given: the batcher's steps, the tokens and its ms per slot step."""
+    batcher = ContinuousBatcher(engine, slots=4, head_num=heads,
+                                sampling=SamplingParams.make(0.9, 10, 24, 0.2))
+    if side is not None:
+        side.start()
+    try:
+        reqs = [batcher.submit(r, noise=engine.noise_for(i)) for i, r in enumerate(rows)]
+        outs = [batcher.result(r, timeout=600.0)[1] for r in reqs]
+    finally:
+        batcher.shutdown()
+    st = batcher.stats
+    return dict(steps=st["steps"], tokens=[len(o["tokens"]) for o in outs],
+                ms_per_step=1e3 * st["decode_s"] / st["steps"])
+
+
 def synth_overlap(engine, frontend, reps: int) -> dict:
     """The --synth-overlap experiment (module docstring)."""
     rows = [frontend.extract_text_tokens(t) for t in SLOT_TEXTS]
@@ -169,22 +207,14 @@ def synth_overlap(engine, frontend, reps: int) -> dict:
             while not stop.is_set():
                 synth_ms.append(synth())
 
-        side = threading.Thread(target=synth_loop, daemon=True)
-        batcher = ContinuousBatcher(engine, slots=4, head_num=2,
-                                    sampling=SamplingParams.make(0.9, 10, 24, 0.2))
-        if overlap:
-            side.start()
+        side = threading.Thread(target=synth_loop, daemon=True) if overlap else None
         try:
-            reqs = [batcher.submit(r, noise=engine.noise_for(i)) for i, r in enumerate(rows)]
-            outs = [batcher.result(r, timeout=600.0)[1] for r in reqs]
+            run = slot_run(engine, rows, side=side)
         finally:
             stop.set()
-            if overlap:
+            if side is not None:
                 side.join(timeout=60)
-            batcher.shutdown()
-        st = batcher.stats
-        return dict(overlap=overlap, steps=st["steps"], tokens=[len(o["tokens"]) for o in outs],
-                    ms_per_step=1e3 * st["decode_s"] / st["steps"], synth_ms_overlapped=synth_ms)
+        return dict(overlap=overlap, **run, synth_ms_overlapped=synth_ms)
 
     decode(False)  # warm-up
     synth_alone = [synth() for _ in range(3)]
@@ -192,38 +222,61 @@ def synth_overlap(engine, frontend, reps: int) -> dict:
     return dict(synth_tokens=SYNTH_TOKENS, synth_ms_alone=synth_alone, runs=runs)
 
 
+def slots_int8(engines: dict, frontend, heads: int) -> list:
+    """ms per slot step of the dense and the int8 engine, alone in this
+    process (no server), in the order dense, int8, int8, dense."""
+    rows = [frontend.extract_text_tokens(t) for t in SLOT_TEXTS]
+    for eng in engines.values():
+        slot_run(eng, rows, heads)  # warm-up
+    return [dict(mode=mode, **slot_run(engines[mode], rows, heads))
+            for mode in ("dense", "int8", "int8", "dense")]
+
+
 def main(argv=None):
     p = argparse.ArgumentParser("profile_decode")
     p.add_argument("--heads", type=int, default=2)
     p.add_argument("--max-tokens", type=int, default=200)
     p.add_argument("--synth-overlap", type=int, default=0, metavar="REPS")
+    p.add_argument("--quantize", default=None, choices=["int8"])
     args = p.parse_args(argv)
 
     engine, frontend = launcher.build(launcher.parse_args(
         ["--device", "cuda", "--max-tokens", str(args.max_tokens)]))
     feats = frontend.frontend_sft(frontend.text_normalize(TEXT, split=False)[0], "default")
 
-    def synth():
-        res = engine.synthesize(feats["text_tokens"], feats["tts_text_len"],
-                                inference_head_num=args.heads,
-                                spk_embedding=feats["spk_embedding"])
-        torch.cuda.synchronize()
-        return res
+    def trace(eng) -> dict:
+        def synth():
+            res = eng.synthesize(feats["text_tokens"], feats["tts_text_len"],
+                                 inference_head_num=args.heads,
+                                 spk_embedding=feats["spk_embedding"], noise=eng.noise_for(0))
+            torch.cuda.synchronize()
+            return res
 
-    synth()  # warm-up: first-use library set-up stays out of the trace
-    t0 = time.time()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        res = synth()
+        synth()  # warm-up: first-use library set-up stays out of the trace
+        t0 = time.time()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            res = synth()
+        return {"traced_wall_s": time.time() - t0,
+                "llm_time_s": res.llm_time, "synth_time_s": res.synth_time,
+                "weight_bytes_per_step": weight_bytes_per_step(
+                    eng.llm_params, args.heads, eng.cfg.llm.head_num),
+                **analyse(prof, res)}
+
     report = {
         "card": _card(),
         "config": "HydraVoxConfig()",
         "heads": args.heads, "max_tokens": args.max_tokens,
-        "traced_wall_s": time.time() - t0,
-        "llm_time_s": res.llm_time, "synth_time_s": res.synth_time,
-        **analyse(prof, res),
+        **trace(engine),
         "host_us_per_call": wrapper_host_us(),
     }
+    if args.quantize == "int8":
+        int8_engine = Engine(engine.cfg, engine.llm_params, engine.flow_params,
+                             engine.hift_params, max_tokens=engine.max_tokens,
+                             device=engine.device, quantize="int8")
+        report["int8"] = trace(int8_engine)
+        report["int8"]["slot_steps"] = slots_int8({"dense": engine, "int8": int8_engine},
+                                                  frontend, args.heads)
     if args.synth_overlap:
         report["synth_overlap"] = synth_overlap(engine, frontend, args.synth_overlap)
     os.makedirs(os.path.dirname(OUT), exist_ok=True)

@@ -11,7 +11,8 @@ CPU):
   `HydraVox(spec_decode=True)` on the same trees and key: wav within
   WAV_LSB int16 steps (the tokens of a speculative decode differ from a
   blind multi-head one's on the same key);
-- `quantize` raises until ROADMAP queue item 4 (int8 weights) ports it;
+- `quantize` takes the JAX modes (int8 serves: tests/test_torch_quant_serving.py),
+  and an unknown one raises ValueError before any weights load;
 - `GET /api/v1/devices`, `GET /api/v1/samples` and `POST
   /api/v1/samples/load`, a path outside the samples root giving 400."""
 
@@ -92,9 +93,9 @@ def test_inference_zero_shot_matches_jax(hydravox, tmp_path):
     assert chunks and all(np.isfinite(c).all() and len(c) > 0 for c in chunks)
 
 
-@pytest.mark.parametrize("kwargs", [dict(quantize="int8")], ids=["quantize"])
+@pytest.mark.parametrize("kwargs", [dict(quantize="int4")], ids=["quantize"])
 def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue item 4, int8 weights"):
+    with pytest.raises(ValueError, match="unknown quantize mode 'int4'"):
         HydraVox(tiny=True, device="cpu", **kwargs)
 
 
