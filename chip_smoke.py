@@ -172,7 +172,33 @@ exits non-zero without either. Phases, each fatal on failure:
      against its plain version, timed beside the dense kernel on the
      dequantized weights and the torch.matmul yardstick, with its byte
      bound;
-  6. the kernels line (launches: phases 5 to 5i; the int8 form's: 5i), the
+  5j. training on the card (train/, tools/bench_train.py's shapes): first
+     one llm_train_step and one flow_train_step at f32 on the card and on
+     the CPU from the same seeded weights, batch and draws (the full-width
+     LLM at 2 layers and 2 MTP heads, the DiT at 2 blocks): loss and grad
+     norm within 1e-4 relative, params within 1e-4 x (1 + |p|), the
+     gradients (Adam's first moments) within 1e-4 of each leaf's largest;
+     then, bf16, the full LLM (24 layers, 5 heads, the tokenizer's text
+     vocab) through train_llm's loop for 12 steps at B 16, Lt 64, Ls 256,
+     batches collated by the port's LLMCollator from seeded rows in memory:
+     every loss and grad norm finite, after step 1 a gradient on every leaf
+     (the heads' MLPs included; none on the heads' never-multiplied q/k),
+     and no kernel launch in any training step; the same run cut after
+     step 4 and resumed from its saved train state into a fresh loop for
+     two steps, whose losses and, after step 6, whose optimizer count and
+     moment norms must be the uninterrupted run's within 2e-2; 30 steps at a
+     constant 1e-4 on one batch drawn from 64 codes must take the loss
+     below 0.9 x its first value. The same for the flow (DiT 22 x 1024,
+     dropout 0.1, CFG rate 0.2, B 16, Lt 128) through train_flow's loop:
+     every leaf but rand_noise trained, rand_noise decayed by the optimizer
+     alone (1 - lr x wd a step, held to the schedule), and on one batch
+     whose mel is a per-code template of its tokens, the mean loss of steps
+     21-30 below that of steps 1-10. Both trained trees are written as npz,
+     loaded through the launcher's load_models (seeded HiFT) and served: one
+     /api/v1/tts at heads 2, its launches held to the prediction. Printed:
+     ms per step (median of steps 3-12), tokens (mel frames) per second,
+     MFU (6 x matmul params x tokens over 989 TFLOP/s) and peak memory;
+  6. the kernels line (launches: phases 5 to 5j; the int8 form's: 5i), the
      card line, and the final JSON line.
 
 TF32 is off for matmuls and cuDNN convs throughout, so f32 is full f32 in
@@ -2624,6 +2650,423 @@ def drive_int8(engine, frontend, da, mg):
     return results, (total[0] + dense_total[0], dense_total[1], total[1]), int8_tree
 
 
+# phase 5j: training on the card
+TRAIN_SEED = 31
+TRAIN_LLM = (16, 64, 256)  # B, text bucket, speech bucket: tools/bench_train.py's first point
+TRAIN_FLOW = (16, 128)  # B, token bucket (256 mel frames)
+TRAIN_STEPS = 12
+TRAIN_TIMED = slice(2, None)  # steps 3-12
+FIXED_STEPS = 30  # the fixed-batch learning checks, constant learning rate
+FIXED_CODES = 64  # speech codes of the fixed LLM batch and of the flow's mel templates
+TRAIN_LR = 1e-4
+# the card-vs-CPU step: Adam's first step moves every element with a non-zero
+# gradient by up to +-lr, and an element whose gradient lies within the two
+# devices' rounding of zero may move the other way on the other device: at
+# 1e-5 that is inside 1e-4 x (1 + |p|); the gradients themselves are held
+# through Adam's first moment (mu = 0.1 g) within 1e-4 of each leaf's largest
+CROSS_LR = 1e-5
+CROSS_TOL = 1e-4
+# the MTP heads' q/k projections: kept for the checkpoint layout, never
+# multiplied (the reduced length-1 head), so no gradient reaches them, in JAX
+# as here
+MTP_DEAD = tuple(f"mtp_block.{p}_proj_{w}" for p in "qk" for w in "wb")
+RESUME_AT = 4  # the train state saved after this step, resumed into a fresh loop
+RESUME_TOL = 2e-2  # bf16, and the embedding backward's atomics are not bit-stable
+TRAIN_TEXT = "These weights were trained on the card a moment ago."
+TRAIN_WORDS = ("speech model token voice sound train step card batch loss weight layer head "
+               "text audio frame learn rate norm clip decay stream slot noise flow mel wave "
+               "pitch sample chunk cache query key value gate down up").split()
+
+
+class DrawsOn:
+    """A flow-loss noise source that draws on the CPU from `seed` and hands
+    the draws over on `device`, so that two devices train on the same
+    numbers."""
+
+    def __init__(self, seed, device):
+        import torch
+
+        from flowmirror_hydravox_tpu_torch.noise import TorchNoise
+
+        self.source = TorchNoise(torch.Generator().manual_seed(seed))
+        self.device = device
+
+    def flow_loss(self, *args):
+        d = self.source.flow_loss(*args)
+        keep = None if d.keep is None else [tuple(m.to(self.device) for m in pair)
+                                            for pair in d.keep]
+        return type(d)(*(x.to(self.device) for x in d[:5]), keep)
+
+    def split(self, k):
+        return [self] * k
+
+
+def llm_rows(rng, n_rows, llm_cfg, tokens=None, text_words=(34, 44), speech_len=(200, 257)):
+    """Seeded LLM rows: English texts of `text_words` words (the
+    whisper-tiktoken tokenizer makes 35-45 tokens of them) and speech
+    tokens from `tokens` (default every code), `speech_len` long."""
+    codes = np.arange(llm_cfg.speech_token_size) if tokens is None else tokens
+    return [{"text": " ".join(rng.choice(TRAIN_WORDS, int(rng.integers(*text_words)))) + ".",
+             "speech_token": rng.choice(codes, int(rng.integers(*speech_len))).tolist()}
+            for _ in range(n_rows)]
+
+
+def flow_rows(rng, n_rows, flow_cfg, templates=None, token_len=(100, 129)):
+    """Seeded flow rows of 100-128 tokens: the mel a fixed (2, 80) template
+    per code plus noise of 0.1 when `templates` (codes, 2, 80) is given (the
+    codes then from its rows), else standard normal; a random embedding."""
+    rows = []
+    for _ in range(n_rows):
+        n = int(rng.integers(*token_len))
+        if templates is None:
+            toks = rng.integers(0, flow_cfg.vocab_size, n)
+            mel = rng.standard_normal((2 * n, 80))
+        else:
+            toks = rng.integers(0, len(templates), n)
+            mel = templates[toks].reshape(2 * n, 80) + 0.1 * rng.standard_normal((2 * n, 80))
+        rows.append({"speech_token": toks.tolist(), "mel": mel.astype(np.float32),
+                     "embedding": rng.standard_normal(192).astype(np.float32)})
+    return rows
+
+
+def collated(collator, rows, batch, shapes):
+    """Batches of `batch` rows, each checked to have `shapes` ({key: shape})."""
+    out = [collator(rows[i:i + batch]) for i in range(0, len(rows), batch)]
+    for b in out:
+        for k, shape in shapes.items():
+            if b[k].shape != shape:
+                fail(f"5j: collated {k} {b[k].shape}, expected {shape}")
+    return out
+
+
+def leaf_err(a, b):
+    """max |a - b| / (1 + |b|) over every element of two trees' leaves."""
+    from flowmirror_hydravox_tpu_torch.train.steps import tree_leaves
+
+    return max(float(((x.detach().cpu() - y.detach()).abs() / (1 + y.detach().abs())).max())
+               for (_, x), (_, y) in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def grad_err(opt_a, opt_b):
+    """Largest over leaves of max |mu_a - mu_b| / max |mu_b| (Adam's first
+    moment after one step is 0.1 x the gradient)."""
+    out = 0.0
+    for k, mb in opt_b["mu"].items():
+        scale = float(mb.abs().max())
+        if scale > 0:
+            out = max(out, float((opt_a["mu"][k].cpu() - mb).abs().max()) / scale)
+    return out
+
+
+def train_cross_device(cfg, tokenizer, dev):
+    """5j.1: one llm_train_step and one flow_train_step at f32 on the card and
+    on the CPU from the same weights, batch and draws: the full-width LLM at 2
+    layers and 2 MTP heads, the DiT at 2 blocks. Loss and grad norm within
+    CROSS_TOL relative, params within CROSS_TOL x (1 + |p|), Adam's first
+    moments (the gradients) within CROSS_TOL of each leaf's largest. `dev`
+    is the card (a CPU rehearsal passes the CPU)."""
+    import dataclasses
+
+    import torch
+
+    from flowmirror_hydravox_tpu_torch.params import (flatten_params, init_flow_params,
+                                                      init_llm_params, unflatten_params)
+    from flowmirror_hydravox_tpu_torch.train import data, steps
+
+    rng = np.random.default_rng(TRAIN_SEED)
+    llm_cfg = dataclasses.replace(cfg.llm, head_num=2, backbone=dataclasses.replace(
+        cfg.llm.backbone, num_layers=2))
+    est = dataclasses.replace(cfg.flow.estimator, depth=2)
+    flow_cfg = dataclasses.replace(cfg.flow, estimator=est)
+    llm_batch = data.LLMCollator(tokenizer)(llm_rows(rng, 2, llm_cfg, speech_len=(100, 129)))
+    flow_batch = data.FlowCollator()(flow_rows(rng, 2, flow_cfg, token_len=(50, 65)))
+    out = {}
+    for name, init, sub, batch, run in (
+            ("llm", init_llm_params, llm_cfg, llm_batch,
+             lambda st, b, dev, c, o: steps.llm_train_step(st, b, c, o)),
+            ("flow", init_flow_params, flow_cfg, flow_batch,
+             lambda st, b, dev, c, o: steps.flow_train_step(st, b, DrawsOn(TRAIN_SEED, dev), c, o))):
+        opt = steps.Optimizer(steps.OptimConfig(learning_rate=CROSS_LR, schedule="constant"))
+        cpu_params = init(sub, torch.Generator().manual_seed(TRAIN_SEED), "cpu", torch.float32)
+        card = steps.init_state(unflatten_params(
+            {k: v.to(dev, copy=True) for k, v in flatten_params(cpu_params).items()}), opt)
+        cpu = steps.init_state(cpu_params, opt)
+        card, m_card = run(card, steps.batch_to(batch, dev), dev, sub, opt)
+        cpu, m_cpu = run(cpu, steps.batch_to(batch, "cpu"), "cpu", sub, opt)
+        rec = {f"{k}_rel": abs(float(m_card[k]) - float(m_cpu[k])) / abs(float(m_cpu[k]))
+               for k in ("loss", "grad_norm")}
+        rec.update(loss=float(m_card["loss"]), params_err=leaf_err(card.params, cpu.params),
+                   grad_err=grad_err(card.opt_state, cpu.opt_state),
+                   batch={k: list(v.shape) for k, v in batch.items()})
+        print(f"5j card vs CPU {name}", json.dumps(rec), flush=True)
+        if max(rec["loss_rel"], rec["grad_norm_rel"], rec["params_err"],
+               rec["grad_err"]) > CROSS_TOL:
+            fail(f"5j: the card's {name} train step differs from the CPU's: {rec}")
+        out[name] = rec
+        del card, cpu, cpu_params
+    return out
+
+
+class StepLog:
+    """A trainer loop's `on_step`: synchronises the card, records each step's
+    wall time, loss and grad norm, fails on a non-finite one, and after step
+    1 requires a finite, non-zero first moment (a gradient) on every leaf
+    but `frozen`, and none on `frozen`. After step `moments_at` it records
+    the optimizer's count and the global norms of its two moments."""
+
+    def __init__(self, what, dev, frozen=(), moments_at=None):
+        self.what, self.dev, self.frozen = what, dev, frozen
+        self.moments_at, self.moments = moments_at, None
+        self.losses, self.gnorms, self.secs = [], [], []
+        self.t = time.perf_counter()
+
+    def __call__(self, state, metrics):
+        import torch
+
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.secs.append(now - self.t)
+        self.t = now
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            fail(f"5j {self.what}: step {state.step} loss {loss} grad norm {gnorm}")
+        self.losses.append(loss)
+        self.gnorms.append(gnorm)
+        if state.step == 1:
+            for k, mu in state.opt_state["mu"].items():
+                trained = bool(mu.abs().max() > 0) and bool(torch.isfinite(mu).all())
+                if trained == (k in self.frozen):
+                    fail(f"5j {self.what}: leaf {k} {'got' if trained else 'got no'} gradient "
+                         f"in step 1")
+        if state.step == self.moments_at:
+            opt = state.opt_state
+            self.moments = dict(count=int(opt["count"]), **{
+                name: float(sum(torch.sum(t.float() ** 2) for t in opt[name].values()) ** 0.5)
+                for name in ("mu", "nu")})
+
+
+def reset_peak(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def peak_bytes(dev) -> int:
+    import torch
+
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def train_figures(log, tokens, matmul_params, peak_bytes, card):
+    step_s = statistics.median(log.secs[TRAIN_TIMED])
+    return dict(step_ms=step_s * 1e3, step_ms_range=[min(log.secs[TRAIN_TIMED]) * 1e3,
+                                                     max(log.secs[TRAIN_TIMED]) * 1e3],
+                tokens=tokens, tokens_per_s=tokens / step_s,
+                mfu=6 * matmul_params * tokens / step_s / PEAK_FLOPS["bfloat16"],
+                peak_gb=peak_bytes / 1e9, losses=log.losses, grad_norms=log.gnorms, card=card)
+
+
+def train_args(module, out_dir, *extra):
+    """The trainer's flags for a loop over batches in memory (--train_data
+    names no dataset: `train` reads only the batches it is given)."""
+    return module.parse_args(["--train_data", "memory", "--output_dir", str(out_dir),
+                              "--max_steps", str(TRAIN_STEPS), "--learning_rate", str(TRAIN_LR),
+                              "--warmup_steps", "2", "--logging_steps", "4",
+                              "--save_steps", "1000", "--seed", str(TRAIN_SEED), *extra])
+
+
+def drive_training(engine, frontend, da, mg, card):
+    """Phase 5j: the trainers on the card (see the module docstring).
+    Returns (record, launches of the served request). The device is the
+    engine's: a CPU rehearsal at a tiny config passes a CPU engine."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from flowmirror_hydravox_tpu_torch import __main__ as launcher
+    from flowmirror_hydravox_tpu_torch.models import llm as llm_model
+    from flowmirror_hydravox_tpu_torch.noise import TorchNoise
+    from flowmirror_hydravox_tpu_torch.params import init_flow_params, init_llm_params
+    from flowmirror_hydravox_tpu_torch.runtime.engine import Engine
+    from flowmirror_hydravox_tpu_torch.train import checkpoint, data, steps, train_flow, train_llm
+
+    cfg, dev = engine.cfg, torch.device(engine.device)
+    on_card = dev.type == "cuda"
+    rec = {"cross_device": train_cross_device(cfg, frontend.tokenizer, dev)}
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="hydravox_train_"))
+    model_dir = tmp / "model"
+    model_dir.mkdir()
+    rng = np.random.default_rng(TRAIN_SEED + 1)
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+
+    try:
+        # 5j.2: the LLM at full depth, bf16, through train_llm's loop
+        b, lt, ls = TRAIN_LLM
+        t0 = time.time()
+        llm_batches = collated(data.LLMCollator(frontend.tokenizer),
+                               llm_rows(rng, b * TRAIN_STEPS, cfg.llm), b,
+                               {"text_token": (b, lt), "speech_token": (b, ls)})
+        rec["llm_collate_s"] = time.time() - t0
+        params = init_llm_params(cfg.llm, gen(), dev, torch.bfloat16)
+        p_mm = sum(steps.matmul_params(params[k]) for k in ("mtp_block", "llm_decoder")) + \
+            steps.matmul_params(params["backbone"]["layers"])
+        log = StepLog("llm", dev, frozen=MTP_DEAD, moments_at=RESUME_AT + 2)
+        da.launch_count = mg.launch_count = mg.int8_launch_count = 0
+        reset_peak(dev)
+        state, _ = train_llm.train(train_args(train_llm, tmp / "llm"), cfg.llm, params,
+                                   llm_batches, on_step=log)
+        if state.step != TRAIN_STEPS:
+            fail(f"5j llm: the loop ended at step {state.step}")
+        shutil.rmtree(tmp / "llm")
+        rec["llm"] = train_figures(log, b * (2 + lt + ls), p_mm, peak_bytes(dev), card)
+        checkpoint.save_params_npz(str(model_dir / "llm.npz"), state.params)
+        trained_decoder = state.params["llm_decoder"].detach().clone()
+        del state, params
+
+        # 5j.5: the same run cut after RESUME_AT steps (its batches run out,
+        # the loop saves the train state), restored into a fresh loop for two
+        # steps. The first resumed loss is computed before any update, so the
+        # optimizer state shows only in the second loss and in the moments
+        # and count after it, each held against the uninterrupted run's.
+        params = init_llm_params(cfg.llm, gen(), dev, torch.bfloat16)
+        train_llm.train(train_args(train_llm, tmp / "resume"), cfg.llm, params,
+                        llm_batches[:RESUME_AT])
+        del params
+        resumed = StepLog("llm resumed", dev, moments_at=RESUME_AT + 2)
+        params = init_llm_params(cfg.llm, torch.Generator(device=dev).manual_seed(0), dev,
+                                 torch.bfloat16)
+        state, _ = train_llm.train(
+            train_args(train_llm, tmp / "resume", "--resume", str(tmp / "resume")),
+            cfg.llm, params, llm_batches[RESUME_AT:RESUME_AT + 2], on_step=resumed)
+        if state.step != RESUME_AT + 2 or len(resumed.losses) != 2:
+            fail(f"5j resume: ended at step {state.step} after {len(resumed.losses)} steps")
+        del state, params
+        got = {f"loss{RESUME_AT + 1}": resumed.losses[0], f"loss{RESUME_AT + 2}": resumed.losses[1],
+               **resumed.moments}
+        want = {f"loss{RESUME_AT + 1}": log.losses[RESUME_AT],
+                f"loss{RESUME_AT + 2}": log.losses[RESUME_AT + 1], **log.moments}
+        rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in want}
+        rec["resume"] = dict(steps=[RESUME_AT + 1, RESUME_AT + 2], resumed=got,
+                             uninterrupted=want, rel=rel)
+        print("5j resume", json.dumps(rec["resume"]), flush=True)
+        if got["count"] != want["count"] or max(rel.values()) > RESUME_TOL:
+            fail(f"5j resume: resumed {got}, uninterrupted {want}")
+        shutil.rmtree(tmp / "resume")
+
+        # 5j.2: FIXED_STEPS steps on one batch of FIXED_CODES codes must learn it
+        codes = rng.choice(cfg.llm.speech_token_size, FIXED_CODES, replace=False)
+        fixed = steps.batch_to(collated(data.LLMCollator(frontend.tokenizer),
+                                        llm_rows(rng, b, cfg.llm, codes), b,
+                                        {"speech_token": (b, ls)})[0], dev)
+        opt = steps.Optimizer(steps.OptimConfig(learning_rate=TRAIN_LR, schedule="constant"))
+        state = steps.init_state(init_llm_params(cfg.llm, gen(), dev, torch.bfloat16), opt)
+        losses = [float(steps.llm_train_step(state, fixed, cfg.llm, opt)[1]["loss"])
+                  for _ in range(FIXED_STEPS)]
+        with torch.no_grad():
+            final = float(llm_model.forward_loss(state.params, cfg.llm, *(fixed[k] for k in (
+                "text_token", "text_len", "speech_token", "speech_len")))["loss"])
+        del state
+        rec["llm_fixed_batch"] = dict(first=losses[0], final=final, ratio=final / losses[0],
+                                      losses=losses)
+        print("5j llm fixed batch", json.dumps({k: v for k, v in rec["llm_fixed_batch"].items()
+                                                 if k != "losses"}), flush=True)
+        if not final < 0.9 * losses[0]:
+            fail(f"5j: {FIXED_STEPS} steps on one batch took the LLM loss from {losses[0]} to "
+                 f"{final}, not below 0.9 x")
+
+        # 5j.3: the flow at full depth, bf16, through train_flow's loop
+        fb, flt = TRAIN_FLOW
+        t0 = time.time()
+        flow_batches = collated(data.FlowCollator(), flow_rows(rng, fb * TRAIN_STEPS, cfg.flow),
+                                fb,
+                                {"speech_token": (fb, flt), "speech_feat": (fb, 2 * flt, 80)})
+        rec["flow_collate_s"] = time.time() - t0
+        params = init_flow_params(cfg.flow, gen(), dev, torch.bfloat16)
+        noise0 = params["rand_noise"].clone()
+        log_f = StepLog("flow", dev, frozen=("rand_noise",))
+        reset_peak(dev)
+        fargs = train_args(train_flow, tmp / "flow")
+        state, _ = train_flow.train(fargs, cfg.flow, params, flow_batches, on_step=log_f)
+        if state.step != TRAIN_STEPS:
+            fail(f"5j flow: the loop ended at step {state.step}")
+        rec["flow"] = train_figures(log_f, fb * 2 * flt, steps.matmul_params(state.params),
+                                    peak_bytes(dev), card)
+        # rand_noise has no gradient: each applied step's decay alone moves it
+        sched = steps.make_schedule(steps.OptimConfig(learning_rate=TRAIN_LR, warmup_steps=2,
+                                                      total_steps=TRAIN_STEPS))
+        want, factor = noise0, 1.0
+        for count in range(TRAIN_STEPS):
+            want = want + (want * 0.01) * -sched(count)
+            factor *= 1 - sched(count) * 0.01
+        got = state.params["rand_noise"].detach()
+        rec["flow"]["rand_noise"] = dict(
+            ratio=float(got.double().sum() / noise0.double().sum()), predicted=factor,
+            max_err=float((got - want).abs().max()))
+        if rec["flow"]["rand_noise"]["max_err"] > 1e-6 * float(noise0.abs().max()):
+            fail(f"5j flow: rand_noise is not the decayed buffer: {rec['flow']['rand_noise']}")
+        checkpoint.save_params_npz(str(model_dir / "flow.npz"), state.params)
+        del state, params
+        if (da.launch_count, mg.launch_count, mg.int8_launch_count) != (0, 0, 0):
+            fail(f"5j: training launched a kernel: attention {da.launch_count}, MLP "
+                 f"{mg.launch_count}, int8 MLP {mg.int8_launch_count}")
+
+        # 5j.3: FIXED_STEPS steps on one batch whose mel follows its tokens
+        templates = rng.standard_normal((FIXED_CODES, 2, 80))
+        fixed = steps.batch_to(collated(data.FlowCollator(), flow_rows(rng, fb, cfg.flow, templates),
+                                        fb, {"speech_token": (fb, flt)})[0], dev)
+        state = steps.init_state(init_flow_params(cfg.flow, gen(), dev, torch.bfloat16), opt)
+        noise = TorchNoise(gen())
+        losses = [float(steps.flow_train_step(state, fixed, noise, cfg.flow, opt)[1]["loss"])
+                  for _ in range(FIXED_STEPS)]
+        del state
+        early, late = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+        rec["flow_fixed_batch"] = dict(mean_1_10=early, mean_21_30=late, losses=losses)
+        print("5j flow fixed batch", json.dumps({"mean_1_10": early, "mean_21_30": late}),
+              flush=True)
+        if not late < early:
+            fail(f"5j: the flow's loss on one batch did not fall: {early} then {late}")
+        for name in ("llm", "flow"):
+            r = rec[name]
+            print(f"5j {name} train step", json.dumps({k: v for k, v in r.items()
+                                                       if k not in ("losses", "grad_norms")}),
+                  flush=True)
+
+        # 5j.4: the trained checkpoint served through both kernels
+        t0 = time.time()
+        cfg_s, trees = launcher.load_models(not on_card, str(model_dir), frontend.tokenizer, dev)
+        if not torch.equal(trees["llm"]["llm_decoder"], trained_decoder):
+            fail("5j: the served llm_decoder is not the trained one")
+        served = Engine(cfg_s, trees["llm"], trees["flow"], trees["hift"], max_tokens=MAX_TOKENS,
+                        device=dev)
+        rec["load_s"] = time.time() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    servers = start_servers(served, frontend, window={})
+    try:
+        with EngineCalls(served) as calls:
+            da.launch_count = mg.launch_count = 0
+            recs, launched, (samples, peak) = held_worker(
+                "5j trained checkpoint, /api/v1/tts", calls, da, mg, cfg_s.llm,
+                lambda: tts(servers["window"][2], TRAIN_TEXT, 2, seed=TRAIN_SEED),
+                [("synthesize", 1)])
+        rec["served"] = dict(tokens=recs[0]["tokens"], steps=recs[0]["steps"],
+                             audio_s=samples / SAMPLE_RATE, peak=peak,
+                             attention_launches=launched[0], mlp_launches=launched[1],
+                             predicted=list(predicted_launches(recs, cfg_s.llm)))
+        print("5j served", json.dumps(rec["served"]), flush=True)
+        return rec, launched
+    finally:
+        stop_servers(servers)
+        del served
+        torch.cuda.empty_cache()
+
+
 def main():
     t_start = time.time()
     if not (ROOT / "flowmirror_hydravox_tpu_torch" / "csrc").is_dir():
@@ -2737,11 +3180,12 @@ def main():
     t0 = time.time()
     int8["kernels"] = check_int8_shapes(served, mg, flush, int8_launched[2])
     phase_s["5i kernels"] = time.time() - t0
+    training, train_launched = phase("5j", drive_training, engine, frontend, da, mg, card)
     phase_s["all"] = time.time() - t_start
     print("phase seconds", json.dumps({k: round(v, 1) for k, v in phase_s.items()}), flush=True)
     attention_launches, mlp_launches = (sum(x) for x in zip(
         launches, more, streamed, zs_launched, pt_launched, zsb_launched, solo_launched,
-        spec_launched, int8_launched[:2]))
+        spec_launched, int8_launched[:2], train_launched))
     del flush
 
     # the kernels line: each kernel at its serving shape (bf16; decode
@@ -2805,7 +3249,7 @@ def main():
          "mlp_cases": mlp_cases, "backbone_rel_err": backbone_rel, "requests": requests,
          "serving": serving, "streaming": streaming, "zero_shot": zero_shot,
          "pt_weights": pt_weights, "zero_shot_batched": zs_batched, "solo_route": solo_rule,
-         "spec_decode": spec, "int8": int8, "phase_s": phase_s,
+         "spec_decode": spec, "int8": int8, "training": training, "phase_s": phase_s,
          **kernels},
         indent=1))
     print(json.dumps(kernels), flush=True)

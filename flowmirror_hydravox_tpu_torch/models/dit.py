@@ -1,6 +1,6 @@
-"""F5-TTS-style DiT velocity estimator: the inference subset of
-flowmirror_hydravox_tpu/models/dit.py (no dropout), with its streaming
-(static-chunk) attention mask.
+"""F5-TTS-style DiT velocity estimator: port of
+flowmirror_hydravox_tpu/models/dit.py, with its streaming (static-chunk)
+attention mask and its train-time dropout.
 
   - AdaLN-Zero modulated transformer blocks.
   - Causal conv position embedding (two left-padded grouped convs + Mish).
@@ -9,6 +9,11 @@ flowmirror_hydravox_tpu/models/dit.py (no dropout), with its streaming
     only, in interleaved pairs. Kept for weight parity.
   - Padding rows are fully masked with an additive -1e10 bias, which gives
     them a uniform softmax; a boolean-masked SDPA would give NaN there.
+
+  - Train-time dropout (`forward(dropout_masks=, dropout_rate=)`): inverted
+    dropout on each block's attention output and FF hidden; the keep masks
+    come from the caller (a noise source, see noise.py), since torch cannot
+    replay the JAX key chain.
 
 Matmuls and convs run in the param dtype, softmax and LayerNorm statistics
 in f32. Conv weights are (O, I/g, K), torch's own layout.
@@ -23,6 +28,7 @@ import torch.nn.functional as F
 
 from ..config import DiTConfig
 from ..ops.rope import rope_cos_sin
+from ..params import unstack
 
 NEG_INF = -1.0e10
 
@@ -34,6 +40,16 @@ def linear(p, x):
 def conv1d(p, x, *, groups: int = 1):
     """VALID conv. x: (B, C, T); p['w']: (O, I/g, K)."""
     return F.conv1d(x, p["w"], p["b"], groups=groups)
+
+
+def dropout(x, rate: float, keep):
+    """Inverted dropout with the keep mask `keep` (x's shape, bool); the
+    identity when `keep` is None or rate is 0. The scale 1 - rate is rounded
+    to x's dtype first, as JAX rounds a Python float against a bf16 array."""
+    if keep is None or rate <= 0.0:
+        return x
+    scale = torch.tensor(1.0 - rate, dtype=x.dtype).item()
+    return torch.where(keep, x / scale, torch.zeros_like(x))
 
 
 def layer_norm(x, eps: float = 1e-6):
@@ -96,21 +112,30 @@ def _attention(block, x, mask_bias, cos, sin, heads: int, dim_head: int):
     return linear(block["to_out"], out)
 
 
-def _dit_block(block, x, t_emb, mask_bias, cos, sin, heads: int, dim_head: int):
-    """AdaLN-Zero block (modules.py:500-530), inference (no dropout)."""
+def _dit_block(block, x, t_emb, mask_bias, cos, sin, heads: int, dim_head: int,
+               drop_rate: float = 0.0, keep=(None, None)):
+    """AdaLN-Zero block (modules.py:500-530); attention-out and FF dropout
+    at train time with the keep masks `keep` (attention, FF)."""
     mod = linear(block["attn_norm_linear"], F.silu(t_emb))  # (B, 6*dim)
     shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = torch.chunk(mod, 6, dim=-1)
     norm = layer_norm(x) * (1 + scale_msa[:, None]) + shift_msa[:, None]
-    x = x + gate_msa[:, None] * _attention(block, norm, mask_bias, cos, sin, heads, dim_head)
+    attn_out = _attention(block, norm, mask_bias, cos, sin, heads, dim_head)
+    x = x + gate_msa[:, None] * dropout(attn_out, drop_rate, keep[0])
     ff_norm = layer_norm(x) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
-    ff = linear(block["ff_out"], F.gelu(linear(block["ff_in"], ff_norm), approximate="tanh"))
+    ff = linear(block["ff_out"], dropout(
+        F.gelu(linear(block["ff_in"], ff_norm), approximate="tanh"), drop_rate, keep[1]))
     return x + gate_mlp[:, None] * ff
 
 
-def forward(params: dict, cfg: DiTConfig, x, mask, mu, t, spks, cond, streaming: bool = False):
+def forward(params: dict, cfg: DiTConfig, x, mask, mu, t, spks, cond, streaming: bool = False,
+            dropout_masks=None, dropout_rate: float = 0.0):
     """Velocity estimate (B, mel_dim, T). x (B, mel_dim, T) noised input,
     mask (B, 1, T) validity, mu (B, mu_dim, T), t (B,), spks (B, spk_dim),
     cond (B, mel_dim, T). Mirrors DiT.forward (dit.py:145-176).
+
+    `dropout_masks`: train-time dropout, one (attention (B, T, dim), FF
+    (B, T, dim * ff_mult)) pair of bool keep masks per block, applied at
+    `dropout_rate` (JAX `dropout_rng=`, :270-278); inference passes neither.
 
     `streaming` adds the static-chunk mask: frame q attends to frame k only
     when k // static_chunk_size <= q // static_chunk_size. A row left with no
@@ -135,10 +160,10 @@ def forward(params: dict, cfg: DiTConfig, x, mask, mu, t, spks, cond, streaming:
         attn = attn & (chunk[None, :] <= chunk[:, None])[None]
     mask_bias = torch.where(attn, 0.0, NEG_INF).to(torch.float32)
 
-    blocks = params["blocks"]
-    for i in range(cfg.depth):
-        block = {name: {k: v[i] for k, v in leaf.items()} for name, leaf in blocks.items()}
-        h = _dit_block(block, h, t_emb, mask_bias, cos, sin, cfg.heads, cfg.dim_head)
+    for i, block in enumerate(unstack(params["blocks"])[:cfg.depth]):
+        keep = (None, None) if dropout_masks is None else dropout_masks[i]
+        h = _dit_block(block, h, t_emb, mask_bias, cos, sin, cfg.heads, cfg.dim_head,
+                       dropout_rate, keep)
 
     mod = linear(params["norm_out_linear"], F.silu(t_emb))
     scale, shift = torch.chunk(mod, 2, dim=-1)  # scale first (modules.py:262)

@@ -1,11 +1,13 @@
-"""Flow-matching mel decoder: the inference subset of
-flowmirror_hydravox_tpu/models/flow.py (CausalMaskedDiffWithDiT +
-CausalConditionalCFM), whole-utterance and streaming.
+"""Flow-matching mel decoder: port of flowmirror_hydravox_tpu/models/flow.py
+(CausalMaskedDiffWithDiT + CausalConditionalCFM), whole-utterance and
+streaming inference and the CFM training loss.
 
   - 10 fixed Euler steps over a cosine time schedule, with the classifier-free
     guidance pair batched into one estimator call.
   - The start noise is the reference's fixed buffer (`params["rand_noise"]`,
     see params.make_rand_noise), so the mel is deterministic.
+  - `compute_loss` (flow.py:210-262) takes its draws from a noise source
+    (noise.py, `flow_loss`): torch cannot replay the JAX key chain.
 """
 
 from __future__ import annotations
@@ -131,3 +133,49 @@ def inference(params: dict, cfg: FlowConfig, token, token_valid, prompt_feat, pr
     z = params["rand_noise"][:, :, :t_mel].expand(b, mel_dim, t_mel).to(torch.float32)
     return solve_euler(params, cfg, z, h.transpose(1, 2), mask, spks, conds, n_timesteps,
                        streaming)
+
+
+def compute_loss(params: dict, cfg: FlowConfig, noise, token, token_len, feat, feat_len,
+                 embedding):
+    """CFM training loss (flow.py:312-365 + flow_matching.py:155-194): cosine
+    t, OT interpolant, a random mel prefix as the condition of half the rows,
+    classifier-free-guidance dropout, masked MSE. token (B, Lt), feat
+    (B, T_mel, 80) the target mel with T_mel == Lt * token_mel_ratio,
+    embedding (B, 192); `noise.flow_loss` gives the draws. Returns the f32
+    scalar loss."""
+    b, t_mel, mel_dim = feat.shape
+    est = cfg.estimator
+    dev = feat.device
+    draws = noise.flow_loss(b, t_mel, mel_dim, est.depth, (est.dim, est.dim * est.ff_mult),
+                            est.dropout_rate)
+
+    token_valid = torch.arange(token.shape[1], device=dev)[None, :] < token_len[:, None]
+    mu = encode_tokens(params, cfg, token, token_valid)[:, :t_mel].transpose(1, 2)
+    spks = project_speaker(params, embedding)
+
+    x1 = feat.transpose(1, 2).to(torch.float32)  # (B, 80, T)
+    frames = torch.arange(t_mel, device=dev)[None, :]
+    mask = (frames < feat_len[:, None]).to(torch.float32)[:, None, :]
+
+    t = draws.t
+    if cfg.t_scheduler == "cosine":
+        t = 1.0 - torch.cos(t * 0.5 * math.pi)
+    y = (1.0 - (1.0 - cfg.sigma_min) * t) * draws.z + t * x1
+    u = x1 - (1.0 - cfg.sigma_min) * draws.z
+
+    # half the rows carry a random mel prefix as the condition (flow.py:346-353)
+    prefix = (draws.idx * 0.3 * feat_len.to(torch.float32)).to(torch.int32)
+    cond_sel = (draws.cond >= 0.5)[:, None] & (frames < prefix[:, None])
+    cond = torch.where(cond_sel[:, None, :], x1, 0.0)
+
+    if cfg.training_cfg_rate > 0:
+        keep = draws.cfg > cfg.training_cfg_rate
+        mu = mu * keep[:, None, None]
+        spks = spks * keep[:, None]
+        cond = cond * keep[:, None, None]
+
+    pred = dit.forward(params["estimator"], est, y, mask, mu, t[:, 0, 0], spks, cond,
+                       dropout_masks=draws.keep,
+                       dropout_rate=est.dropout_rate).to(torch.float32)
+    num = torch.sum(((pred - u) * mask) ** 2)
+    return num / (torch.clamp_min(torch.sum(mask), 1.0) * mel_dim)

@@ -1,5 +1,5 @@
-"""Multi-head (MTP) speech-token LM inference: the subset of
-flowmirror_hydravox_tpu/models/llm.py on the SFT path.
+"""Multi-head (MTP) speech-token LM: port of
+flowmirror_hydravox_tpu/models/llm.py (decode and training).
 
   - MTP heads in the reduced length-1 form (`_mtp_head_apply`): a Qwen2
     decoder layer applied to one position reduces to
@@ -26,6 +26,11 @@ prompt prefill's MLP stays torch.matmul. On a weight-only int8 tree
 against an LLM leaf (the heads' v/o projections, `llm_decoder`) goes through
 `matmul_q`.
 
+Training (`forward_loss`, JAX :122-256) runs the backbone's full causal
+`qwen2.forward` and the heads' training form, whose MLP is
+`qwen2._mlp_block`: the kernels have no backward, so no training forward
+reaches them.
+
 The decode loops are Python loops with one host read per step (the sampled
 ids): it decides how many tokens to accept and whether to stop, as the JAX
 `lax.while_loop` body does on the device.
@@ -39,11 +44,13 @@ import torch
 
 from ..config import LLMConfig
 from ..ops.quant import matmul_q
+from ..params import unstack
 from ..ops.sampling import (SamplingParams, ras_dist_rows, ras_sample_heads,
                             ras_sample_heads_batched, sample_dist)
 from . import qwen2
 
 CACHE_ROUND = 256  # cache lengths round up to a multiple of this
+IGNORE_ID = -1  # a target no head is scored on
 
 
 class GenerateResult(NamedTuple):
@@ -59,24 +66,114 @@ class SpecResult(NamedTuple):
     drafted: int  # drafts proposed
 
 
-def _mtp_head_apply(head: dict, x, eps: float):
-    """Single head, pointwise. x: (..., H) -> (..., H)."""
+def _mtp_head_apply(head: dict, x, eps: float, decode_step: bool = True):
+    """Single head, pointwise. x: (..., H) -> (..., H). A decode step's MLP
+    goes through `qwen2.decode_mlp` (the kernel on the card); training's
+    (`decode_step=False`) through `qwen2._mlp_block`, differentiable
+    torch.matmul, as JAX llm.py:94-95 computes it."""
     attn_in = qwen2._rms_norm(x, head["input_layernorm"], eps)
     v = matmul_q(attn_in, head, "v_proj_w") + head["v_proj_b"]
     x = x + matmul_q(v, head, "o_proj_w")
     mlp_in = qwen2._rms_norm(x, head["post_attention_layernorm"], eps)
-    return x + qwen2.decode_mlp(head, mlp_in)
+    mlp = qwen2.decode_mlp if decode_step else qwen2._mlp_block
+    return x + mlp(head, mlp_in)
 
 
-def mtp_logits(params: dict, cfg: LLMConfig, hidden, num_heads: int, first: int = 0):
+def mtp_logits(params: dict, cfg: LLMConfig, hidden, num_heads: int, first: int = 0,
+               decode_step: bool = True):
     """Heads first..first+num_heads-1 and the shared decoder:
-    (..., H) -> (num_heads, ..., V) f32."""
+    (..., H) -> (num_heads, ..., V) f32. `decode_step=False` is the training
+    form (see `_mtp_head_apply`)."""
     eps = cfg.backbone.rms_norm_eps
-    outs = [
-        _mtp_head_apply({k: v[i] for k, v in params["mtp_block"].items()}, hidden, eps)
-        for i in range(first, first + num_heads)
-    ]
+    heads = unstack({k: v[first:first + num_heads] for k, v in params["mtp_block"].items()})
+    outs = [_mtp_head_apply(head, hidden, eps, decode_step) for head in heads]
     return matmul_q(torch.stack(outs), params, "llm_decoder").to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Training: input/target construction and the multi-head CE loss
+# (JAX llm.py:122-256)
+
+
+def build_lm_input(params: dict, cfg: LLMConfig, text_token, text_len, speech_token,
+                   speech_len):
+    """[sos, text_emb, task, speech_emb] per row, padded with the eos
+    embedding (llm_multi_head_v3.py:723-747). text_token (B, Lt) and
+    speech_token (B, Ls) right-padded, lengths (B,). Returns
+    (lm_input (B, 2 + Lt + Ls, H), lm_input_len (B,))."""
+    b, lt = text_token.shape
+    ls = speech_token.shape[1]
+    dev = text_token.device
+    text_emb = qwen2.embed_tokens(params["backbone"], torch.clamp(text_token, min=0))
+    table = params["speech_embedding"]
+    speech_emb = table[torch.clamp(speech_token, 0, table.shape[0] - 1).long()]
+    sos, task, eos = table[cfg.sos], table[cfg.task_id], table[cfg.eos_token]
+
+    pos = torch.arange(2 + lt + ls, device=dev)[None, :]  # (1, T)
+    tlen = text_len.to(dev).long()[:, None]
+    slen = speech_len.to(dev).long()[:, None]
+    rows = torch.arange(b, device=dev)[:, None]
+    text = text_emb[:, torch.clamp(pos[0] - 1, 0, lt - 1)]
+    speech = speech_emb[rows, torch.clamp(pos - tlen - 2, 0, ls - 1)]
+    out = torch.where(
+        (pos == 0)[..., None], sos,
+        torch.where(
+            ((pos >= 1) & (pos <= tlen))[..., None], text,
+            torch.where(
+                (pos == tlen + 1)[..., None], task,
+                torch.where(((pos >= tlen + 2) & (pos < tlen + 2 + slen))[..., None],
+                            speech, eos))))
+    return out.to(text_emb.dtype), 2 + text_len + speech_len
+
+
+def build_lm_targets(cfg: LLMConfig, text_len, speech_token, speech_len, t_total: int):
+    """Per-head shifted targets (llm_multi_head_v3.py:749-762): head k at
+    position p predicts speech token p - (1 + tlen) + k, one eos after the
+    last speech target, IGNORE_ID elsewhere. Returns (head_num, B, T)."""
+    ls = speech_token.shape[1]
+    dev = speech_token.device
+    pos = torch.arange(t_total, device=dev)[None, :]
+    tlen = text_len.to(dev).long()[:, None]
+    slen = speech_len.to(dev).long()[:, None]
+    rows = torch.arange(speech_token.shape[0], device=dev)[:, None]
+    heads = []
+    for k in range(cfg.head_num):
+        sidx = pos - (1 + tlen) + k
+        in_speech = (pos >= 1 + tlen) & (sidx < slen)
+        is_eos = pos == (1 + tlen) + (slen - k)
+        tok = speech_token[rows, torch.clamp(sidx, 0, ls - 1)].long()
+        heads.append(torch.where(in_speech, tok, torch.where(
+            is_eos, torch.full_like(tok, cfg.eos_token), torch.full_like(tok, IGNORE_ID))))
+    return torch.stack(heads)
+
+
+def forward_loss(params: dict, cfg: LLMConfig, text_token, text_len, speech_token,
+                 speech_len) -> dict:
+    """Training loss: the mean over heads of the label-smoothed CE on the
+    shifted targets (llm_multi_head_v3.py:766-828), in the logsumexp form.
+    Returns {'loss', 'acc'} (f32 scalars). Goes through no kernel: the
+    backbone's `forward` and the heads' training form."""
+    lm_input, lm_len = build_lm_input(params, cfg, text_token, text_len, speech_token,
+                                      speech_len)
+    hidden = qwen2.forward(params["backbone"], cfg.backbone, lm_input, lm_len)
+    logits = mtp_logits(params, cfg, hidden, cfg.head_num, decode_step=False)  # (K, B, T, V)
+    targets = build_lm_targets(cfg, text_len, speech_token, speech_len, lm_input.shape[1])
+
+    valid = targets != IGNORE_ID
+    tgt = torch.clamp(targets, min=0)
+    lse = torch.logsumexp(logits, dim=-1)
+    nll = lse - torch.gather(logits, -1, tgt[..., None])[..., 0]
+    if cfg.lsm_weight > 0:
+        # KL(uniform-smoothed || pred), as WeNet's LabelSmoothingLoss
+        smooth = lse - torch.mean(logits, dim=-1)
+        nll = (1.0 - cfg.lsm_weight) * nll + cfg.lsm_weight * smooth
+    denom = torch.clamp(valid.sum(dim=(1, 2)), min=1)  # per-head token count
+    if not cfg.length_normalized_loss:
+        denom = torch.full_like(denom, targets.shape[1])
+    per_head_loss = torch.where(valid, nll, 0.0).sum(dim=(1, 2)) / denom
+    hit = valid & (torch.argmax(logits, dim=-1) == tgt)
+    per_head_acc = hit.sum(dim=(1, 2)) / denom
+    return {"loss": per_head_loss.mean(), "acc": per_head_acc.to(torch.float32).mean()}
 
 
 def build_inference_prompt(params: dict, cfg: LLMConfig, text_token, text_len: int,

@@ -1,4 +1,4 @@
-"""Qwen2-style causal decoder backbone: the inference subset of
+"""Qwen2-style causal decoder backbone: port of
 flowmirror_hydravox_tpu/models/qwen2.py.
 
 Parameters keep the JAX layout: matmul weights (in, out), per-layer leaves
@@ -13,6 +13,9 @@ A tree of weight-only int8 (ops/quant.py) serves as it is: every projection
 goes through `matmul_q`, and the decode MLP through the kernel's int8 form
 with the leaves' scales (`decode_mlp`).
 
+`forward` is the full causal forward of training (JAX :115-164): plain
+`mha` attention and `_mlp_block`, never a kernel (neither has a backward).
+
 Unlike the JAX package, whose arrays are immutable, the cache tensors are
 updated in place: `forward_block_with_cache` writes the block into the same
 storage and returns a cache that shares it, with the new length.
@@ -26,10 +29,11 @@ import torch
 import torch.nn.functional as F
 
 from ..config import Qwen2Config
-from ..ops.attention import decode_attention_dispatch
+from ..ops.attention import decode_attention_dispatch, mha
 from ..ops.mlp_gemv import mlp_gemv
 from ..ops.quant import MLP_MATS, matmul_q, mlp_scales
 from ..ops.rope import apply_rope_halved, rope_cos_sin
+from ..params import unstack
 
 
 class KVCache(NamedTuple):
@@ -75,10 +79,44 @@ def decode_mlp(layer: dict, x):
     return mlp_gemv(x, *weights, scales=scales)
 
 
+def _attention_block(layer: dict, x, cfg: Qwen2Config, cos, sin, mask):
+    """Full-sequence attention (no cache). x: (B, T, H)."""
+    b, t, _ = x.shape
+    q = (matmul_q(x, layer, "q_proj_w") + layer["q_proj_b"]).reshape(
+        b, t, cfg.num_heads, cfg.head_dim)
+    k = (matmul_q(x, layer, "k_proj_w") + layer["k_proj_b"]).reshape(
+        b, t, cfg.num_kv_heads, cfg.head_dim)
+    v = (matmul_q(x, layer, "v_proj_w") + layer["v_proj_b"]).reshape(
+        b, t, cfg.num_kv_heads, cfg.head_dim)
+    q = apply_rope_halved(q, cos, sin)
+    k = apply_rope_halved(k, cos, sin)
+    return matmul_q(mha(q, k, v, mask).reshape(b, t, -1), layer, "o_proj_w")
+
+
+def forward(params: dict, cfg: Qwen2Config, inputs_embeds, lengths=None):
+    """Full causal forward (training, no cache). inputs_embeds (B, T, H);
+    `lengths` (B,) valid lengths of right-padded rows: keys past a row's
+    length are masked. Returns the hidden states after the final norm."""
+    b, t, _ = inputs_embeds.shape
+    dev = inputs_embeds.device
+    pos = torch.arange(t, device=dev)
+    cos, sin = rope_cos_sin(pos[None, :].expand(b, t), cfg.head_dim, cfg.rope_theta)
+    mask = (pos[:, None] >= pos[None, :])[None].expand(b, t, t)
+    if lengths is not None:
+        mask = mask & (pos[None, :] < lengths.to(dev)[:, None])[:, None, :]
+    x = inputs_embeds
+    for layer in layer_slices(params, cfg.num_layers):
+        attn_in = _rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps)
+        x = x + _attention_block(layer, attn_in, cfg, cos, sin, mask)
+        mlp_in = _rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps)
+        x = x + _mlp_block(layer, mlp_in)
+    return _rms_norm(x, params["norm"], cfg.rms_norm_eps)
+
+
 def layer_slices(params: dict, n_layers: int):
     """Per-layer views {name: leaf[i]} of the stacked layer leaves (the
     `@q8scale` leaves of an int8 tree among them)."""
-    return [{k: v[i] for k, v in params["layers"].items()} for i in range(n_layers)]
+    return unstack(params["layers"])[:n_layers]
 
 
 def forward_block_with_cache(params: dict, cfg: Qwen2Config, inputs_embeds, cache: KVCache,

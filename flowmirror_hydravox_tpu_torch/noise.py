@@ -14,7 +14,15 @@ hands them out in the order the JAX package draws it:
     one step's (draft Gumbels (kd, vocab), accept uniforms (kd,), residual
     Gumbel (vocab,), bonus Gumbel (vocab,)) (llm.py:659, :574, :592, :603,
     :608); `spec_first_batch(b, vocab)` and `spec_step_batch(b, kd, vocab)`
-    the same with a leading axis of b flash-batch rows.
+    the same with a leading axis of b flash-batch rows;
+  - flow training (models/flow.py `compute_loss`): `flow_loss(b, t_mel,
+    mel_dim, depth, widths, rate)`, one loss's `FlowDraws` in the JAX order
+    (flow.py:223-258): t (b, 1, 1) and the uniforms cfg, cond and idx (b,)
+    U[0, 1), z (b, mel_dim, t_mel) standard normal, and for each of the
+    `depth` blocks the keep masks of its attention output and FF hidden,
+    (b, t_mel, w) for w in `widths`, each element kept with probability
+    1 - rate (None at rate 0); `split(k)` gives the k sources of k
+    micro-batches under gradient accumulation (JAX steps.py:153).
 
 `TorchNoise` draws from a `torch.Generator` on the device, for serving. Tests
 use a source that replays the JAX key chain instead, so that both packages see
@@ -32,9 +40,20 @@ from __future__ import annotations
 
 import torch
 
+from typing import NamedTuple, Optional
+
 from .ops.sampling import nucleus_kmax
 
 _TINY = torch.finfo(torch.float32).tiny
+
+
+class FlowDraws(NamedTuple):
+    t: torch.Tensor  # (B, 1, 1) U[0, 1)
+    z: torch.Tensor  # (B, mel_dim, T_mel) N(0, 1)
+    cfg: torch.Tensor  # (B,) U[0, 1): a row keeps its conditions when > training_cfg_rate
+    cond: torch.Tensor  # (B,) U[0, 1): a row gets a mel-prefix condition when >= 0.5
+    idx: torch.Tensor  # (B,) U[0, 1): the prefix length, as a share of 0.3 x feat_len
+    keep: Optional[list]  # per block (attention, FF) bool keep masks, or None
 
 
 class TorchNoise:
@@ -72,6 +91,23 @@ class TorchNoise:
         rand_ini = torch.rand((b, nh), generator=self.generator, device=self.device)
         noise = torch.randn((b, t, nh), generator=self.generator, device=self.device)
         return rand_ini, noise
+
+    def _uniform(self, *shape):
+        return torch.rand(shape, generator=self.generator, device=self.device)
+
+    def flow_loss(self, b: int, t_mel: int, mel_dim: int, depth: int, widths, rate: float):
+        t = self._uniform(b, 1, 1)
+        z = torch.randn((b, mel_dim, t_mel), generator=self.generator, device=self.device)
+        cfg, cond, idx = self._uniform(b), self._uniform(b), self._uniform(b)
+        keep = None
+        if rate > 0:
+            keep = [tuple(self._uniform(b, t_mel, w) < 1.0 - rate for w in widths)
+                    for _ in range(depth)]
+        return FlowDraws(t, z, cfg, cond, idx, keep)
+
+    def split(self, k: int):
+        """k micro-batches draw one after another from this generator."""
+        return [self] * k
 
 
 class RowNoise:

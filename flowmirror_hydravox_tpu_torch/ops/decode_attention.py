@@ -122,6 +122,9 @@ def decode_attention_cuda(q, k_cache, v_cache, cache_len):
     cache_len (B,) int32, all contiguous on one CUDA device; q/k/v float32 or
     bfloat16 of one dtype. Returns (B, T, Hq, D) in q's dtype."""
     global launch_count
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k_cache, v_cache)):
+        raise RuntimeError("the decode-attention kernel has no backward; a training "
+                           "forward takes ops.attention.mha")
     if not q.is_cuda:
         raise ValueError("decode_attention_cuda needs CUDA tensors")
     dev = q.device

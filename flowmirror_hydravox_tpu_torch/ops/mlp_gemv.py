@@ -128,6 +128,9 @@ def plan_splits(m: int, hdim: int, idim: int, row_groups: tuple, cols_per_block:
 
 def _check(x, gate, up, down, weight_dtype):
     """The inputs the kernel takes, else raise. Returns (M, H, I)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, gate, up, down)):
+        raise RuntimeError("the MLP GEMV kernel has no backward; a training forward "
+                           "takes qwen2._mlp_block")
     if not x.is_cuda:
         raise ValueError("the MLP GEMV kernel needs CUDA tensors")
     for name, w in (("gate", gate), ("up", up), ("down", down)):

@@ -68,7 +68,19 @@ def flatten_params(tree, prefix: str = "") -> dict:
     return out
 
 
-def _unflatten(flat: dict):
+def unstack(tree) -> list:
+    """The per-index views [{name: leaf[i]}, ...] of a (nested) dict of
+    leaves stacked on their first axis, one `unbind` per leaf: its backward
+    stacks the views' gradients once, where indexing each view would write a
+    zero-filled copy of the whole stack per view and sum those copies."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    return tree.unbind(0)
+
+
+def unflatten_params(flat: dict):
     root: dict = {}
     for key, val in flat.items():
         node = root
@@ -94,7 +106,7 @@ def load_params_npz(path: str, device, dtype=None):
     is given."""
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files}
-    return from_numpy_tree(_unflatten(flat), device, dtype)
+    return from_numpy_tree(unflatten_params(flat), device, dtype)
 
 
 # ---------------------------------------------------------------------------

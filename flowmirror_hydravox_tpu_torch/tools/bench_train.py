@@ -1,0 +1,225 @@
+"""Train-step benchmark on the card: port of the LLM and flow points of
+flowmirror_hydravox_tpu/tools/bench_train.py.
+
+    python -m flowmirror_hydravox_tpu_torch.tools.bench_train --which llm|flow \
+        [--steps 10] [--peak_tflops 989] [--device cuda|cpu] [--tiny] [--profile 3]
+
+Shapes (the JAX benchmark's): LLM B 16, Lt 64, Ls 256, plus one longer
+point, B 8, Ls 512; flow B 16, Lt 128 (256 mel frames). Full-size
+`HydraVoxConfig()` weights (bf16) from a seeded init, `llm_train_step` /
+`flow_train_step` with the default optimizer. Each point prints one JSON
+line: ms per step (the median of `--steps` steps after two warm-up steps,
+each ended by `torch.cuda.synchronize()`), tokens (mel frames for the flow)
+per second, MFU as 6 x matmul params x tokens over `--peak_tflops` (989:
+the H100 SXM's dense bf16 peak; the flow count leaves out attention, as the
+JAX benchmark's does), peak memory (`torch.cuda.max_memory_allocated`),
+and the card's name and power limit. `--profile N` adds where a step's
+time goes: N steps under torch.profiler (per step: wall, device busy, the
+device's idle share, kernel launches, the kernels with the most device
+time) and the optimizer's update alone (median of 5 synced calls on one
+step's gradients). `--which gan|dpo` exits non-zero: those
+trainers wait for later slices. Runs on the card unless `--device cpu`
+(a smoke run: no device metric is printed there).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+LATER = {"gan": "the HiFT GAN slice (train/gan.py, models/discriminator.py)",
+         "dpo": "the DPO slice (llm_extras.forward_dpo, dpo_train_step)"}
+
+
+def card_census() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
+
+
+def time_steps(step, n_steps: int, device) -> list:
+    """Seconds of each of `n_steps` calls of `step()` after two warm-up calls,
+    each ended by a device synchronisation."""
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    out = []
+    for i in range(n_steps + 2):
+        t0 = time.perf_counter()
+        step()
+        sync()
+        if i >= 2:
+            out.append(time.perf_counter() - t0)
+    return out
+
+
+def _union_us(intervals) -> float:
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def profile(step, n_steps: int, optimizer_apply, top: int = 10) -> dict:
+    """`n_steps` calls of `step()` under torch.profiler, then
+    `optimizer_apply()` timed alone. Per-step figures; device figures are
+    None when the profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = list(prof.events())
+    kernels = [(e.time_range.start, e.time_range.end) for e in events
+               if e.device_type == DeviceType.CUDA]
+    launches = sum(1 for e in events if e.device_type == DeviceType.CPU
+                   and e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                                  "cuLaunchKernelEx"))
+    busy_ms = _union_us(kernels) / 1e3 / n_steps if kernels else None
+    dev = sorted((a for a in prof.key_averages() if a.device_type == DeviceType.CUDA
+                  and a.self_device_time_total > 0),
+                 key=lambda a: a.self_device_time_total, reverse=True)
+    opt_secs = time_steps(optimizer_apply, 5, torch.device("cuda"))
+    wall_ms = wall * 1e3 / n_steps
+    return {"steps": n_steps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
+            "launches": launches / n_steps,
+            "optimizer_ms": statistics.median(opt_secs) * 1e3,
+            "device_top": [{"kernel": a.key[:100], "calls": a.count / n_steps,
+                            "device_ms": a.self_device_time_total / 1e3 / n_steps}
+                           for a in dev[:top]]}
+
+
+def report(name, secs, tokens, matmul_params, peak_tflops, device, **extra) -> dict:
+    step_s = statistics.median(secs)
+    out = {"metric": name, "device": str(device), "step_ms": step_s * 1e3,
+           "step_ms_min": min(secs) * 1e3, "step_ms_max": max(secs) * 1e3,
+           "tokens_per_s": tokens / step_s, "tokens": tokens, "matmul_params": matmul_params,
+           **extra}
+    if device.type == "cuda":
+        out["mfu"] = 6 * matmul_params * tokens / step_s / (peak_tflops * 1e12)
+        out["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+        out["card"] = card_census()
+    return out
+
+
+def bench_llm(cfg, device, b, lt, ls, n_steps, peak_tflops, n_profile=0, seed=0) -> dict:
+    from ..models import llm as llm_model
+    from ..params import init_llm_params
+    from ..train.steps import (OptimConfig, Optimizer, _value_and_grad_accum, batch_to,
+                               init_state, llm_train_step, matmul_params)
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_llm_params(cfg, gen, device, torch.bfloat16)
+    p_mm = sum(matmul_params(params[k]) for k in ("mtp_block", "llm_decoder")) + matmul_params(
+        params["backbone"]["layers"])
+    opt = Optimizer(OptimConfig(warmup_steps=10, total_steps=1000))
+    state = init_state(params, opt)
+    rng = np.random.default_rng(seed)
+    batch = batch_to({
+        "text_token": np.zeros((b, lt), np.int32),
+        "text_len": np.full((b,), lt, np.int32),
+        "speech_token": rng.integers(0, cfg.speech_token_size, (b, ls)).astype(np.int32),
+        "speech_len": np.full((b,), ls, np.int32)}, device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    secs = time_steps(lambda: llm_train_step(state, batch, cfg, opt), n_steps, device)
+    out = report(f"train_step_llm_b{b}_ls{ls}", secs, b * (2 + lt + ls), p_mm, peak_tflops,
+                 device, batch=[b, lt, ls])
+    if n_profile:
+        def loss_fn(p, mb):
+            res = llm_model.forward_loss(p, cfg, *(mb[k] for k in (
+                "text_token", "text_len", "speech_token", "speech_len")))
+            return res["loss"], res["acc"]
+
+        grads = _value_and_grad_accum(loss_fn, state.params, batch, 1)[2]
+        out["profile"] = profile(lambda: llm_train_step(state, batch, cfg, opt), n_profile,
+                                 lambda: opt.apply(state.params, grads, state.opt_state))
+    return out
+
+
+def bench_flow(cfg, device, b, lt, n_steps, peak_tflops, n_profile=0, seed=0) -> dict:
+    from ..models import flow as flow_model
+    from ..noise import TorchNoise
+    from ..params import init_flow_params
+    from ..train.steps import (OptimConfig, Optimizer, _value_and_grad_accum, batch_to,
+                               flow_train_step, init_state, matmul_params)
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_flow_params(cfg, gen, device, torch.bfloat16)
+    p_mm = matmul_params(params)
+    opt = Optimizer(OptimConfig(warmup_steps=10, total_steps=1000))
+    state = init_state(params, opt)
+    tm = lt * cfg.token_mel_ratio
+    rng = np.random.default_rng(seed)
+    batch = batch_to({
+        "speech_token": rng.integers(0, min(1000, cfg.vocab_size), (b, lt)).astype(np.int32),
+        "token_len": np.full((b,), lt, np.int32),
+        "speech_feat": (rng.standard_normal((b, tm, 80)) - 4.0).astype(np.float32),
+        "feat_len": np.full((b,), tm, np.int32),
+        "embedding": rng.standard_normal((b, 192)).astype(np.float32)}, device)
+    noise = TorchNoise(gen)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    secs = time_steps(lambda: flow_train_step(state, batch, noise, cfg, opt), n_steps, device)
+    out = report("train_step_flow", secs, b * tm, p_mm, peak_tflops, device, batch=[b, lt, tm])
+    if n_profile:
+        def loss_fn(p, mb, nz):
+            return flow_model.compute_loss(p, cfg, nz, *(mb[k] for k in (
+                "speech_token", "token_len", "speech_feat", "feat_len", "embedding"))), None
+
+        grads = _value_and_grad_accum(loss_fn, state.params, batch, 1, noise)[2]
+        out["profile"] = profile(lambda: flow_train_step(state, batch, noise, cfg, opt),
+                                 n_profile, lambda: opt.apply(state.params, grads,
+                                                              state.opt_state))
+    return out
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser("bench_train")
+    p.add_argument("--which", required=True, choices=["llm", "flow", "gan", "dpo"])
+    p.add_argument("--steps", type=int, default=10)
+    p.add_argument("--peak_tflops", type=float, default=989.0,
+                   help="dense bf16 peak of the card (H100 SXM: 989)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--tiny", action="store_true", help="tiny config at small shapes (smoke run)")
+    p.add_argument("--profile", type=int, default=0, metavar="N",
+                   help="trace N more steps (card only): device busy and idle share, "
+                        "launches, top kernels, the optimizer's share")
+    args = p.parse_args(argv)
+    if args.which in LATER:
+        p.error(f"--which {args.which} is not ported yet: it waits for {LATER[args.which]}")
+
+    from ..config import HydraVoxConfig, tiny_config
+    from ..device import resolve_device
+
+    device = resolve_device(args.device)
+    if args.profile and device.type != "cuda":
+        p.error("--profile traces the card: it needs --device cuda")
+    cfg = tiny_config() if args.tiny else HydraVoxConfig()
+    if args.which == "llm":
+        points = [(2, 8, 16)] if args.tiny else [(16, 64, 256), (8, 64, 512)]
+        out = [bench_llm(cfg.llm, device, b, lt, ls, args.steps, args.peak_tflops, args.profile)
+               for b, lt, ls in points]
+    else:
+        b, lt = (2, 8) if args.tiny else (16, 128)
+        out = [bench_flow(cfg.flow, device, b, lt, args.steps, args.peak_tflops, args.profile)]
+    for line in out:
+        print(json.dumps(line), flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()

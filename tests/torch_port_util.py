@@ -19,7 +19,12 @@ key chain and hands the port the exact numbers JAX draws:
     bonus's from r_bonus (:608);
   - speculative decoding in a flash batch: r0 and each step's four keys are
     split again into B row keys first (llm.py:757-764, :785, :795,
-    :812-814).
+    :812-814);
+  - the flow's training loss, from the step's key itself: flow.py:223 splits
+    it six ways (t, z, cfg, cond, idx, drop), dit.py:270 splits drop into one
+    key per block and dit.py:202 each block key into the attention and FF
+    dropout keys (a Bernoulli draw of keep = 1 - rate each); under gradient
+    accumulation steps.py:153 first splits the key into one per micro-batch.
 
 The JAX engine feeds one key to both the LM and HiFT (engine.py:1151, :1170),
 so the replay starts its step chain and its vocoder draws from the same key.
@@ -106,6 +111,22 @@ def _spec_step_draws(rng, b, kd, vocab):
                                                                   r_bonus)))
 
 
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5, 6))
+def _flow_loss_draws(rng, b, t_mel, mel_dim, depth, widths, rate):
+    rng_t, rng_z, rng_cfg, rng_cond, rng_idx, rng_drop = jax.random.split(rng, 6)
+    keep = None
+    if rate > 0:
+        keep = []
+        for block in jax.random.split(rng_drop, depth):
+            keys = jax.random.split(block)
+            keep.append(tuple(jax.random.bernoulli(k, 1.0 - rate, (b, t_mel, w))
+                              for k, w in zip(keys, widths)))
+    return (jax.random.uniform(rng_t, (b, 1, 1)),
+            jax.random.normal(rng_z, (b, mel_dim, t_mel)),
+            jax.random.uniform(rng_cfg, (b,)), jax.random.uniform(rng_cond, (b,)),
+            jax.random.uniform(rng_idx, (b,)), keep)
+
+
 @functools.partial(jax.jit, static_argnums=(1, 2, 3))
 def _vocoder_draws(rng, b, t, nh):
     rng_ini, rng_noise = jax.random.split(rng)
@@ -153,6 +174,18 @@ class JaxReplayNoise:
     def vocoder(self, b: int, length: int, nh: int):
         ri, rn = _vocoder_draws(self.key, b, length, nh)
         return t(ri).to(self.device), t(rn).to(self.device)
+
+    def flow_loss(self, b: int, t_mel: int, mel_dim: int, depth: int, widths, rate: float):
+        from flowmirror_hydravox_tpu_torch.noise import FlowDraws
+
+        *draws, keep = _flow_loss_draws(self.key, b, t_mel, mel_dim, depth, tuple(widths),
+                                        float(rate))
+        if keep is not None:
+            keep = [tuple(t(m).to(self.device) for m in pair) for pair in keep]
+        return FlowDraws(*(t(d).to(self.device) for d in draws), keep)
+
+    def split(self, k: int):
+        return [JaxReplayNoise(key, self.device) for key in jax.random.split(self.key, k)]
 
 
 @functools.lru_cache(maxsize=None)
