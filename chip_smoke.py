@@ -198,7 +198,37 @@ exits non-zero without either. Phases, each fatal on failure:
      /api/v1/tts at heads 2, its launches held to the prediction. Printed:
      ms per step (median of steps 3-12), tokens (mel frames) per second,
      MFU (6 x matmul params x tokens over 989 TFLOP/s) and peak memory;
-  6. the kernels line (launches: phases 5 to 5j; the int8 form's: 5i), the
+  5k. DPO on the card (train/train_dpo.py, tools/bench_train.py --which
+     dpo): first one dpo_train_step at f32 on the card and on the CPU from
+     the same seeded weights and batch (the reference model a copy; 5j.1's
+     2-layer, 2-head config): loss, dpo_loss and grad norm within 1e-5
+     relative, params within 2e-5 x (1 + |p|), the gradients within 1e-4 of
+     each leaf's largest; then, bf16, the full LLM (the tokenizer's text
+     vocab) through train_dpo's loop for 10 steps at B 4 pairs, Lt 64, Ls
+     256, on one batch collated by the port's DPOCollator from seeded rows
+     in memory, against a frozen copy of the initial policy: step 1's
+     dpo_loss within 1e-3 of ln 2 and both rewards within 1e-3 of 0 (the
+     policy is the reference), after step 1 a gradient on every leaf but
+     the heads' q/k, on head 0's slice of each head leaf and none on heads
+     1-4's, no kernel launch in any step, the reference tree bit for bit
+     unchanged, and the total loss lower at step 10 than at step 1. Printed:
+     ms per step, pairs per second, MFU ((6 x 2 + 2 x 2) x matmul params x
+     B x (2 + Lt + Ls) over 989 TFLOP/s, JAX's count), peak memory; then
+     bench_train's `--which dpo` and `--which llm --accum 2` lines;
+  5l. the spec-decode readout trained on the card
+     (tools/train_spec_ckpt.py's recipe: 400 steps, B 4, Lt 64, Ls 160,
+     M 256, lr 2e-3) over the launcher's seed-0 tree: its loss must fall and
+     its acc rise; the artifact written to chiprun_out/spec_readout.npz and
+     loaded into a fresh seed-0 draw bit for bit. Then tools/bench_spec.py's
+     measurement (heads 4 against heads 1, 125 tokens of a 63-token text,
+     4 reps after a warm-up) on the untrained and the trained tree: the
+     trained acceptance must beat the untrained; both kernels' launches
+     (counts set to 0 before the decodes, read after) must equal the
+     prediction (speculative and blind decodes each by their own count),
+     and every shape they launched is held against its plain version as in
+     5h. Printed: acceptance, tokens per step, tokens/s and speedup for both
+     readouts, and the training seconds;
+  6. the kernels line (launches: phases 5 to 5l; the int8 form's: 5i), the
      card line, and the final JSON line.
 
 TF32 is off for matmuls and cuDNN convs throughout, so f32 is full f32 in
@@ -2080,28 +2110,28 @@ class ServedShapes:
             del rec["last"]
 
 
-def check_served_shapes(served, da, mg, flush, counted):
-    """5h.3: every kernel shape that phase 5h launched (`ServedShapes`), at
-    the dtype it served, against the plain version and timed, in the
-    harness of phases 3 and 3b; decode attention at the cache_len of the
-    forward that read the most keys. The recorded launches must cover the
-    ones the phase counted (`counted`; its warm-ups add more). Returns
-    {"attention": records, "mlp": records}, each record with its launches
-    in 5h."""
+def check_served_shapes(served, da, mg, flush, counted, phase="5h"):
+    """5h.3 (and 5l's): every kernel shape that the phase launched
+    (`ServedShapes`), at the dtype it served, against the plain version and
+    timed, in the harness of phases 3 and 3b; decode attention at the
+    cache_len of the forward that read the most keys. The recorded launches
+    must cover the ones the phase counted (`counted`; its warm-ups add
+    more). Returns {"attention": records, "mlp": records}, each record with
+    its launches in the phase."""
     recorded = (sum(r["launches"] for r in served.attention.values()),
                 sum(served.mlp.values()))
     if not (recorded[0] >= counted[0] > 0 and recorded[1] >= counted[1] > 0):
-        fail(f"5h: recorded launches {recorded}, counted {counted}")
+        fail(f"{phase}: recorded launches {recorded}, counted {counted}")
     out = {"attention": [], "mlp": []}
     for (dtype, b, t, s_max, hq), rec in sorted(served.attention.items()):
         (r,) = check_decode_attention(da, flush, [(b, t, s_max, rec["cache_len"], hq)], (dtype,))
-        out["attention"].append(dict(r, launches_5h=rec["launches"]))
+        out["attention"].append(dict(r, **{f"launches_{phase}": rec["launches"]}))
     for (dtype, m, h, i), launches in sorted(served.mlp.items()):
         (r,) = check_mlp_gemv(mg, flush, [(m, h, i)], (dtype,))
-        out["mlp"].append(dict(r, launches_5h=launches))
+        out["mlp"].append(dict(r, **{f"launches_{phase}": launches}))
     for name, recs in out.items():
         for r in recs:
-            print(f"5h served shape {name}", json.dumps(r), flush=True)
+            print(f"{phase} served shape {name}", json.dumps(r), flush=True)
     return out
 
 
@@ -2758,6 +2788,13 @@ def grad_err(opt_a, opt_b):
     return out
 
 
+def tree_to_device(tree, dev):
+    """A copy of `tree` on `dev`."""
+    from flowmirror_hydravox_tpu_torch.params import flatten_params, unflatten_params
+
+    return unflatten_params({k: v.to(dev, copy=True) for k, v in flatten_params(tree).items()})
+
+
 def train_cross_device(cfg, tokenizer, dev):
     """5j.1: one llm_train_step and one flow_train_step at f32 on the card and
     on the CPU from the same weights, batch and draws: the full-width LLM at 2
@@ -2769,8 +2806,7 @@ def train_cross_device(cfg, tokenizer, dev):
 
     import torch
 
-    from flowmirror_hydravox_tpu_torch.params import (flatten_params, init_flow_params,
-                                                      init_llm_params, unflatten_params)
+    from flowmirror_hydravox_tpu_torch.params import init_flow_params, init_llm_params
     from flowmirror_hydravox_tpu_torch.train import data, steps
 
     rng = np.random.default_rng(TRAIN_SEED)
@@ -2788,8 +2824,7 @@ def train_cross_device(cfg, tokenizer, dev):
              lambda st, b, dev, c, o: steps.flow_train_step(st, b, DrawsOn(TRAIN_SEED, dev), c, o))):
         opt = steps.Optimizer(steps.OptimConfig(learning_rate=CROSS_LR, schedule="constant"))
         cpu_params = init(sub, torch.Generator().manual_seed(TRAIN_SEED), "cpu", torch.float32)
-        card = steps.init_state(unflatten_params(
-            {k: v.to(dev, copy=True) for k, v in flatten_params(cpu_params).items()}), opt)
+        card = steps.init_state(tree_to_device(cpu_params, dev), opt)
         cpu = steps.init_state(cpu_params, opt)
         card, m_card = run(card, steps.batch_to(batch, dev), dev, sub, opt)
         cpu, m_cpu = run(cpu, steps.batch_to(batch, "cpu"), "cpu", sub, opt)
@@ -2817,7 +2852,7 @@ class StepLog:
     def __init__(self, what, dev, frozen=(), moments_at=None):
         self.what, self.dev, self.frozen = what, dev, frozen
         self.moments_at, self.moments = moments_at, None
-        self.losses, self.gnorms, self.secs = [], [], []
+        self.losses, self.gnorms, self.secs, self.metrics = [], [], [], []
         self.t = time.perf_counter()
 
     def __call__(self, state, metrics):
@@ -2833,6 +2868,7 @@ class StepLog:
             fail(f"5j {self.what}: step {state.step} loss {loss} grad norm {gnorm}")
         self.losses.append(loss)
         self.gnorms.append(gnorm)
+        self.metrics.append({k: float(v) for k, v in metrics.items()})
         if state.step == 1:
             for k, mu in state.opt_state["mu"].items():
                 trained = bool(mu.abs().max() > 0) and bool(torch.isfinite(mu).all())
@@ -3067,6 +3103,243 @@ def drive_training(engine, frontend, da, mg, card):
         torch.cuda.empty_cache()
 
 
+# phase 5k: DPO at full width
+DPO_SHAPE = (4, 64, 256)  # B pairs, text bucket, speech bucket: bench_train --which dpo's point
+DPO_STEPS = 10
+DPO_TOL = 1e-3  # step 1: dpo_loss against ln 2, rewards against 0 (bf16)
+# the card-vs-CPU DPO step at f32, on the 2-layer, 2-head config of 5j.1
+DPO_CROSS_REL = 1e-5  # loss, dpo_loss, grad norm
+DPO_CROSS_PARAMS = 2e-5  # x (1 + |p|), one step at CROSS_LR
+
+
+def dpo_rows(rng, n_rows, llm_cfg, speech_len=(200, 257)):
+    """Seeded DPO rows: LLM rows whose speech tokens are the chosen side and
+    a second draw of the same lengths the rejected side."""
+    rows = llm_rows(rng, n_rows, llm_cfg, speech_len=speech_len)
+    for r in rows:
+        r["reject_speech_token"] = rng.integers(0, llm_cfg.speech_token_size,
+                                                int(rng.integers(*speech_len))).tolist()
+    return rows
+
+
+def dpo_cross_device(cfg, tokenizer, dev):
+    """5k.1: one dpo_train_step at f32 on the card and on the CPU from the
+    same seeded weights (the reference model a copy) and batch: the
+    full-width LLM at 2 layers and 2 MTP heads, as 5j.1. Loss, dpo_loss and
+    grad norm within DPO_CROSS_REL relative, params within DPO_CROSS_PARAMS
+    x (1 + |p|), the gradients (Adam's first moments) within CROSS_TOL of
+    each leaf's largest."""
+    import dataclasses
+
+    import torch
+
+    from flowmirror_hydravox_tpu_torch.params import init_llm_params
+    from flowmirror_hydravox_tpu_torch.train import data, steps
+    from flowmirror_hydravox_tpu_torch.train.train_dpo import frozen_copy
+
+    rng = np.random.default_rng(TRAIN_SEED + 2)
+    llm_cfg = dataclasses.replace(cfg.llm, head_num=2, backbone=dataclasses.replace(
+        cfg.llm.backbone, num_layers=2))
+    batch = data.DPOCollator(tokenizer)(dpo_rows(rng, 2, llm_cfg, speech_len=(100, 129)))
+    opt = steps.Optimizer(steps.OptimConfig(learning_rate=CROSS_LR, schedule="constant"))
+    cpu_params = init_llm_params(llm_cfg, torch.Generator().manual_seed(TRAIN_SEED), "cpu",
+                                 torch.float32)
+    runs = {}
+    for where, params in (("card", tree_to_device(cpu_params, dev)), ("cpu", cpu_params)):
+        ref = frozen_copy(params)
+        state, m = steps.dpo_train_step(steps.init_state(params, opt), ref,
+                                        steps.batch_to(batch, params["llm_decoder"].device),
+                                        llm_cfg, opt)
+        runs[where] = (state, m)
+    (card, m_card), (cpu, m_cpu) = runs["card"], runs["cpu"]
+    rec = {f"{k}_rel": abs(float(m_card[k]) - float(m_cpu[k])) / abs(float(m_cpu[k]))
+           for k in ("loss", "dpo_loss", "grad_norm")}
+    rec.update(loss=float(m_card["loss"]), dpo_loss=float(m_card["dpo_loss"]),
+               params_err=leaf_err(card.params, cpu.params),
+               grad_err=grad_err(card.opt_state, cpu.opt_state),
+               batch={k: list(v.shape) for k, v in batch.items()})
+    print("5k card vs CPU dpo", json.dumps(rec), flush=True)
+    if (max(rec["loss_rel"], rec["dpo_loss_rel"], rec["grad_norm_rel"]) > DPO_CROSS_REL
+            or rec["params_err"] > DPO_CROSS_PARAMS or rec["grad_err"] > CROSS_TOL):
+        fail(f"5k: the card's DPO step differs from the CPU's: {rec}")
+    return rec
+
+
+def check_dpo_heads(state):
+    """After step 1: head 0's slice of every head leaf but the
+    never-multiplied q/k has a gradient (Adam's first moment), heads 1-4's
+    slices exactly none, as in JAX (forward_dpo runs head 0 alone)."""
+    for k, mu in state.opt_state["mu"].items():
+        if not k.startswith("mtp_block.") or k in MTP_DEAD:
+            continue
+        per_head = mu.abs().flatten(1).amax(1)
+        if not (float(per_head[0]) > 0 and not bool(per_head[1:].any())):
+            fail(f"5k: {k} per-head gradient {per_head.tolist()}: expected head 0 alone")
+
+
+def drive_dpo(engine, frontend, da, mg, card):
+    """Phase 5k: DPO on the card (see the module docstring). Returns the
+    record. A CPU rehearsal at a tiny config passes a CPU engine."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from flowmirror_hydravox_tpu_torch.params import flatten_params, init_llm_params
+    from flowmirror_hydravox_tpu_torch.tools import bench_train
+    from flowmirror_hydravox_tpu_torch.train import data, steps, train_dpo
+
+    cfg, dev = engine.cfg, torch.device(engine.device)
+    on_card = dev.type == "cuda"
+    rec = {"cross_device": dpo_cross_device(cfg, frontend.tokenizer, dev)}
+    rng = np.random.default_rng(TRAIN_SEED + 3)
+    b, lt, ls = DPO_SHAPE
+    t0 = time.time()
+    (fixed,) = collated(data.DPOCollator(frontend.tokenizer), dpo_rows(rng, b, cfg.llm), b,
+                        {"text_token": (b, lt), "chosen_token": (b, ls),
+                         "rejected_token": (b, ls)})
+    rec["collate_s"] = time.time() - t0
+    params = init_llm_params(cfg.llm, torch.Generator(device=dev).manual_seed(TRAIN_SEED), dev,
+                             torch.bfloat16)
+    ref = train_dpo.frozen_copy(params)
+    ref_before = {k: v.clone() for k, v in flatten_params(ref).items()}
+    log = StepLog("dpo", dev, frozen=MTP_DEAD)
+
+    def on_step(state, metrics):
+        log(state, metrics)
+        if (da.launch_count, mg.launch_count, mg.int8_launch_count) != (0, 0, 0):
+            fail(f"5k: DPO step {state.step} launched a kernel: attention {da.launch_count}, "
+                 f"MLP {mg.launch_count}, int8 MLP {mg.int8_launch_count}")
+        if state.step == 1:
+            check_dpo_heads(state)
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="hydravox_dpo_"))
+    try:
+        args = train_dpo.parse_args([
+            "--train_data", "memory", "--output_dir", str(tmp), "--max_steps", str(DPO_STEPS),
+            "--learning_rate", str(TRAIN_LR), "--warmup_steps", "2", "--logging_steps", "5",
+            "--save_steps", "1000", "--seed", str(TRAIN_SEED)])
+        da.launch_count = mg.launch_count = mg.int8_launch_count = 0
+        reset_peak(dev)
+        state, _ = train_dpo.train(args, cfg.llm, params, ref, [fixed] * DPO_STEPS,
+                                   on_step=on_step)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if state.step != DPO_STEPS:
+        fail(f"5k: the loop ended at step {state.step}")
+    first = log.metrics[0]
+    rec["step1"] = {k: first[k] for k in ("loss", "sft_loss", "dpo_loss", "chosen_reward",
+                                          "reject_reward", "dpo_acc")}
+    if not (abs(first["dpo_loss"] - np.log(2)) <= DPO_TOL and abs(first["chosen_reward"])
+            <= DPO_TOL and abs(first["reject_reward"]) <= DPO_TOL):
+        fail(f"5k: step 1 with the policy equal to the reference: {rec['step1']}")
+    changed = [k for k, v in flatten_params(ref).items() if not torch.equal(v, ref_before[k])]
+    if changed:
+        fail(f"5k: the reference model changed: {changed[:5]}")
+    if not log.losses[-1] < log.losses[0]:
+        fail(f"5k: the total loss on the fixed batch did not fall: {log.losses}")
+    step_s = statistics.median(log.secs[TRAIN_TIMED])
+    p_mm = steps.matmul_params(state.params)
+    tokens = b * (2 + lt + ls)
+    rec.update(steps=DPO_STEPS, step_ms=step_s * 1e3,
+               step_ms_range=[min(log.secs[TRAIN_TIMED]) * 1e3, max(log.secs[TRAIN_TIMED]) * 1e3],
+               pairs_per_s=b / step_s, tokens=tokens, matmul_params=p_mm,
+               mfu=(6 * 2 + 2 * 2) * p_mm * tokens / step_s / PEAK_FLOPS["bfloat16"],
+               peak_gb=peak_bytes(dev) / 1e9, losses=log.losses,
+               dpo_losses=[m["dpo_loss"] for m in log.metrics], card=card)
+    del state, params, ref, ref_before
+    print("5k dpo train step", json.dumps({k: v for k, v in rec.items()
+                                           if k not in ("cross_device",)}), flush=True)
+    # the benchmark's own lines (JAX's text vocab, 151936)
+    bench_cfg = type(cfg)().llm if on_card else cfg.llm
+    shapes = ((4, 64, 256), (16, 64, 256)) if on_card else ((2, 8, 16), (2, 8, 16))
+    rec["bench_train"] = [
+        bench_train.bench_dpo(bench_cfg, dev, *shapes[0], 10, 989.0),
+        bench_train.bench_llm(bench_cfg, dev, 2 * shapes[1][0], *shapes[1][1:], 10, 989.0,
+                              accum=2)]
+    for line in rec["bench_train"]:
+        print("5k bench_train", json.dumps(line), flush=True)
+    if on_card:
+        torch.cuda.empty_cache()
+    return rec
+
+
+# phase 5l: the spec readout trained on the card, served through the spec decode
+READOUT_STEPS = 400  # the JAX tool's default recipe
+SPEC_BENCH = dict(heads=4, reps=4, n_tokens=125, text_len=63)  # bench_spec's defaults
+
+
+def drive_spec_readout(engine, frontend, da, mg, flush):
+    """Phase 5l (see the module docstring). Returns (record, launches)."""
+    import torch
+
+    from flowmirror_hydravox_tpu_torch.tools import bench_spec
+    from flowmirror_hydravox_tpu_torch.tools import train_spec_ckpt as tool
+
+    dev = torch.device(engine.device)
+    on_card = dev.type == "cuda"
+    tiny = not on_card
+    steps = READOUT_STEPS if on_card else 20
+    bench_kw = SPEC_BENCH if on_card else dict(SPEC_BENCH, reps=1, n_tokens=48, text_len=24)
+    cfg, trees, tree = tool.load_tree(tiny, dev, frontend.tokenizer)
+    m_tokens = min(256, cfg.llm.speech_token_size)
+    t0 = time.time()
+    tr, history = tool.train_readout(trees["llm"], cfg.llm, steps=steps, m_tokens=m_tokens,
+                                     log=lambda line: print("5l", line, flush=True))
+    if on_card:
+        torch.cuda.synchronize()
+    train_s = time.time() - t0
+    meta = dict(tree, steps=steps, batch=4, lt_max=64, ls=160, m_tokens=m_tokens, lr=2e-3,
+                train_embedding=True, train_acc=round(history[-1][2], 4),
+                torch=torch.__version__, recipe="chip_smoke phase 5l (tools/train_spec_ckpt.py)")
+    tool.save_spec_readout(tool.DEFAULT_OUT, tr, meta)
+    rec = dict(steps=steps, train_s=train_s, history=history, artifact=tool.DEFAULT_OUT,
+               artifact_bytes=pathlib.Path(tool.DEFAULT_OUT).stat().st_size)
+    print("5l readout training", json.dumps(rec), flush=True)
+    (_, loss0, acc0), (_, loss1, acc1) = history[0], history[-1]
+    if not (loss1 < loss0 and acc1 > acc0):
+        fail(f"5l: the readout did not learn: loss {loss0} -> {loss1}, acc {acc0} -> {acc1}")
+    trained = tool.with_readout(trees["llm"], tr)
+    # a fresh draw of the seed-0 tree takes the artifact back bit for bit
+    _, fresh, _ = tool.load_tree(tiny, dev, frontend.tokenizer)
+    loaded, _ = tool.load_spec_readout(fresh["llm"], tool.DEFAULT_OUT, tree)
+    for k in ("llm_decoder", "speech_embedding"):
+        if not torch.equal(loaded[k], trained[k]):
+            fail(f"5l: the loaded readout's {k} is not the trained one")
+    del fresh, loaded, tr
+
+    out, recs = {}, []
+    da.launch_count = mg.launch_count = 0
+    for name, llm in (("untrained", trees["llm"]), ("trained", trained)):
+        eng = bench_spec.spec_engine(cfg, dict(trees, llm=llm), bench_kw["n_tokens"], dev)
+
+        def log(line, name=name):
+            print(f"5l {name}", line, flush=True)
+
+        with EngineCalls(eng) as calls:
+            runs = [bench_spec.bench(eng, heads, bench_kw["reps"], bench_kw["n_tokens"],
+                                     bench_kw["text_len"], True, log)
+                    for heads in (bench_kw["heads"], 1)]
+        out[name] = dict(bench_spec.summarize(*runs), decodes=len(calls.records))
+        recs += calls.records
+        del eng
+    launched = (da.launch_count, mg.launch_count)
+    spec_recs = [r for r in recs if r["heads"] > 1]
+    blind_recs = [r for r in recs if r["heads"] == 1]
+    predicted = tuple(a + b for a, b in zip(predicted_spec_launches(spec_recs, cfg.llm),
+                                            predicted_launches(blind_recs, cfg.llm)))
+    rec.update(bench=out, launches=list(launched), predicted=list(predicted))
+    print("5l spec decode", json.dumps({k: rec[k] for k in ("bench", "launches", "predicted")}),
+          flush=True)
+    if launched != predicted or 0 in launched:
+        fail(f"5l: (attention, mlp) launches {launched}, predicted {predicted}")
+    if not out["trained"]["acceptance"] > out["untrained"]["acceptance"]:
+        fail(f"5l: acceptance with the trained readout {out['trained']['acceptance']}, "
+             f"untrained {out['untrained']['acceptance']}")
+    del trained, trees
+    return rec, launched
+
+
 def main():
     t_start = time.time()
     if not (ROOT / "flowmirror_hydravox_tpu_torch" / "csrc").is_dir():
@@ -3181,11 +3454,18 @@ def main():
     int8["kernels"] = check_int8_shapes(served, mg, flush, int8_launched[2])
     phase_s["5i kernels"] = time.time() - t0
     training, train_launched = phase("5j", drive_training, engine, frontend, da, mg, card)
+    dpo = phase("5k", drive_dpo, engine, frontend, da, mg, card)
+    with ServedShapes(da, mg) as served:
+        readout, readout_launched = phase("5l", drive_spec_readout, engine, frontend, da, mg,
+                                          flush)
+    t0 = time.time()
+    readout["kernels"] = check_served_shapes(served, da, mg, flush, readout_launched, phase="5l")
+    phase_s["5l kernels"] = time.time() - t0
     phase_s["all"] = time.time() - t_start
     print("phase seconds", json.dumps({k: round(v, 1) for k, v in phase_s.items()}), flush=True)
     attention_launches, mlp_launches = (sum(x) for x in zip(
         launches, more, streamed, zs_launched, pt_launched, zsb_launched, solo_launched,
-        spec_launched, int8_launched[:2], train_launched))
+        spec_launched, int8_launched[:2], train_launched, readout_launched))
     del flush
 
     # the kernels line: each kernel at its serving shape (bf16; decode
@@ -3249,7 +3529,8 @@ def main():
          "mlp_cases": mlp_cases, "backbone_rel_err": backbone_rel, "requests": requests,
          "serving": serving, "streaming": streaming, "zero_shot": zero_shot,
          "pt_weights": pt_weights, "zero_shot_batched": zs_batched, "solo_route": solo_rule,
-         "spec_decode": spec, "int8": int8, "training": training, "phase_s": phase_s,
+         "spec_decode": spec, "int8": int8, "training": training, "dpo": dpo,
+         "spec_readout": readout, "phase_s": phase_s,
          **kernels},
         indent=1))
     print(json.dumps(kernels), flush=True)

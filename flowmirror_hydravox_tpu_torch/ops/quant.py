@@ -62,11 +62,15 @@ def quantize_weight_int8(w: torch.Tensor):
 def matmul_q(x: torch.Tensor, layer: dict, name: str) -> torch.Tensor:
     """`x @ layer[name]`, dequantizing on the product's output when the leaf
     is int8: `(x @ w8.to(x.dtype)) * scale`, cast to x's dtype (the JAX
-    order, so a bf16 product is rounded before the scale)."""
+    order, so a bf16 product is rounded before the scale). Two float dtypes
+    promote as `jnp.matmul` promotes them (bf16 @ f32 is an f32 product)."""
     w = layer[name]
     if w.dtype == torch.int8:
         y = x @ w.to(x.dtype)
         return (y * layer[name + SCALE_SUFFIX].reshape(-1)).to(x.dtype)
+    if w.dtype != x.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return x.to(dt) @ w.to(dt)
     return x @ w
 
 

@@ -383,6 +383,8 @@ class Engine:
         speed: float = 1.0,
         noise=None,
         llm_prompt_speech_tokens: Optional[np.ndarray] = None,  # LM prefix override
+        max_token_text_ratio: float = MAX_TOKEN_TEXT_RATIO,
+        min_token_text_ratio: float = MIN_TOKEN_TEXT_RATIO,
     ) -> SynthesisResult:
         """Single-utterance synthesis (reference inference_tts /
         inference_zero_shot, infer_speech_model.py:523-689). `noise` (default:
@@ -408,8 +410,8 @@ class Engine:
         llm_sp_pad, llm_lp = ((sp_pad, lp) if llm_prompt_speech_tokens is None
                               else self._speech_row(llm_prompt_speech_tokens))
 
-        min_len = int(tts_text_len * MIN_TOKEN_TEXT_RATIO)
-        max_len = min(int(tts_text_len * MAX_TOKEN_TEXT_RATIO), self.max_tokens)
+        min_len = int(tts_text_len * min_token_text_ratio)
+        max_len = min(int(tts_text_len * max_token_text_ratio), self.max_tokens)
         sp = SamplingParams.make(sampling.top_p, sampling.top_k, sampling.win_size, sampling.tau_r)
 
         ratio = cfg.flow.token_mel_ratio

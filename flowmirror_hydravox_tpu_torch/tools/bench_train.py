@@ -1,25 +1,32 @@
-"""Train-step benchmark on the card: port of the LLM and flow points of
+"""Train-step benchmark on the card: port of the LLM, flow and DPO points of
 flowmirror_hydravox_tpu/tools/bench_train.py.
 
-    python -m flowmirror_hydravox_tpu_torch.tools.bench_train --which llm|flow \
-        [--steps 10] [--peak_tflops 989] [--device cuda|cpu] [--tiny] [--profile 3]
+    python -m flowmirror_hydravox_tpu_torch.tools.bench_train --which llm|flow|dpo \
+        [--steps 10] [--accum K] [--peak_tflops 989] [--device cuda|cpu] [--tiny] \
+        [--profile 3]
 
 Shapes (the JAX benchmark's): LLM B 16, Lt 64, Ls 256, plus one longer
-point, B 8, Ls 512; flow B 16, Lt 128 (256 mel frames). Full-size
+point, B 8, Ls 512; flow B 16, Lt 128 (256 mel frames); DPO B 4 pairs, Lt
+64, Ls 256, the reference model a copy of the policy, lr 1e-5. `--accum K`
+(LLM only) runs the first LLM point at a global batch of 16 x K, the
+backward on micro-batches of 16 (`train_step_llm_accum{K}`). Full-size
 `HydraVoxConfig()` weights (bf16) from a seeded init, `llm_train_step` /
-`flow_train_step` with the default optimizer. Each point prints one JSON
+`flow_train_step` / `dpo_train_step`. Each point prints one JSON
 line: ms per step (the median of `--steps` steps after two warm-up steps,
 each ended by `torch.cuda.synchronize()`), tokens (mel frames for the flow)
-per second, MFU as 6 x matmul params x tokens over `--peak_tflops` (989:
-the H100 SXM's dense bf16 peak; the flow count leaves out attention, as the
-JAX benchmark's does), peak memory (`torch.cuda.max_memory_allocated`),
+per second (and pairs per second for DPO), MFU as 6 x matmul params x
+tokens over `--peak_tflops` (989: the H100 SXM's dense bf16 peak; the flow
+count leaves out attention, as the JAX benchmark's does; DPO counts the
+policy's forward and backward over chosen and rejected and the reference
+model's forward over both, (6 x 2 + 2 x 2) x every matmul leaf x B x (2 +
+Lt + Ls), as JAX's does), peak memory (`torch.cuda.max_memory_allocated`),
 and the card's name and power limit. `--profile N` adds where a step's
 time goes: N steps under torch.profiler (per step: wall, device busy, the
 device's idle share, kernel launches, the kernels with the most device
 time) and the optimizer's update alone (median of 5 synced calls on one
-step's gradients). `--which gan|dpo` exits non-zero: those
-trainers wait for later slices. Runs on the card unless `--device cpu`
-(a smoke run: no device metric is printed there).
+step's gradients). `--which gan` exits non-zero: the GAN trainer waits for
+a later slice. Runs on the card unless `--device cpu` (a smoke run: no
+device metric is printed there).
 """
 
 from __future__ import annotations
@@ -33,8 +40,7 @@ import time
 import numpy as np
 import torch
 
-LATER = {"gan": "the HiFT GAN slice (train/gan.py, models/discriminator.py)",
-         "dpo": "the DPO slice (llm_extras.forward_dpo, dpo_train_step)"}
+LATER = {"gan": "the HiFT GAN slice (train/gan.py, models/discriminator.py)"}
 
 
 def card_census() -> str:
@@ -102,20 +108,23 @@ def profile(step, n_steps: int, optimizer_apply, top: int = 10) -> dict:
                            for a in dev[:top]]}
 
 
-def report(name, secs, tokens, matmul_params, peak_tflops, device, **extra) -> dict:
+def report(name, secs, tokens, matmul_params, peak_tflops, device, flops_per=6,
+           **extra) -> dict:
+    """A point's line; MFU counts `flops_per` x matmul params x tokens."""
     step_s = statistics.median(secs)
     out = {"metric": name, "device": str(device), "step_ms": step_s * 1e3,
            "step_ms_min": min(secs) * 1e3, "step_ms_max": max(secs) * 1e3,
            "tokens_per_s": tokens / step_s, "tokens": tokens, "matmul_params": matmul_params,
            **extra}
     if device.type == "cuda":
-        out["mfu"] = 6 * matmul_params * tokens / step_s / (peak_tflops * 1e12)
+        out["mfu"] = flops_per * matmul_params * tokens / step_s / (peak_tflops * 1e12)
         out["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
         out["card"] = card_census()
     return out
 
 
-def bench_llm(cfg, device, b, lt, ls, n_steps, peak_tflops, n_profile=0, seed=0) -> dict:
+def bench_llm(cfg, device, b, lt, ls, n_steps, peak_tflops, n_profile=0, seed=0,
+              accum=1) -> dict:
     from ..models import llm as llm_model
     from ..params import init_llm_params
     from ..train.steps import (OptimConfig, Optimizer, _value_and_grad_accum, batch_to,
@@ -135,17 +144,20 @@ def bench_llm(cfg, device, b, lt, ls, n_steps, peak_tflops, n_profile=0, seed=0)
         "speech_len": np.full((b,), ls, np.int32)}, device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    secs = time_steps(lambda: llm_train_step(state, batch, cfg, opt), n_steps, device)
-    out = report(f"train_step_llm_b{b}_ls{ls}", secs, b * (2 + lt + ls), p_mm, peak_tflops,
-                 device, batch=[b, lt, ls])
+    secs = time_steps(lambda: llm_train_step(state, batch, cfg, opt, accum_steps=accum),
+                      n_steps, device)
+    name = f"train_step_llm_b{b}_ls{ls}" if accum == 1 else f"train_step_llm_accum{accum}"
+    out = report(name, secs, b * (2 + lt + ls), p_mm, peak_tflops, device, batch=[b, lt, ls],
+                 grad_accum=accum)
     if n_profile:
         def loss_fn(p, mb):
             res = llm_model.forward_loss(p, cfg, *(mb[k] for k in (
                 "text_token", "text_len", "speech_token", "speech_len")))
             return res["loss"], res["acc"]
 
-        grads = _value_and_grad_accum(loss_fn, state.params, batch, 1)[2]
-        out["profile"] = profile(lambda: llm_train_step(state, batch, cfg, opt), n_profile,
+        grads = _value_and_grad_accum(loss_fn, state.params, batch, accum)[2]
+        out["profile"] = profile(lambda: llm_train_step(state, batch, cfg, opt,
+                                                        accum_steps=accum), n_profile,
                                  lambda: opt.apply(state.params, grads, state.opt_state))
     return out
 
@@ -187,10 +199,40 @@ def bench_flow(cfg, device, b, lt, n_steps, peak_tflops, n_profile=0, seed=0) ->
     return out
 
 
+def bench_dpo(cfg, device, b, lt, ls, n_steps, peak_tflops, seed=0) -> dict:
+    from ..params import init_llm_params
+    from ..train.steps import (OptimConfig, Optimizer, batch_to, dpo_train_step, init_state,
+                               matmul_params)
+    from ..train.train_dpo import frozen_copy
+
+    params = init_llm_params(cfg, torch.Generator(device=device).manual_seed(seed), device,
+                             torch.bfloat16)
+    ref_params = frozen_copy(params)
+    opt = Optimizer(OptimConfig(learning_rate=1e-5, warmup_steps=10, total_steps=1000))
+    state = init_state(params, opt)
+    rng = np.random.default_rng(seed)
+    batch = batch_to({
+        "text_token": np.zeros((b, lt), np.int32),
+        "text_len": np.full((b,), lt, np.int32),
+        "chosen_token": rng.integers(0, cfg.speech_token_size, (b, ls)).astype(np.int32),
+        "chosen_len": np.full((b,), ls, np.int32),
+        "rejected_token": rng.integers(0, cfg.speech_token_size, (b, ls)).astype(np.int32),
+        "rejected_len": np.full((b,), ls, np.int32)}, device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    secs = time_steps(lambda: dpo_train_step(state, ref_params, batch, cfg, opt), n_steps, device)
+    return report("train_step_dpo", secs, b * (2 + lt + ls), matmul_params(params), peak_tflops,
+                  device, flops_per=6 * 2 + 2 * 2, pairs_per_s=b / statistics.median(secs),
+                  batch=[b, lt, ls])
+
+
 def main(argv=None):
     p = argparse.ArgumentParser("bench_train")
     p.add_argument("--which", required=True, choices=["llm", "flow", "gan", "dpo"])
     p.add_argument("--steps", type=int, default=10)
+    p.add_argument("--accum", type=int, default=1,
+                   help="gradient accumulation (llm only): global batch 16 x accum, the "
+                        "backward on micro-batches of 16")
     p.add_argument("--peak_tflops", type=float, default=989.0,
                    help="dense bf16 peak of the card (H100 SXM: 989)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -201,6 +243,10 @@ def main(argv=None):
     args = p.parse_args(argv)
     if args.which in LATER:
         p.error(f"--which {args.which} is not ported yet: it waits for {LATER[args.which]}")
+    if args.accum != 1 and args.which != "llm":
+        p.error("--accum is implemented for --which llm only")
+    if args.profile and args.which == "dpo":
+        p.error("--profile traces the llm and flow points")
 
     from ..config import HydraVoxConfig, tiny_config
     from ..device import resolve_device
@@ -209,10 +255,17 @@ def main(argv=None):
     if args.profile and device.type != "cuda":
         p.error("--profile traces the card: it needs --device cuda")
     cfg = tiny_config() if args.tiny else HydraVoxConfig()
-    if args.which == "llm":
+    if args.which == "llm" and args.accum > 1:
+        b, lt, ls = (2, 8, 16) if args.tiny else (16, 64, 256)
+        out = [bench_llm(cfg.llm, device, b * args.accum, lt, ls, args.steps, args.peak_tflops,
+                         args.profile, accum=args.accum)]
+    elif args.which == "llm":
         points = [(2, 8, 16)] if args.tiny else [(16, 64, 256), (8, 64, 512)]
         out = [bench_llm(cfg.llm, device, b, lt, ls, args.steps, args.peak_tflops, args.profile)
                for b, lt, ls in points]
+    elif args.which == "dpo":
+        b, lt, ls = (2, 8, 16) if args.tiny else (4, 64, 256)
+        out = [bench_dpo(cfg.llm, device, b, lt, ls, args.steps, args.peak_tflops)]
     else:
         b, lt = (2, 8) if args.tiny else (16, 128)
         out = [bench_flow(cfg.flow, device, b, lt, args.steps, args.peak_tflops, args.profile)]

@@ -1,9 +1,9 @@
-"""Flags and set-up shared by the trainers (train_llm.py, train_flow.py).
+"""Flags and set-up shared by the trainers (train_llm.py, train_flow.py,
+train_dpo.py).
 
 The trainers keep the JAX trainers' flags. This port trains on one device
-(`--device`, default cuda). The multi-device flags and `--phoneme_aug` are
-refused with a message that names the slice that ports them, never
-ignored.
+(`--device`, default cuda). The multi-device flags are refused with a
+message that names the slice that ports them, never ignored.
 """
 
 from __future__ import annotations
@@ -63,9 +63,6 @@ def check_args(parser: argparse.ArgumentParser, args):
                      ("--multihost", args.multihost)):
         if on:
             parser.error(f"{flag}: {LATER_PARALLEL}")
-    if getattr(args, "phoneme_aug", False):
-        parser.error("--phoneme_aug is not ported yet: it waits for the phoneme_aug slice "
-                     "(ROADMAP queue 1)")
     if not (args.train_data or args.shard_list):
         parser.error("--train_data or --shard_list required")
     if args.grad_accum > 1:

@@ -7,10 +7,9 @@ sampling_rate}, "speech_token", "embedding", "mel"/"mel_feat"), a parquet
 shard list, or any iterable of dicts; collators pad each batch to a bucket
 grid. `datasets` and `pyarrow` are imported only where a dataset is opened.
 
-Not ported yet: `DPOCollator` (the DPO slice), the collator's phoneme
-augmentation (`--phoneme_aug`), and speech tokens or speaker embeddings
-extracted from a row's audio (no trainer passes the JAX collators an
-extractor for them): rows carry both.
+Not ported: speech tokens or speaker embeddings extracted from a row's
+audio (no trainer passes the JAX collators an extractor for them): rows
+carry both.
 """
 
 from __future__ import annotations
@@ -59,12 +58,16 @@ def load_hf_dataset(path: str, val_split: float = 0.0, seed: int = 42):
 class LLMCollator:
     """Rows -> padded LLM batch {text_token, text_len, speech_token, speech_len}.
 
-    Text is normalized + tokenized here (reference does TN in the collator,
-    train_speech_model.py:550-565); speech tokens come from the dataset."""
+    Text is normalized + tokenized here (reference does TN + phoneme-sub aug
+    in the collator, train_speech_model.py:550-565); speech tokens come from
+    the dataset."""
 
     tokenizer: Any
     text_buckets: tuple = TEXT_BUCKETS
     speech_buckets: tuple = SPEECH_BUCKETS
+    # phoneme-substitution augmentation (train/phoneme_aug.PhonemeAugmenter),
+    # applied to every collated text after normalization
+    phoneme_aug: Optional[Any] = None
 
     def __call__(self, rows: List[Dict]) -> Dict[str, np.ndarray]:
         text_tokens, speech_tokens = [], []
@@ -72,7 +75,10 @@ class LLMCollator:
             if "text_token" in row:
                 tt = np.asarray(row["text_token"], np.int32)
             else:
-                tt = np.asarray(self.tokenizer.encode(normalize(row["text"])), np.int32)
+                text = normalize(row["text"])
+                if self.phoneme_aug is not None:
+                    text = self.phoneme_aug(text)
+                tt = np.asarray(self.tokenizer.encode(text), np.int32)
             text_tokens.append(tt)
 
             if row.get("speech_token") is None or len(row["speech_token"]) == 0:
@@ -94,6 +100,52 @@ class LLMCollator:
             batch["text_len"][i] = len(tt)
             batch["speech_token"][i, : len(st)] = st
             batch["speech_len"][i] = len(st)
+        return batch
+
+
+@dataclasses.dataclass
+class DPOCollator:
+    """Rows -> padded DPO batch {text_token, text_len, chosen_token,
+    chosen_len, rejected_token, rejected_len}.
+
+    Chosen tokens come from "speech_token", rejected from
+    "reject_speech_token" (reference dataset/processor.py:432-438 padding
+    for dpo=True batches); both pad to one speech bucket."""
+
+    tokenizer: Any
+    text_buckets: tuple = TEXT_BUCKETS
+    speech_buckets: tuple = SPEECH_BUCKETS
+
+    def __call__(self, rows: List[Dict]) -> Dict[str, np.ndarray]:
+        text_tokens, chosen, rejected = [], [], []
+        for row in rows:
+            if "text_token" in row:
+                tt = np.asarray(row["text_token"], np.int32)
+            else:
+                tt = np.asarray(self.tokenizer.encode(normalize(row["text"])), np.int32)
+            text_tokens.append(tt)
+            chosen.append(np.asarray(row["speech_token"], np.int32))
+            rejected.append(np.asarray(row["reject_speech_token"], np.int32))
+
+        lt = _bucket(max(len(t) for t in text_tokens), self.text_buckets)
+        ls = _bucket(max(len(t) for t in chosen + rejected), self.speech_buckets)
+        b = len(rows)
+        batch = {
+            "text_token": np.zeros((b, lt), np.int32),
+            "text_len": np.zeros((b,), np.int32),
+            "chosen_token": np.zeros((b, ls), np.int32),
+            "chosen_len": np.zeros((b,), np.int32),
+            "rejected_token": np.zeros((b, ls), np.int32),
+            "rejected_len": np.zeros((b,), np.int32),
+        }
+        for i, (tt, ch, rj) in enumerate(zip(text_tokens, chosen, rejected)):
+            tt, ch, rj = tt[:lt], ch[:ls], rj[:ls]
+            batch["text_token"][i, : len(tt)] = tt
+            batch["text_len"][i] = len(tt)
+            batch["chosen_token"][i, : len(ch)] = ch
+            batch["chosen_len"][i] = len(ch)
+            batch["rejected_token"][i, : len(rj)] = rj
+            batch["rejected_len"][i] = len(rj)
         return batch
 
 

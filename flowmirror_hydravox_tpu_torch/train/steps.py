@@ -1,5 +1,6 @@
-"""Train steps for the LLM (MTP multi-head CE) and the flow (CFM MSE) on one
-device: port of flowmirror_hydravox_tpu/train/steps.py.
+"""Train steps for the LLM (MTP multi-head CE, and DPO against a frozen
+reference model) and the flow (CFM MSE) on one device: port of
+flowmirror_hydravox_tpu/train/steps.py.
 
 The JAX package's optimizer is `optax.chain(clip_by_global_norm(clip),
 adamw(schedule, b1, b2, weight_decay))`. optax is JAX-only, so `Optimizer`
@@ -198,18 +199,29 @@ def _grads(loss, leaves) -> List[torch.Tensor]:
     return [torch.zeros_like(p) if g is None else g for (_, p), g in zip(leaves, got)]
 
 
+def _aux_map(fn, aux, *more):
+    """`fn` over an aux value: None, a tensor, or a dict of tensors (with
+    `more` of the same structure)."""
+    if aux is None:
+        return None
+    if isinstance(aux, dict):
+        return {k: fn(v, *(m[k] for m in more)) for k, v in aux.items()}
+    return fn(aux, *more)
+
+
 def _value_and_grad_accum(loss_fn, params, batch: dict, accum_steps: int, noise=None):
     """(loss, aux, grads {path: grad}) of `loss_fn(params, batch[, noise])`
-    -> (loss, aux or None). With accum_steps k > 1 the batch's rows split
-    into k equal micro-batches (k, B // k) in order, each with its own noise
-    source (`noise.split(k)`); gradients, loss and aux are summed in f32 and
-    averaged, gradients cast back to the parameter dtypes."""
+    -> (loss, aux), aux None, a tensor or a dict of tensors. With
+    accum_steps k > 1 the batch's rows split into k equal micro-batches
+    (k, B // k) in order, each with its own noise source (`noise.split(k)`);
+    gradients, loss and each aux value are summed in f32 and averaged,
+    gradients cast back to the parameter dtypes."""
     leaves = tree_leaves(params)
 
     def one(mb, nz):
         with torch.enable_grad():
             loss, aux = loss_fn(params, mb) if nz is None else loss_fn(params, mb, nz)
-            return loss.detach(), None if aux is None else aux.detach(), _grads(loss, leaves)
+            return loss.detach(), _aux_map(torch.Tensor.detach, aux), _grads(loss, leaves)
 
     if accum_steps <= 1:
         loss, aux, grads = one(batch, noise)
@@ -229,10 +241,10 @@ def _value_and_grad_accum(loss_fn, params, batch: dict, accum_steps: int, noise=
         for acc, g in zip(gsum, grads):
             acc.add_(g.to(torch.float32))
         lsum = lsum + loss.to(torch.float32)
-        if aux is not None:
-            asum = aux.to(torch.float32) if asum is None else asum + aux.to(torch.float32)
+        aux32 = _aux_map(lambda a: a.to(torch.float32), aux)
+        asum = aux32 if asum is None else _aux_map(torch.add, asum, aux32)
     grads = {n: (g / k).to(p.dtype) for (n, p), g in zip(leaves, gsum)}
-    return lsum / k, None if asum is None else asum / k, grads
+    return lsum / k, _aux_map(lambda a: a / k, asum), grads
 
 
 def _apply(state: TrainState, grads: dict, optimizer: Optimizer) -> torch.Tensor:
@@ -255,6 +267,40 @@ def llm_train_step(state: TrainState, batch: dict, cfg: LLMConfig, optimizer: Op
     loss, acc, grads = _value_and_grad_accum(loss_fn, state.params, batch, accum_steps)
     gnorm = _apply(state, grads, optimizer)
     return state, {"loss": loss, "acc": acc, "grad_norm": gnorm}
+
+
+DPO_KEYS = ("text_token", "text_len", "chosen_token", "chosen_len", "rejected_token",
+            "rejected_len")
+
+
+def dpo_train_step(state: TrainState, ref_params: dict, batch: dict, cfg: LLMConfig,
+                   optimizer: Optimizer, beta: float = 0.01, label_smoothing: float = 0.0,
+                   ipo: bool = False, accum_steps: int = 1) -> Tuple[TrainState, dict]:
+    """One DPO update of the policy in `state` (JAX steps.py:206-257,
+    reference bin/train.py:162-173): the preference loss against the frozen
+    `ref_params` plus the SFT CE on the chosen rows. The reference model's
+    log-probabilities are computed per micro-batch without a gradient.
+    batch: `DPO_KEYS` tensors on the parameters' device. Returns (state,
+    {"loss", "grad_norm", "sft_loss", "dpo_loss", "acc", "dpo_acc",
+    "chosen_reward", "reject_reward"})."""
+    from ..models.llm_extras import dpo_loss, forward_dpo
+
+    def loss_fn(params, mb):
+        args = [mb[k] for k in DPO_KEYS]
+        with torch.no_grad():
+            ref = forward_dpo(ref_params, cfg, *args)
+        out = forward_dpo(params, cfg, *args)
+        pref, chosen_r, rejected_r = dpo_loss(
+            out["chosen_logps"], out["rejected_logps"], ref["chosen_logps"],
+            ref["rejected_logps"], beta=beta, label_smoothing=label_smoothing, ipo=ipo)
+        aux = {"sft_loss": out["loss"], "dpo_loss": pref, "acc": out["acc"],
+               "dpo_acc": (chosen_r > rejected_r).to(torch.float32).mean(),
+               "chosen_reward": chosen_r.mean(), "reject_reward": rejected_r.mean()}
+        return pref + out["loss"], aux
+
+    loss, aux, grads = _value_and_grad_accum(loss_fn, state.params, batch, accum_steps)
+    gnorm = _apply(state, grads, optimizer)
+    return state, {"loss": loss, "grad_norm": gnorm, **aux}
 
 
 def flow_train_step(state: TrainState, batch: dict, noise, cfg: FlowConfig,
@@ -289,13 +335,15 @@ def matmul_params(tree) -> int:
 def train_loop(state: TrainState, batches, step_fn, *, max_steps: int, output_dir: str,
                logging_steps: int = 50, save_steps: int = 2000, eval_fn=None,
                eval_steps: int = 1000, tb=None, on_step: Optional[Callable] = None,
-               log=None) -> Tuple[TrainState, dict]:
-    """The trainers' loop (JAX train_llm.py:245-283, train_flow.py:173-196):
-    `step_fn(state, batch) -> (state, metrics)` over `batches` until
-    `max_steps`; logs every `logging_steps` (and to `tb`, a SummaryWriter),
-    saves the train state every `save_steps` and at the end, logs
-    `eval_fn(state)` every `eval_steps`. `on_step(state, metrics)` runs
-    after each step. Returns (state, the last step's metrics as floats)."""
+               log=None, log_line: Optional[Callable] = None) -> Tuple[TrainState, dict]:
+    """The trainers' loop (JAX train_llm.py:245-283, train_flow.py:173-196,
+    train_dpo.py:155-180): `step_fn(state, batch) -> (state, metrics)` over
+    `batches` until `max_steps`; logs every `logging_steps` (and to `tb`, a
+    SummaryWriter), saves the train state every `save_steps` and at the end,
+    logs `eval_fn(state)` every `eval_steps`. `log_line(step, metrics as
+    floats, seconds per step)` formats the log line (default: every metric
+    by name). `on_step(state, metrics)` runs after each step. Returns
+    (state, the last step's metrics as floats)."""
     from . import checkpoint  # here: checkpoint imports this module
 
     t0 = time_ref = time.time()
@@ -307,10 +355,12 @@ def train_loop(state: TrainState, batches, step_fn, *, max_steps: int, output_di
         step = state.step
         if step % logging_steps == 0:
             m = {k: float(v) for k, v in metrics.items()}
-            if log is not None:
+            s_per_it = (time.time() - time_ref) / max(logging_steps, 1)
+            if log is not None and log_line is not None:
+                log.info("%s", log_line(step, m, s_per_it))
+            elif log is not None:
                 log.info("step %d %s (%.2f s/it)", step,
-                         " ".join(f"{k} {v:.5g}" for k, v in m.items()),
-                         (time.time() - time_ref) / max(logging_steps, 1))
+                         " ".join(f"{k} {v:.5g}" for k, v in m.items()), s_per_it)
             if tb is not None:
                 for k, v in m.items():
                     tb.add_scalar(f"train/{k}", v, step)

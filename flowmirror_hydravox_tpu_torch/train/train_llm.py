@@ -10,11 +10,12 @@ The JAX trainer's flags and loop: bf16 weights from `--seed` (or
 warmup-cosine schedule over `--max_steps`, logging every
 `--logging_steps`, the train state saved every `--save_steps` and at the
 end, eval loss on `--auto_val_split` every `--eval_steps`, `--resume`,
-`--grad_accum`, `--batch_type dynamic`. The train state is this package's
-(`train/checkpoint.py`: torch.save, not orbax), so a JAX run cannot resume
-here nor the other way round; weights cross as npz. Runs on the card unless
-`--device cpu`; the JAX multi-device flags and `--phoneme_aug` are refused
-(train/cli.py).
+`--grad_accum`, `--batch_type dynamic`, `--phoneme_aug` (phoneme-substitution
+text augmentation, train/phoneme_aug.py, seeded by `--seed`). The train
+state is this package's (`train/checkpoint.py`: torch.save, not orbax), so
+a JAX run cannot resume here nor the other way round; weights cross as npz.
+Runs on the card unless `--device cpu`; the JAX multi-device flags are
+refused (train/cli.py).
 
 `main` parses the flags and opens the data; `train` is the loop over any
 iterable of collated batches, which chip_smoke.py drives from memory.
@@ -45,8 +46,10 @@ def parse_args(argv=None):
     p.add_argument("--eval_steps", type=int, default=1000)
     p.add_argument("--auto_val_split", action="store_true")
     p.add_argument("--val_split_ratio", type=float, default=0.05)
+    p.add_argument("--phoneme_aug", action="store_true",
+                   help="phoneme-substitution text augmentation (reference "
+                        "train_speech_model.py:550-565)")
     # refused (train/cli.py check_args), as the other multi-device flags
-    p.add_argument("--phoneme_aug", action="store_true")
     p.add_argument("--pipeline_parallel", type=int, default=1)
     p.add_argument("--pp_microbatches", type=int, default=0)
     args = p.parse_args(argv)
@@ -102,7 +105,13 @@ def main(argv=None):
         params = load_weights(args.model_ckpt, "llm", full_cfg, params)
         logger.info("loaded weights from %s", args.model_ckpt)
 
-    collator = LLMCollator(get_tokenizer(args.tokenizer_path))
+    aug = None
+    if args.phoneme_aug:
+        from ..frontend.tokenizer import SPECIAL_TOKENS
+        from .phoneme_aug import PhonemeAugmenter
+
+        aug = PhonemeAugmenter(SPECIAL_TOKENS, seed=args.seed)
+    collator = LLMCollator(get_tokenizer(args.tokenizer_path), phoneme_aug=aug)
     batches, val_ds = make_batch_source(
         collator, args.batch_size, train_data=args.train_data, shard_list=args.shard_list,
         batch_type=args.batch_type, max_frames_in_batch=args.max_frames_in_batch,

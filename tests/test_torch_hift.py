@@ -54,11 +54,17 @@ def test_sine_source_matches_jax_with_fed_noise():
     f0[0, 2] = 0.0  # one unvoiced frame
     f0_up = np.repeat(f0, CFG.upsample_scale, axis=-1)[..., None]
     key = jax.random.PRNGKey(9)
-    want, wuv = jh.sine_source(key, CFG, jnp.asarray(f0_up))
+    want, wuv = jax.jit(lambda k, f0: jh.sine_source(k, CFG, f0))(key, jnp.asarray(f0_up))
     rand_ini, noise = JaxReplayNoise(key).vocoder(1, f0_up.shape[1], CFG.nb_harmonics + 1)
     got, guv = th.sine_source(CFG, t(f0_up), rand_ini, noise)
     np.testing.assert_array_equal(n(guv), n(wuv))
     np.testing.assert_allclose(n(got), n(want), atol=1e-4)
+
+
+# the JAX references jitted, as the JAX engine runs them: one compile per
+# shape where the eager calls compiled each op (~13 s a case on one core)
+_JAX_INFERENCE = jax.jit(lambda p, mel, key: jh.inference(p, CFG, mel, key))
+_JAX_F0 = jax.jit(lambda p, mel: jh.predict_f0(p, mel))
 
 
 @pytest.mark.parametrize("t_mel", [16, 40])
@@ -66,9 +72,9 @@ def test_inference_matches_jax(params, t_mel):
     jp, tp = params
     mel = np.random.default_rng(5).standard_normal((1, 80, t_mel)).astype(np.float32)
     key = jax.random.PRNGKey(t_mel)
-    want = jh.inference(jp, CFG, jnp.asarray(mel), key)
+    want = _JAX_INFERENCE(jp, jnp.asarray(mel), key)
     got = th.inference(tp, CFG, t(mel), JaxReplayNoise(key))
     assert got.shape == (1, t_mel * CFG.upsample_scale)
-    np.testing.assert_allclose(n(th.predict_f0(tp, t(mel))), n(jh.predict_f0(jp, jnp.asarray(mel))),
+    np.testing.assert_allclose(n(th.predict_f0(tp, t(mel))), n(_JAX_F0(jp, jnp.asarray(mel))),
                                atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(n(got), n(want), atol=1e-4)

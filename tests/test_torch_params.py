@@ -26,12 +26,20 @@ TORCH_INIT = {
 }
 
 
+def _jax_init(init, key):
+    """`init(key)` jitted, at XLA's lowest backend optimisation level: one
+    compile instead of one per op (the eager init of HiFT alone takes tens of
+    seconds on the CPU), and a program that runs once spent most of its
+    compile (HiFT's ~18 s) in LLVM's optimisation passes."""
+    options = {"xla_backend_optimization_level": 0}
+    return jax.jit(init).lower(key).compile(compiler_options=options)(key)
+
+
 @pytest.fixture(scope="module")
 def jax_trees():
-    """The JAX init of each tree, jitted: one compile instead of one per op
-    (the eager init of HiFT alone takes tens of seconds on the CPU)."""
+    """The JAX init of each tree."""
     keys = jax.random.split(jax.random.PRNGKey(0), 3)
-    return {name: to_numpy_tree(jax.jit(lambda k, f=JAX_INIT[name]: f(k, jnp.float32))(k))
+    return {name: to_numpy_tree(_jax_init(lambda k, f=JAX_INIT[name]: f(k, jnp.float32), k))
             for name, k in zip(("llm", "flow", "hift"), keys)}
 
 
@@ -52,7 +60,7 @@ def test_npz_roundtrip_keeps_keys_shapes_values(name, jax_trees, tmp_path):
 def test_npz_bf16_is_cast_back_and_noise_stays_f32(tmp_path):
     """bf16 trees are stored as f32; a bf16 load casts them back, except the
     f32 flow noise buffer."""
-    tree = jax.jit(lambda k: flow.init_params(k, CFG.flow, jnp.bfloat16))(jax.random.PRNGKey(1))
+    tree = _jax_init(lambda k: flow.init_params(k, CFG.flow, jnp.bfloat16), jax.random.PRNGKey(1))
     path = str(tmp_path / "flow.npz")
     save_params_npz(path, tree)
     loaded = tparams.load_params_npz(path, "cpu", dtype=torch.bfloat16)

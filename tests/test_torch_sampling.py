@@ -69,6 +69,12 @@ def _jax_head_noise(key, k):
     return t(np.stack(nuc)), t(np.stack(flat))
 
 
+# the JAX sampler jitted, as the JAX decode loops run it: one compile where
+# each eager call dispatched its ops one by one (~0.4 s a call)
+_JAX_SAMPLE_HEADS = jax.jit(lambda key, logits, hist, num, min_len: js.ras_sample_heads(
+    key, logits, hist, num, JP, min_len, STS))
+
+
 @pytest.mark.parametrize("case", ["plain", "repetition_fallback", "ignore_eos"])
 def test_ras_sample_heads_token_exact(case):
     k = 3
@@ -84,8 +90,8 @@ def test_ras_sample_heads_token_exact(case):
             min_len = num + 2  # heads 0, 1 ignore EOS, head 2 does not
         hist = _history(trial, num, repeat_of=rep)
         key = jax.random.PRNGKey(trial)
-        want = np.asarray(js.ras_sample_heads(key, jnp.asarray(logits), jnp.asarray(hist),
-                                              jnp.int32(num), JP, jnp.int32(min_len), STS))
+        want = np.asarray(_JAX_SAMPLE_HEADS(key, jnp.asarray(logits), jnp.asarray(hist),
+                                            jnp.int32(num), jnp.int32(min_len)))
         nuc, flat = _jax_head_noise(key, k)
         got = n(ts.ras_sample_heads(t(logits), t(hist), num, TP, min_len, STS, nuc, flat))
         np.testing.assert_array_equal(got, want)

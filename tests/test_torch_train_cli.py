@@ -16,11 +16,12 @@ config, CPU):
   and `--resume` continues the step count to 5;
 - `train_flow` runs from an npz (`--model_ckpt`; rows with a mel and rows
   with audio, `--grad_accum 2`);
-- `tools/bench_train.py --tiny --device cpu` runs both points and prints no
-  device metric;
-- the multi-device flags, `--phoneme_aug` and `bench_train --which gan|dpo`
-  exit non-zero naming the slice that ports them; every entry point defaults
-  to cuda and raises without a GPU.
+- `tools/bench_train.py --tiny --device cpu` runs the LLM, flow and DPO
+  points and the LLM under `--accum 2`, and prints no device metric;
+- the multi-device flags (of `train_llm`, `train_flow` and `train_dpo`) and
+  `bench_train --which gan` exit non-zero naming the slice that ports them,
+  `--accum` with another point than the LLM's is refused; every entry point
+  defaults to cuda and raises without a GPU.
 """
 
 import os
@@ -43,7 +44,7 @@ from flowmirror_hydravox_tpu_torch.params import flatten_params, from_numpy_tree
 from flowmirror_hydravox_tpu_torch.runtime.engine import Engine
 from flowmirror_hydravox_tpu_torch.tools import bench_train
 from flowmirror_hydravox_tpu_torch.train import checkpoint as ckpt
-from flowmirror_hydravox_tpu_torch.train import data, steps, train_flow, train_llm
+from flowmirror_hydravox_tpu_torch.train import data, steps, train_dpo, train_flow, train_llm
 from tests.torch_port_util import n, seeded_tiny_trees
 
 CFG = tiny_config()
@@ -258,34 +259,44 @@ def test_train_flow_cli_runs(tmp_path):
 
 
 def test_bench_train_smoke_on_cpu(capsys):
-    for which in ("llm", "flow"):
-        (line,) = bench_train.main(["--which", which, "--tiny", "--device", "cpu", "--steps", "1"])
+    names = []
+    for args in (["--which", "llm"], ["--which", "flow"], ["--which", "dpo"],
+                 ["--which", "llm", "--accum", "2"]):
+        (line,) = bench_train.main([*args, "--tiny", "--device", "cpu", "--steps", "1"])
         assert line["device"] == "cpu" and line["step_ms"] > 0 and line["matmul_params"] > 0
         assert not {"mfu", "peak_gb", "card"} & set(line), line
-    assert capsys.readouterr().out.count("\n") == 2
+        names.append(line["metric"])
+    assert names[2:] == ["train_step_dpo", "train_step_llm_accum2"], names
+    assert capsys.readouterr().out.count("\n") == 4
 
 
 def test_unported_flags_exit_nonzero_and_cuda_is_the_default(tmp_path, capsys):
     ds = str(tmp_path / "missing")
     refused = [(train_llm, flag) for flag in (
         ["--tensor_parallel", "2"], ["--pipeline_parallel", "2"], ["--pp_microbatches", "2"],
-        ["--fsdp"], ["--shard_optimizer"], ["--multihost"], ["--phoneme_aug"])]
-    refused += [(train_flow, flag) for flag in (["--tensor_parallel", "2"], ["--fsdp"],
-                                                ["--shard_optimizer"], ["--multihost"])]
+        ["--fsdp"], ["--shard_optimizer"], ["--multihost"])]
+    refused += [(cli, flag) for cli in (train_flow, train_dpo) for flag in (
+        ["--tensor_parallel", "2"], ["--fsdp"], ["--shard_optimizer"], ["--multihost"])]
     for cli, flag in refused:
         with pytest.raises(SystemExit) as exc:
             cli.main(["--train_data", ds, "--output_dir", str(tmp_path), *flag])
         assert exc.value.code != 0, flag
         err = capsys.readouterr().err
         assert "not ported yet" in err and "slice" in err, (flag, err)
-    for which in ("gan", "dpo"):
+    for which in ("gan",):
         with pytest.raises(SystemExit) as exc:
             bench_train.main(["--which", which, "--device", "cpu"])
         assert exc.value.code != 0 and "slice" in capsys.readouterr().err
+    for which in ("flow", "dpo"):
+        with pytest.raises(SystemExit) as exc:
+            bench_train.main(["--which", which, "--accum", "2", "--device", "cpu"])
+        assert exc.value.code != 0 and "--accum" in capsys.readouterr().err
     if torch.cuda.is_available():
         return
     for run in (lambda: train_llm.main(["--train_data", ds, "--output_dir", str(tmp_path)]),
                 lambda: train_flow.main(["--train_data", ds, "--output_dir", str(tmp_path)]),
-                lambda: bench_train.main(["--which", "llm"])):
+                lambda: train_dpo.main(["--train_data", ds, "--output_dir", str(tmp_path)]),
+                lambda: bench_train.main(["--which", "llm"]),
+                lambda: bench_train.main(["--which", "dpo"])):
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             run()
