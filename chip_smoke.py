@@ -228,7 +228,26 @@ exits non-zero without either. Phases, each fatal on failure:
      and every shape they launched is held against its plain version as in
      5h. Printed: acceptance, tokens per step, tokens/s and speedup for both
      readouts, and the training seconds;
-  6. the kernels line (launches: phases 5 to 5l; the int8 form's: 5i), the
+  5m. HiFT GAN training on the card (train/gan.py, train/train_hift.py,
+     tools/bench_train.py --which gan): first one gan_train_step at f32 on
+     the card and on the CPU from the same seeded weights (the full-width
+     HiFT and discriminators), batch (B 1, 8 mel frames) and vocoder draws:
+     both losses and grad norms within 1e-4 relative, both models' params
+     within 1e-4 x (1 + |p|) and Adam's first moments within 1e-4 of each
+     leaf's largest; then train_hift's loop at full width, f32, B 4 x 32
+     frames, for 12 steps over 16 seeded voiced rows in memory (8 with
+     precomputed features, 8 as 16 kHz audio that featurize resamples):
+     every loss and grad norm finite, after step 2 (step 1's warm-up
+     learning rate is 0) every leaf of both models moved; 30 steps at a
+     constant 2e-4 on one batch, whose mean mel term over steps 21-30 must
+     fall below that over steps 1-10; bench_train's gan line. No GAN step
+     of 5m, the card-vs-CPU one and the benchmark's included, may launch
+     either kernel. Last, the trained hift_final.npz loaded through
+     the launcher's load_models as the HiFT (seeded LLM and flow), equal to
+     the trained tree, and one /api/v1/tts at heads 2 served from it, its
+     launches held to the prediction. Printed: ms per step (median of steps
+     3-12), audio seconds per second and peak memory;
+  6. the kernels line (launches: phases 5 to 5m; the int8 form's: 5i), the
      card line, and the final JSON line.
 
 TF32 is off for matmuls and cuDNN convs throughout, so f32 is full f32 in
@@ -2709,9 +2728,9 @@ TRAIN_WORDS = ("speech model token voice sound train step card batch loss weight
 
 
 class DrawsOn:
-    """A flow-loss noise source that draws on the CPU from `seed` and hands
-    the draws over on `device`, so that two devices train on the same
-    numbers."""
+    """A flow-loss and vocoder noise source that draws on the CPU from `seed`
+    and hands the draws over on `device`, so that two devices train on the
+    same numbers."""
 
     def __init__(self, seed, device):
         import torch
@@ -2720,6 +2739,9 @@ class DrawsOn:
 
         self.source = TorchNoise(torch.Generator().manual_seed(seed))
         self.device = device
+
+    def vocoder(self, *args):
+        return tuple(x.to(self.device) for x in self.source.vocoder(*args))
 
     def flow_loss(self, *args):
         d = self.source.flow_loss(*args)
@@ -3340,6 +3362,263 @@ def drive_spec_readout(engine, frontend, da, mg, flush):
     return rec, launched
 
 
+# phase 5m: HiFT GAN training on the card
+GAN_SEED = 37
+GAN_SHAPE = (4, 32)  # B, mel frames (15,360 samples): bench_train --which gan's point
+GAN_CROSS = (1, 8)  # the card-vs-CPU step's B, mel frames
+GAN_STEPS = 12
+GAN_FIXED_STEPS = 30
+GAN_LR = 2e-4  # train_hift's default
+GAN_ROWS = 16  # rows in memory: half precomputed features, half 16 kHz audio
+
+
+def gan_optimizer(lr, schedule="constant"):
+    from flowmirror_hydravox_tpu_torch.train import steps
+
+    return steps.Optimizer(steps.OptimConfig(learning_rate=lr, schedule=schedule,
+                                             weight_decay=0.0, b1=0.8, b2=0.99))
+
+
+def gan_rows(rng, n_rows, mel_cfg):
+    """Seeded rows of 0.8-1.6 s of voiced audio: the first half at 24 kHz
+    with precomputed features (the port's mel of the audio, a pitch track),
+    the rest as 16 kHz audio rows for the trainer's featurize."""
+    import torch
+
+    from flowmirror_hydravox_tpu_torch.utils import audio as audio_utils
+
+    rows = []
+    for i in range(n_rows):
+        seconds = float(rng.uniform(0.8, 1.6))
+        seed = int(rng.integers(1 << 30))
+        if i < n_rows // 2:
+            wav = voiced(mel_cfg.sample_rate, seconds, seed)
+            mel = audio_utils.mel_spectrogram(
+                torch.from_numpy(wav)[None], mel_cfg.n_fft, mel_cfg.num_mels,
+                mel_cfg.sample_rate, mel_cfg.hop_size, mel_cfg.win_size)[0].T.numpy()
+            rows.append({"speech": wav, "speech_feat": mel,
+                         "pitch_feat": (110 + 40 * rng.random(len(mel))).astype(np.float32)})
+        else:
+            rows.append({"audio": {"array": voiced(16000, seconds, seed), "sampling_rate": 16000}})
+    return rows
+
+
+def gan_cross_device(cfg, dev):
+    """5m.1: one gan_train_step at f32 on the card and on the CPU from the
+    same weights (full-width HiFT and discriminators), batch (B 1, 8 frames)
+    and vocoder draws. Both losses and grad norms within CROSS_TOL relative,
+    params within CROSS_TOL x (1 + |p|), Adam's first moments within
+    CROSS_TOL of each leaf's largest, for each model."""
+    import torch
+
+    from flowmirror_hydravox_tpu_torch.params import init_disc_params, init_hift_params
+    from flowmirror_hydravox_tpu_torch.train import gan, steps
+
+    b, frames = GAN_CROSS
+    rng = np.random.default_rng(GAN_SEED)
+    batch = {"speech_feat": (rng.standard_normal((b, frames, 80)) - 4.0).astype(np.float32),
+             "speech": (rng.standard_normal((b, frames * cfg.hift.upsample_scale)) * 0.1).astype(
+                 np.float32),
+             "pitch_feat": (np.abs(rng.standard_normal((b, frames))) * 200.0).astype(np.float32)}
+    gen = torch.Generator().manual_seed(GAN_SEED)
+    trees = {"gen": init_hift_params(cfg.hift, gen, "cpu", torch.float32),
+             "disc": init_disc_params(gen, "cpu", torch.float32)}
+    opt = gan_optimizer(CROSS_LR)
+    out = {}
+    for where in ("card", "cpu"):
+        d = dev if where == "card" else torch.device("cpu")
+        states = {k: steps.init_state(tree_to_device(t, d), opt) for k, t in trees.items()}
+        states["gen"], states["disc"], m = gan.gan_train_step(
+            states["gen"], states["disc"], steps.batch_to(batch, d), DrawsOn(GAN_SEED, d),
+            cfg.hift, opt, opt)
+        out[where] = (states, {k: float(v) for k, v in m.items()})
+    (card, m_card), (cpu, m_cpu) = out["card"], out["cpu"]
+    rec = {f"{k}_rel": abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k])
+           for k in ("gen_loss", "gen_grad_norm", "disc_loss", "disc_grad_norm")}
+    for k in ("gen", "disc"):
+        rec[f"{k}_params_err"] = leaf_err(card[k].params, cpu[k].params)
+        rec[f"{k}_grad_err"] = grad_err(card[k].opt_state, cpu[k].opt_state)
+    rec.update(metrics=m_card, batch={k: list(v.shape) for k, v in batch.items()})
+    print("5m card vs CPU", json.dumps(rec), flush=True)
+    if max(v for k, v in rec.items() if k.endswith(("_rel", "_err"))) > CROSS_TOL:
+        fail(f"5m: the card's GAN step differs from the CPU's: {rec}")
+    return rec
+
+
+class GanLog:
+    """train_hift.train's `on_step`: synchronises the card, records each
+    step's wall time and metrics, fails on a non-finite loss or grad norm and
+    on any kernel launch in the step, and after step 2 (step 1's learning
+    rate is the warm-up's 0) requires every leaf of both models to have
+    moved from `start` ({"gen", "disc"}: flat copies of the initial trees)."""
+
+    def __init__(self, dev, da, mg, start):
+        self.dev, self.da, self.mg, self.start = dev, da, mg, start
+        self.secs, self.metrics = [], []
+        self.t = time.perf_counter()
+
+    def __call__(self, gen_state, disc_state, metrics):
+        import torch
+
+        from flowmirror_hydravox_tpu_torch.params import flatten_params
+
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.secs.append(now - self.t)
+        self.t = now
+        m = {k: float(v) for k, v in metrics.items()}
+        self.metrics.append(m)
+        step = gen_state.step
+        if not all(np.isfinite(m[k]) for k in ("gen_loss", "gen_grad_norm", "disc_loss",
+                                                "disc_grad_norm")):
+            fail(f"5m: step {step} {m}")
+        launched = (self.da.launch_count, self.mg.launch_count, self.mg.int8_launch_count)
+        if launched != (0, 0, 0):
+            fail(f"5m: GAN step {step} launched a kernel: (attention, MLP, int8 MLP) {launched}")
+        if step == 2:
+            for name, state in (("gen", gen_state), ("disc", disc_state)):
+                still = [k for k, p in flatten_params(state.params).items()
+                         if torch.equal(p, self.start[name][k])]
+                if still:
+                    fail(f"5m: after step 2, {len(still)} {name} leaves did not move: "
+                         f"{still[:5]}")
+            self.start = None
+
+
+def drive_gan(engine, frontend, da, mg, card):
+    """Phase 5m: HiFT GAN training on the card (see the module docstring).
+    Returns (record, launches of the served request)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from flowmirror_hydravox_tpu_torch import __main__ as launcher
+    from flowmirror_hydravox_tpu_torch.noise import TorchNoise
+    from flowmirror_hydravox_tpu_torch.params import (flatten_params, init_disc_params,
+                                                      init_hift_params)
+    from flowmirror_hydravox_tpu_torch.runtime.engine import Engine
+    from flowmirror_hydravox_tpu_torch.tools import bench_train
+    from flowmirror_hydravox_tpu_torch.train import gan, steps, train_hift
+
+    cfg, dev = engine.cfg, torch.device(engine.device)
+    on_card = dev.type == "cuda"
+
+    def no_launch(what):
+        launched = (da.launch_count, mg.launch_count, mg.int8_launch_count)
+        if launched != (0, 0, 0):
+            fail(f"5m: {what} launched a kernel: (attention, MLP, int8 MLP) {launched}")
+
+    # every GAN step of 5m, the card-vs-CPU one and the benchmark's included,
+    # runs with the counts at 0 and is checked for launches
+    da.launch_count = mg.launch_count = mg.int8_launch_count = 0
+    rec = {"cross_device": gan_cross_device(cfg, dev)}
+    no_launch("the card-vs-CPU GAN step")
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="hydravox_gan_"))
+    model_dir = tmp / "model"
+    model_dir.mkdir()
+    b, frames = GAN_SHAPE
+    t_audio = frames * cfg.hift.upsample_scale
+    try:
+        # 5m.2: train_hift's loop at full width, f32, over rows in memory
+        args = train_hift.parse_args([
+            "--train_data", "memory", "--output_dir", str(tmp / "hift"), "--batch_size", str(b),
+            "--segment_frames", str(frames), "--max_steps", str(GAN_STEPS),
+            "--learning_rate", str(GAN_LR), "--logging_steps", "4", "--save_steps", "1000",
+            "--seed", str(GAN_SEED)])
+        t0 = time.time()
+        rows = gan_rows(np.random.default_rng(GAN_SEED + 1), GAN_ROWS, cfg.mel)
+        rec["rows_s"] = time.time() - t0
+        gen = torch.Generator(device=dev).manual_seed(GAN_SEED)
+        gen_params = init_hift_params(cfg.hift, gen, dev, torch.float32)
+        disc_params = init_disc_params(gen, dev, torch.float32)
+        start = {"gen": {k: p.clone() for k, p in flatten_params(gen_params).items()},
+                 "disc": {k: p.clone() for k, p in flatten_params(disc_params).items()}}
+        log = GanLog(dev, da, mg, start)
+        del start
+        reset_peak(dev)
+        gen_state, disc_state, _ = train_hift.train(
+            args, cfg.hift, gen_params, disc_params,
+            train_hift.batches(rows, b, frames, GAN_SEED, cfg.hift.upsample_scale, cfg.mel),
+            on_step=log)
+        if gen_state.step != GAN_STEPS or len(log.secs) != GAN_STEPS:
+            fail(f"5m: the loop ended at step {gen_state.step}")
+        step_s = statistics.median(log.secs[TRAIN_TIMED])
+        rec["train"] = dict(
+            step_ms=step_s * 1e3, step_ms_range=[min(log.secs[TRAIN_TIMED]) * 1e3,
+                                                 max(log.secs[TRAIN_TIMED]) * 1e3],
+            batch=[b, frames, t_audio], audio_sec_per_sec=b * t_audio / cfg.mel.sample_rate / step_s,
+            peak_gb=peak_bytes(dev) / 1e9, card=card, metrics=log.metrics)
+        print("5m train step", json.dumps({k: v for k, v in rec["train"].items()
+                                           if k != "metrics"}), flush=True)
+        shutil.copy(tmp / "hift" / "hift_final.npz", model_dir / "hift.npz")
+        trained = {k: p.detach().clone() for k, p in flatten_params(gen_state.params).items()}
+        del gen_state, disc_state, gen_params, disc_params
+
+        # 5m.3: GAN_FIXED_STEPS steps at a constant GAN_LR on one batch: the
+        # mel term of steps 21-30 must fall below that of steps 1-10
+        fixed = steps.batch_to(next(train_hift.batches(rows, b, frames, GAN_SEED + 2,
+                                                       cfg.hift.upsample_scale, cfg.mel)), dev)
+        opt = gan_optimizer(GAN_LR)
+        gen = torch.Generator(device=dev).manual_seed(GAN_SEED)
+        gs = steps.init_state(init_hift_params(cfg.hift, gen, dev, torch.float32), opt)
+        ds = steps.init_state(init_disc_params(gen, dev, torch.float32), opt)
+        noise = TorchNoise(torch.Generator(device=dev).manual_seed(GAN_SEED + 1))
+        mels = []
+        for _ in range(GAN_FIXED_STEPS):
+            gs, ds, m = gan.gan_train_step(gs, ds, fixed, noise, cfg.hift, opt, opt)
+            mels.append(float(m["mel"]))
+        del gs, ds
+        early, late = float(np.mean(mels[:10])), float(np.mean(mels[-10:]))
+        rec["fixed_batch"] = dict(mel_mean_1_10=early, mel_mean_21_30=late, mel=mels)
+        print("5m fixed batch", json.dumps({"mel_mean_1_10": early, "mel_mean_21_30": late}),
+              flush=True)
+        if not late < early:
+            fail(f"5m: the mel term on one batch did not fall: {early} then {late}")
+        no_launch("a fixed-batch GAN step")
+
+        # the benchmark's own line
+        if on_card:
+            line = bench_train.bench_gan(cfg, dev, b, frames, 10)
+            rec["bench_train"] = line
+            print("5m bench_train", json.dumps(line), flush=True)
+            no_launch("bench_train's GAN step")
+
+        # 5m.4: the trained HiFT served through both kernels
+        t0 = time.time()
+        cfg_s, trees = launcher.load_models(not on_card, str(model_dir), frontend.tokenizer, dev)
+        for k, p in flatten_params(trees["hift"]).items():
+            if not torch.equal(p, trained[k]):
+                fail(f"5m: the served HiFT's {k} is not the trained one")
+        served = Engine(cfg_s, trees["llm"], trees["flow"], trees["hift"], max_tokens=MAX_TOKENS,
+                        device=dev)
+        rec["load_s"] = time.time() - t0
+        del trained
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    servers = start_servers(served, frontend, window={})
+    try:
+        with EngineCalls(served) as calls:
+            da.launch_count = mg.launch_count = 0
+            recs, launched, (samples, peak) = held_worker(
+                "5m trained HiFT, /api/v1/tts", calls, da, mg, cfg_s.llm,
+                lambda: tts(servers["window"][2], TRAIN_TEXT, 2, seed=GAN_SEED),
+                [("synthesize", 1)])
+        rec["served"] = dict(tokens=recs[0]["tokens"], steps=recs[0]["steps"],
+                             audio_s=samples / SAMPLE_RATE, peak=peak,
+                             attention_launches=launched[0], mlp_launches=launched[1],
+                             predicted=list(predicted_launches(recs, cfg_s.llm)))
+        print("5m served", json.dumps(rec["served"]), flush=True)
+        return rec, launched
+    finally:
+        stop_servers(servers)
+        del served
+        if on_card:
+            torch.cuda.empty_cache()
+
+
 def main():
     t_start = time.time()
     if not (ROOT / "flowmirror_hydravox_tpu_torch" / "csrc").is_dir():
@@ -3461,11 +3740,12 @@ def main():
     t0 = time.time()
     readout["kernels"] = check_served_shapes(served, da, mg, flush, readout_launched, phase="5l")
     phase_s["5l kernels"] = time.time() - t0
+    gan, gan_launched = phase("5m", drive_gan, engine, frontend, da, mg, card)
     phase_s["all"] = time.time() - t_start
     print("phase seconds", json.dumps({k: round(v, 1) for k, v in phase_s.items()}), flush=True)
     attention_launches, mlp_launches = (sum(x) for x in zip(
         launches, more, streamed, zs_launched, pt_launched, zsb_launched, solo_launched,
-        spec_launched, int8_launched[:2], train_launched, readout_launched))
+        spec_launched, int8_launched[:2], train_launched, readout_launched, gan_launched))
     del flush
 
     # the kernels line: each kernel at its serving shape (bf16; decode
@@ -3530,7 +3810,7 @@ def main():
          "serving": serving, "streaming": streaming, "zero_shot": zero_shot,
          "pt_weights": pt_weights, "zero_shot_batched": zs_batched, "solo_route": solo_rule,
          "spec_decode": spec, "int8": int8, "training": training, "dpo": dpo,
-         "spec_readout": readout, "phase_s": phase_s,
+         "spec_readout": readout, "gan": gan, "phase_s": phase_s,
          **kernels},
         indent=1))
     print(json.dumps(kernels), flush=True)

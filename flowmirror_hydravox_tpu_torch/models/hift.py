@@ -176,12 +176,18 @@ def decode(params: dict, cfg: HiFTConfig, mel, source):
     return torch.clamp(audio, -cfg.audio_limit, cfg.audio_limit)
 
 
-def inference(params: dict, cfg: HiFTConfig, mel, noise):
-    """mel (B, 80, T_mel) -> waveform (B, T_mel * upsample_scale).
-    `noise.vocoder(b, t, nh)` gives the NSF source's two draws."""
+def vocode(params: dict, cfg: HiFTConfig, mel, noise):
+    """mel (B, 80, T_mel) -> (waveform (B, T_mel * upsample_scale), the
+    predicted F0 (B, T_mel)). `noise.vocoder(b, t, nh)` gives the NSF
+    source's two draws. GAN training (train/gan.py) needs the F0 too."""
     f0 = predict_f0(params, mel)  # (B, T_mel)
     f0_up = torch.repeat_interleave(f0, cfg.upsample_scale, dim=-1)[..., None]
     rand_ini, src_noise = noise.vocoder(f0_up.shape[0], f0_up.shape[1], cfg.nb_harmonics + 1)
     s, _ = sine_source(cfg, f0_up, rand_ini, src_noise)
     sine_merge = torch.tanh(linear(params["m_source_linear"], s))  # (B, T, 1)
-    return decode(params, cfg, mel, sine_merge.transpose(1, 2))
+    return decode(params, cfg, mel, sine_merge.transpose(1, 2)), f0
+
+
+def inference(params: dict, cfg: HiFTConfig, mel, noise):
+    """mel (B, 80, T_mel) -> waveform (B, T_mel * upsample_scale)."""
+    return vocode(params, cfg, mel, noise)[0]

@@ -10,9 +10,10 @@ tensors with the JAX package's key names, shapes and layouts: matmul weights
   - `load_params_npz` reads the JAX package's flat npz format
     (flowmirror_hydravox_tpu/train/checkpoint.py:54-91): dot-joined keys,
     list indices as digits, bf16 stored as f32.
-  - `init_llm_params` / `init_flow_params` / `init_hift_params` draw random
-    weights with the same structure, dtypes and scales as the JAX
-    `init_params` functions, from a seeded `torch.Generator`. They are for
+  - `init_llm_params` / `init_flow_params` / `init_hift_params` /
+    `init_disc_params` draw random weights with the same structure, dtypes
+    and scales as the JAX `init_params` functions, from a seeded
+    `torch.Generator`. They are for
     full-width smoke runs; tests carry the JAX init across instead.
   - `make_rand_noise` is not random init: it is the reference's fixed flow
     noise buffer, `torch.manual_seed(0); torch.randn(1, 80, 15000)` on the CPU.
@@ -140,6 +141,11 @@ class _Init:
         bound = 1.0 / math.sqrt(in_ch // groups * kernel)
         return {"w": self.uniform((*stack, out_ch, in_ch // groups, kernel), bound),
                 "b": self.uniform((*stack, out_ch), bound)}
+
+    def conv2d(self, in_ch, out_ch, kh, kw):
+        bound = 1.0 / math.sqrt(in_ch * kh * kw)
+        return {"w": self.uniform((out_ch, in_ch, kh, kw), bound),
+                "b": self.uniform((out_ch,), bound)}
 
     def conv_transpose(self, in_ch, out_ch, kernel):
         bound = 1.0 / math.sqrt(out_ch * kernel)  # torch fan_in = out_ch * k
@@ -291,6 +297,22 @@ def init_hift_params(cfg: HiFTConfig, generator: torch.Generator, device,
         "resblocks": resblocks,
         "conv_post": ini.conv(base // (2 ** len(cfg.upsample_rates)), n_fft2, 7),
     }
+
+
+def init_disc_params(generator: torch.Generator, device, dtype=torch.float32) -> dict:
+    """Structure of flowmirror_hydravox_tpu/models/discriminator.py::init_params:
+    {"mpd": one per period, "mrd": one per resolution}, each {"convs": [...],
+    "post": {w, b}} of OIHW conv weights. The widths are fixed (no config)."""
+    from .models.discriminator import PERIODS, SPEC_RESOLUTIONS
+
+    ini = _Init(generator, device, dtype)
+    mpd_chans = [(1, 32), (32, 128), (128, 512), (512, 1024), (1024, 1024)]
+    mpd = [{"convs": [ini.conv2d(i, o, 5, 1) for i, o in mpd_chans],
+            "post": ini.conv2d(1024, 1, 3, 1)} for _ in PERIODS]
+    mrd_convs = [(1, 32, 3, 9)] + [(32, 32, 3, 9)] * 3 + [(32, 32, 3, 3)]
+    mrd = [{"convs": [ini.conv2d(*c) for c in mrd_convs], "post": ini.conv2d(32, 1, 3, 3)}
+           for _ in SPEC_RESOLUTIONS]
+    return {"mpd": mpd, "mrd": mrd}
 
 
 def cast_like(new, old, device):

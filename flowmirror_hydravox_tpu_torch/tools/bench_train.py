@@ -1,17 +1,19 @@
-"""Train-step benchmark on the card: port of the LLM, flow and DPO points of
+"""Train-step benchmark on the card: port of
 flowmirror_hydravox_tpu/tools/bench_train.py.
 
-    python -m flowmirror_hydravox_tpu_torch.tools.bench_train --which llm|flow|dpo \
+    python -m flowmirror_hydravox_tpu_torch.tools.bench_train --which llm|flow|dpo|gan \
         [--steps 10] [--accum K] [--peak_tflops 989] [--device cuda|cpu] [--tiny] \
         [--profile 3]
 
 Shapes (the JAX benchmark's): LLM B 16, Lt 64, Ls 256, plus one longer
 point, B 8, Ls 512; flow B 16, Lt 128 (256 mel frames); DPO B 4 pairs, Lt
-64, Ls 256, the reference model a copy of the policy, lr 1e-5. `--accum K`
-(LLM only) runs the first LLM point at a global batch of 16 x K, the
-backward on micro-batches of 16 (`train_step_llm_accum{K}`). Full-size
-`HydraVoxConfig()` weights (bf16) from a seeded init, `llm_train_step` /
-`flow_train_step` / `dpo_train_step`. Each point prints one JSON
+64, Ls 256, the reference model a copy of the policy, lr 1e-5; GAN B 4 x 32
+mel frames (15,360 samples), the full HiFT and discriminators at f32, lr
+2e-4. `--accum K` (LLM only) runs the first LLM point at a global batch of
+16 x K, the backward on micro-batches of 16 (`train_step_llm_accum{K}`).
+Full-size `HydraVoxConfig()` weights (bf16; f32 for the GAN) from a seeded
+init, `llm_train_step` / `flow_train_step` / `dpo_train_step` /
+`gan_train_step`. Each point prints one JSON
 line: ms per step (the median of `--steps` steps after two warm-up steps,
 each ended by `torch.cuda.synchronize()`), tokens (mel frames for the flow)
 per second (and pairs per second for DPO), MFU as 6 x matmul params x
@@ -20,13 +22,18 @@ count leaves out attention, as the JAX benchmark's does; DPO counts the
 policy's forward and backward over chosen and rejected and the reference
 model's forward over both, (6 x 2 + 2 x 2) x every matmul leaf x B x (2 +
 Lt + Ls), as JAX's does), peak memory (`torch.cuda.max_memory_allocated`),
-and the card's name and power limit. `--profile N` adds where a step's
+and the card's name and power limit. The GAN point has no MFU (its work is
+convolutions and FFTs, as in the JAX benchmark): it prints audio seconds
+per second, the first step's generator loss, the generator and
+discriminator halves' ms (CUDA events around each half, on the card), and
+the cuDNN settings it ran under (PyTorch's defaults run f32 convs in
+TF32).
+`--profile N` adds where a step's
 time goes: N steps under torch.profiler (per step: wall, device busy, the
 device's idle share, kernel launches, the kernels with the most device
 time) and the optimizer's update alone (median of 5 synced calls on one
-step's gradients). `--which gan` exits non-zero: the GAN trainer waits for
-a later slice. Runs on the card unless `--device cpu` (a smoke run: no
-device metric is printed there).
+step's gradients; both optimizers for the GAN). Runs on the card unless
+`--device cpu` (a smoke run: no device metric is printed there).
 """
 
 from __future__ import annotations
@@ -39,9 +46,6 @@ import time
 
 import numpy as np
 import torch
-
-LATER = {"gan": "the HiFT GAN slice (train/gan.py, models/discriminator.py)"}
-
 
 def card_census() -> str:
     """The card's name and power limit as nvidia-smi gives them."""
@@ -226,6 +230,89 @@ def bench_dpo(cfg, device, b, lt, ls, n_steps, peak_tflops, seed=0) -> dict:
                   batch=[b, lt, ls])
 
 
+def bench_gan(cfg, device, b, frames, n_steps, n_profile=0, seed=0) -> dict:
+    """JAX bench_gan's point: B `b` x `frames` mel frames, its seeded batch,
+    lr 2e-4 with 10 warm-up steps of 1000."""
+    from ..noise import TorchNoise
+    from ..params import init_disc_params, init_hift_params
+    from ..train import gan
+    from ..train.steps import OptimConfig, Optimizer, _value_and_grad_accum, batch_to, init_state
+
+    hcfg = cfg.hift
+    t_audio = frames * hcfg.upsample_scale
+    gen = torch.Generator(device=device).manual_seed(seed)
+    optim = OptimConfig(learning_rate=2e-4, warmup_steps=10, total_steps=1000)
+    gen_opt, disc_opt = Optimizer(optim), Optimizer(optim)
+    gen_state = init_state(init_hift_params(hcfg, gen, device, torch.float32), gen_opt)
+    disc_state = init_state(init_disc_params(gen, device, torch.float32), disc_opt)
+    rng = np.random.default_rng(seed)
+    batch = batch_to({
+        "speech_feat": (rng.standard_normal((b, frames, 80)) - 4.0).astype(np.float32),
+        "pitch_feat": (np.abs(rng.standard_normal((b, frames))) * 200.0).astype(np.float32),
+        "speech": (rng.standard_normal((b, t_audio)) * 0.1).astype(np.float32)}, device)
+    noise = TorchNoise(gen)
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    halves = {"gen": [], "disc": []}
+    loss0 = []
+
+    def step(timed=True):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)] if on_card else []
+        t = [time.perf_counter()]
+        if on_card:
+            marks[0].record()
+        _, fake, gm = gan.gan_gen_step(gen_state, disc_state.params, batch, noise, hcfg, gen_opt)
+        if on_card:
+            marks[1].record()
+        t.append(time.perf_counter())
+        gan.gan_disc_step(disc_state, batch["speech"], fake, disc_opt)
+        if on_card:
+            marks[2].record()
+        t.append(time.perf_counter())
+        if timed:
+            if on_card:
+                marks[2].synchronize()
+                ms = [marks[0].elapsed_time(marks[1]), marks[1].elapsed_time(marks[2])]
+            else:
+                ms = [(t[1] - t[0]) * 1e3, (t[2] - t[1]) * 1e3]
+            halves["gen"].append(ms[0])
+            halves["disc"].append(ms[1])
+        if not loss0:  # the first (warm-up) step's
+            loss0.append(float(gm["gen_loss"]))
+
+    secs = time_steps(step, n_steps, device)
+    step_s = statistics.median(secs)
+    n_timed = slice(-n_steps, None)  # time_steps' two warm-up calls are timed here too
+    out = {"metric": "train_step_gan", "device": str(device), "step_ms": step_s * 1e3,
+           "step_ms_min": min(secs) * 1e3, "step_ms_max": max(secs) * 1e3,
+           "gen_ms": statistics.median(halves["gen"][n_timed]),
+           "disc_ms": statistics.median(halves["disc"][n_timed]),
+           "audio_sec_per_sec": b * t_audio / cfg.mel.sample_rate / step_s,
+           "gen_loss0": loss0[0], "batch": [b, frames, t_audio]}
+    if on_card:
+        out["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+        out["card"] = card_census()
+        # f32 convs: cuDNN runs them in TF32 unless the caller turned it off
+        out["cudnn"] = {"allow_tf32": torch.backends.cudnn.allow_tf32,
+                        "deterministic": torch.backends.cudnn.deterministic}
+    if n_profile:
+        g_grads = _value_and_grad_accum(gan.gen_loss_fn(disc_state.params, hcfg),
+                                        gen_state.params, batch, 1, noise)[2]
+        # the update's time does not depend on the values: the real audio
+        # stands in for the fake
+        d_grads = _value_and_grad_accum(gan.disc_loss_fn, disc_state.params,
+                                        {"real": batch["speech"], "fake": batch["speech"]},
+                                        1)[2]
+
+        def apply_both():
+            gen_opt.apply(gen_state.params, g_grads, gen_state.opt_state)
+            disc_opt.apply(disc_state.params, d_grads, disc_state.opt_state)
+
+        out["profile"] = profile(lambda: step(timed=False), n_profile, apply_both)
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser("bench_train")
     p.add_argument("--which", required=True, choices=["llm", "flow", "gan", "dpo"])
@@ -241,12 +328,10 @@ def main(argv=None):
                    help="trace N more steps (card only): device busy and idle share, "
                         "launches, top kernels, the optimizer's share")
     args = p.parse_args(argv)
-    if args.which in LATER:
-        p.error(f"--which {args.which} is not ported yet: it waits for {LATER[args.which]}")
     if args.accum != 1 and args.which != "llm":
         p.error("--accum is implemented for --which llm only")
     if args.profile and args.which == "dpo":
-        p.error("--profile traces the llm and flow points")
+        p.error("--profile traces the llm, flow and gan points")
 
     from ..config import HydraVoxConfig, tiny_config
     from ..device import resolve_device
@@ -266,6 +351,9 @@ def main(argv=None):
     elif args.which == "dpo":
         b, lt, ls = (2, 8, 16) if args.tiny else (4, 64, 256)
         out = [bench_dpo(cfg.llm, device, b, lt, ls, args.steps, args.peak_tflops)]
+    elif args.which == "gan":
+        b, frames = (1, 8) if args.tiny else (4, 32)
+        out = [bench_gan(cfg, device, b, frames, args.steps, args.profile)]
     else:
         b, lt = (2, 8) if args.tiny else (16, 128)
         out = [bench_flow(cfg.flow, device, b, lt, args.steps, args.peak_tflops, args.profile)]

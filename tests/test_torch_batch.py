@@ -44,9 +44,9 @@ def _prompts(jp):
     """Three rows of different text lengths, padded to one block."""
     lens = [12, 5, 16]
     text = np.stack([(np.arange(16, dtype=np.int32) * (7 + i)) % 256 for i in range(3)])
-    emb, plen = jax.vmap(lambda tt, tl_: jl.build_inference_prompt(
-        jp, CFG.llm, tt, tl_, jnp.zeros((0,), jnp.int32), jnp.int32(0)))(
-        jnp.asarray(text), jnp.asarray(lens, jnp.int32))
+    emb, plen = jax.jit(jax.vmap(lambda p, tt, tl_: jl.build_inference_prompt(  # one compile
+        p, CFG.llm, tt, tl_, jnp.zeros((0,), jnp.int32), jnp.int32(0)), (None, 0, 0)))(
+        jp, jnp.asarray(text), jnp.asarray(lens, jnp.int32))
     return np.asarray(emb), [int(x) for x in np.asarray(plen)]
 
 
@@ -62,10 +62,14 @@ def test_generate_batched_token_exact(llm_params, heads, jax_path):
     key = jax.random.PRNGKey(100 + heads)
     set_pallas_decode(jax_path == "pallas_interpret", interpret=True)
     try:
-        want = jl.generate_batched(
-            jp, CFG.llm, key, jnp.asarray(emb), jnp.asarray(plen, jnp.int32),
-            jnp.asarray(MIN_LEN, jnp.int32), jnp.asarray(MAX_LEN, jnp.int32),
-            js.SamplingParams.make(**RAS), inference_head_num=heads, max_tokens=MAX_TOKENS)
+        # jitted, as the engine runs it: one compile instead of one per op
+        # of its prologue (a new function each call: the decode path is
+        # read when it traces)
+        want = jax.jit(lambda p, *a: jl.generate_batched(
+            p, CFG.llm, *a, js.SamplingParams.make(**RAS), inference_head_num=heads,
+            max_tokens=MAX_TOKENS))(
+            jp, key, jnp.asarray(emb), jnp.asarray(plen, jnp.int32),
+            jnp.asarray(MIN_LEN, jnp.int32), jnp.asarray(MAX_LEN, jnp.int32))
         want_tokens, want_num = np.asarray(want.tokens), np.asarray(want.num_tokens)
     finally:
         set_pallas_decode(None)
@@ -95,17 +99,22 @@ def test_ras_sample_heads_batched_matches_jax_vmap():
     min_len = np.asarray([0, 15, 0, 2], np.int32)
     jp = js.SamplingParams.make(top_p=0.8, top_k=10, win_size=10, tau_r=0.1)
     key = jax.random.PRNGKey(9)
-    want = np.asarray(jax.vmap(
-        lambda r, lg, hs, nm, mn: js.ras_sample_heads(r, lg, hs, nm, jp, mn, sts))(
-        jax.random.split(key, b), jnp.asarray(logits), jnp.asarray(hist), jnp.asarray(num),
-        jnp.asarray(min_len)))
-    # the per-row draws exactly as the vmapped ras_sample_heads takes them
-    nuc, flat = [], []
-    for row_key in jax.random.split(key, b):
-        hk = jax.random.split(row_key, k)
-        pairs = [jax.random.split(x) for x in hk]
-        nuc.append([np.asarray(jax.random.gumbel(p[0], (min(64, v),), jnp.float32)) for p in pairs])
-        flat.append([np.asarray(jax.random.gumbel(p[1], (v,), jnp.float32)) for p in pairs])
+
+    @jax.jit  # one compile for the reference and its draws, not one per op
+    def reference(key, *args):
+        want = jax.vmap(lambda r, lg, hs, nm, mn: js.ras_sample_heads(r, lg, hs, nm, jp, mn, sts))(
+            jax.random.split(key, b), *args)
+        # the per-row draws exactly as the vmapped ras_sample_heads takes them
+        nuc, flat = [], []
+        for row_key in jax.random.split(key, b):
+            hk = jax.random.split(row_key, k)
+            pairs = [jax.random.split(x) for x in hk]
+            nuc.append([jax.random.gumbel(p[0], (min(64, v),), jnp.float32) for p in pairs])
+            flat.append([jax.random.gumbel(p[1], (v,), jnp.float32) for p in pairs])
+        return want, nuc, flat
+
+    want, nuc, flat = reference(key, *map(jnp.asarray, (logits, hist, num, min_len)))
+    want = np.asarray(want)
     got = n(ts.ras_sample_heads_batched(
         t(logits), t(hist), t(num), ts.SamplingParams.make(top_p=0.8, top_k=10, win_size=10,
                                                           tau_r=0.1),
@@ -132,8 +141,9 @@ def test_flow_inference_with_per_row_prompt_mel_len(flow_params):
     prompt = np.zeros((2, 16, 80), np.float32)
     for r, m in enumerate(pm_len):
         prompt[r, :m] = rng.standard_normal((m, 80))
-    want = jflow.inference(jp, CFG.flow, jnp.asarray(token), jnp.asarray(valid),
-                           jnp.asarray(prompt), jnp.asarray(pm_len), jnp.asarray(emb))
+    want = jax.jit(lambda p, *a: jflow.inference(p, CFG.flow, *a))(  # one compile, not one per op
+        jp, jnp.asarray(token), jnp.asarray(valid), jnp.asarray(prompt), jnp.asarray(pm_len),
+        jnp.asarray(emb))
     got = tflow.inference(tp, CFG.flow, t(token), t(valid), t(prompt), t(pm_len), t(emb))
     assert got.shape == (2, 80, t_tok * CFG.flow.token_mel_ratio)
     np.testing.assert_allclose(n(got), n(want), atol=1e-3, rtol=0)

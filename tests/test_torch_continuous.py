@@ -62,20 +62,32 @@ def engines():
     return jax_engine, torch_engine
 
 
-def _jax_solo_tokens(jax_engine, text, key, heads):
+def _jax_solo_decode(jax_engine, heads):
     """JAX `llm.generate` of one request at the JAX batcher's cache cap and
-    text bucket (tests/test_continuous.py::_solo_tokens)."""
-    padded = np.zeros((32,), np.int32)
-    padded[:len(text)] = text
-    emb, plen = jl.build_inference_prompt(
-        jax_engine.llm_params, CFG.llm, jnp.asarray(padded), jnp.int32(len(text)),
-        jnp.zeros((0,), jnp.int32), jnp.int32(0))
-    res = jl.generate(
-        jax_engine.llm_params, CFG.llm, jax.random.PRNGKey(key), emb, plen,
-        jnp.int32(2 * len(text)), jnp.int32(min(20 * len(text), MAX_TOKENS)),
-        js.SamplingParams.make(), inference_head_num=heads, max_tokens=MAX_TOKENS,
-        cache_len_cap=JaxBatcher(jax_engine, slots=1, head_num=heads).cache_cap)
-    return np.asarray(res.tokens)[:int(res.num_tokens)].tolist()
+    text bucket (tests/test_continuous.py::_solo_tokens), jitted as the
+    engine runs it: one compile for the requests of one call, instead of one
+    per op of its prologue. `fn(text, key) -> tokens`; a new program for each
+    call, since the decode path is read when it traces."""
+    cap = JaxBatcher(jax_engine, slots=1, head_num=heads).cache_cap
+
+    @jax.jit
+    def run(jp, padded, n_text, key, min_len, max_len):
+        emb, plen = jl.build_inference_prompt(jp, CFG.llm, padded, n_text,
+                                              jnp.zeros((0,), jnp.int32), jnp.int32(0))
+        res = jl.generate(jp, CFG.llm, key, emb, plen, min_len, max_len,
+                          js.SamplingParams.make(), inference_head_num=heads,
+                          max_tokens=MAX_TOKENS, cache_len_cap=cap)
+        return res.tokens, res.num_tokens
+
+    def fn(text, key):
+        padded = np.zeros((32,), np.int32)
+        padded[:len(text)] = text
+        tokens, num = run(jax_engine.llm_params, jnp.asarray(padded), jnp.int32(len(text)),
+                          jax.random.PRNGKey(key), jnp.int32(2 * len(text)),
+                          jnp.int32(min(20 * len(text), MAX_TOKENS)))
+        return np.asarray(tokens)[:int(num)].tolist()
+
+    return fn
 
 
 @contextlib.contextmanager
@@ -97,7 +109,8 @@ def test_slot_tokens_match_jax_solo_decode(engines, heads, jax_path):
         got = [b.result(r, timeout=TIMEOUT)[1]["tokens"] for r in reqs]
     set_pallas_decode(jax_path == "pallas_interpret", interpret=True)
     try:
-        want = [_jax_solo_tokens(jax_engine, text, key, heads) for text, key in REQUESTS]
+        solo = _jax_solo_decode(jax_engine, heads)
+        want = [solo(text, key) for text, key in REQUESTS]
     finally:
         set_pallas_decode(None)
     assert got == want

@@ -38,7 +38,8 @@ def test_dit_forward_matches_jax(params):
     tt_ = np.array([0.1, 0.7], np.float32)
     mask = np.ones((b, 1, tt), np.float32)
     mask[1, :, 31:] = 0  # padded rows: fully masked, uniform softmax
-    want = jdit.forward(jp["estimator"], ecfg, *map(jnp.asarray, (x, mask, mu, tt_, spks, cond)))
+    want = jax.jit(lambda p, *a: jdit.forward(p, ecfg, *a))(  # one compile, not one per op
+        jp["estimator"], *map(jnp.asarray, (x, mask, mu, tt_, spks, cond)))
     got = tdit.forward(tp["estimator"], ecfg, *map(t, (x, mask, mu, tt_, spks, cond)))
     assert np.isfinite(n(got)).all()
     np.testing.assert_allclose(n(got), n(want), atol=1e-4, rtol=1e-4)
@@ -58,8 +59,9 @@ def test_flow_inference_mel_within_1e3(params, with_prompt):
         prompt[0, :pm_len] = rng.standard_normal((pm_len, 80))
     else:
         pm_len, prompt = 0, np.zeros((1, 0, 80), np.float32)
-    want = jflow.inference(jp, CFG, jnp.asarray(token), jnp.asarray(valid), jnp.asarray(prompt),
-                           jnp.int32(pm_len), jnp.asarray(emb))
+    want = jax.jit(lambda p, *a: jflow.inference(p, CFG, *a))(
+        jp, jnp.asarray(token), jnp.asarray(valid), jnp.asarray(prompt), jnp.int32(pm_len),
+        jnp.asarray(emb))
     got = tflow.inference(tp, CFG, t(token), t(valid), t(prompt), pm_len, t(emb))
     assert got.shape == (1, 80, t_tok * CFG.token_mel_ratio)
     np.testing.assert_allclose(n(got), n(want), atol=1e-3, rtol=0)

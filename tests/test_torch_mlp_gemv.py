@@ -65,7 +65,8 @@ def test_decode_route_is_chosen_by_the_call_site(monkeypatch):
     prefill block's never; the two routes agree with each other and with
     the JAX backbone."""
     cfg = tiny_config().llm.backbone
-    jp = to_numpy_tree(jq.init_params(jax.random.PRNGKey(0), cfg, jnp.float32))
+    jp = to_numpy_tree(jax.jit(lambda k: jq.init_params(k, cfg, jnp.float32))(  # not per op
+        jax.random.PRNGKey(0)))
     tp = from_numpy_tree(jp, "cpu")
     calls = []
 
@@ -83,6 +84,7 @@ def test_decode_route_is_chosen_by_the_call_site(monkeypatch):
     assert calls == [(2, 3, cfg.hidden_size)] * cfg.num_layers
     jcache = jq.init_kv_cache(cfg, 2, 256, dtype=jnp.float32)._replace(
         length=jnp.asarray([4, 9], jnp.int32))
-    want, _ = jq.forward_block_with_cache(jp, cfg, jnp.asarray(x), jcache)
+    want, _ = jax.jit(lambda p, x, c: jq.forward_block_with_cache(p, cfg, x, c))(  # not per op
+        jp, jnp.asarray(x), jcache)
     np.testing.assert_allclose(n(decode), n(prefill), **F32)
     np.testing.assert_allclose(n(decode), n(want), **F32)

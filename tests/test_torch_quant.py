@@ -130,15 +130,17 @@ def _check_int8_mlp(m, h, i):
     tlayer = tquant.quantize_layer_dict({k: t(v) for k, v in dense.items()}, tquant.MLP_MATS)
     weights = [tlayer[k] for k in tquant.MLP_MATS]
     got = n(tmlp.mlp_gemv_ref(t(x), *weights, tquant.mlp_scales(tlayer)))
-    np.testing.assert_allclose(got, np.asarray(jq._mlp_block(jlayer, jnp.asarray(x))), **F32)
+    mlp_block = jax.jit(jq._mlp_block)  # one compile per dtype, not one per op
+    np.testing.assert_allclose(got, np.asarray(mlp_block(jlayer, jnp.asarray(x))), **F32)
     deq = [np.asarray(jlayer[k], np.float32) * np.asarray(jlayer[k + "@q8scale"])
            for k in tquant.MLP_MATS]
-    np.testing.assert_allclose(got, np.asarray(pallas_mlp_gemv(
-        jnp.asarray(x), *map(jnp.asarray, deq), tile_i=256, interpret=True)), **F32)
+    np.testing.assert_allclose(got, np.asarray(jax.jit(
+        lambda *a: pallas_mlp_gemv(*a, tile_i=256, interpret=True))(
+        jnp.asarray(x), *map(jnp.asarray, deq))), **F32)
     # bf16 activations: the kernel's contract against JAX's roundings
     got16 = tmlp.mlp_gemv_ref(t(x).to(torch.bfloat16), *weights, tquant.mlp_scales(tlayer))
     assert got16.dtype == torch.bfloat16
-    want16 = jq._mlp_block(jlayer, jnp.asarray(x, jnp.bfloat16))
+    want16 = mlp_block(jlayer, jnp.asarray(x, jnp.bfloat16))
     np.testing.assert_allclose(n(got16.float()), np.asarray(want16, np.float32), **BF16)
 
 
@@ -153,17 +155,19 @@ def test_forward_and_mtp_logits_match_jax_on_int8_tree():
     rng = np.random.default_rng(3)
     jcache = jq.init_kv_cache(cfg, 2, 256, dtype=jnp.float32)
     tcache = tq.init_kv_cache(cfg, 2, 256, dtype=torch.float32, device="cpu")
+    block = jax.jit(lambda p, x, c: jq.forward_block_with_cache(p, cfg, x, c))  # not per op
     for width, decode_step in ((9, False), (3, True)):
         x = (0.5 * rng.standard_normal((2, width, cfg.hidden_size))).astype(np.float32)
-        want, jcache = jq.forward_block_with_cache(jp["backbone"], cfg, jnp.asarray(x), jcache)
+        want, jcache = block(jp["backbone"], jnp.asarray(x), jcache)
         got, tcache = tq.forward_block_with_cache(tp["backbone"], cfg, t(x), tcache,
                                                   decode_step=decode_step)
         np.testing.assert_allclose(n(got), np.asarray(want), **F32)
     hidden = np.asarray(want)[:, -1]
     np.testing.assert_allclose(
         n(tl.mtp_logits(tp, CFG.llm, t(hidden), CFG.llm.head_num)),
-        np.asarray(jl.mtp_logits(jp, jax_tiny_config().llm, jnp.asarray(hidden),
-                                 CFG.llm.head_num)), **F32)
+        np.asarray(jax.jit(lambda p, h: jl.mtp_logits(p, jax_tiny_config().llm, h,
+                                                      CFG.llm.head_num))(
+            jp, jnp.asarray(hidden))), **F32)
 
 
 def test_int8_engine_matches_jax_under_greedy_sampling():

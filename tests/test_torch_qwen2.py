@@ -54,9 +54,12 @@ def test_prefill_and_decode_blocks_match_jax(params, jax_path):
     jcache = jq.init_kv_cache(CFG, 1, s_max, dtype=jnp.float32)
     set_pallas_decode(jax_path == "pallas_interpret", interpret=True)
     try:
+        # jitted: one compile per block shape, not one per op; a new program
+        # for each path, since the decode path is read when it traces
+        block = jax.jit(lambda p, x, c, adv: jq.forward_block_with_cache(p, CFG, x, c,
+                                                                          advance=adv))
         for x, adv in zip(blocks, advances):
-            jh, jcache = jq.forward_block_with_cache(
-                params, CFG, jnp.asarray(x), jcache, advance=jnp.asarray([adv], jnp.int32))
+            jh, jcache = block(params, jnp.asarray(x), jcache, jnp.asarray([adv], jnp.int32))
             th, tcache = tq.forward_block_with_cache(
                 tparams, CFG, t(x), tcache, advance=torch.tensor([adv], dtype=torch.int32))
             np.testing.assert_allclose(n(th), n(jh), **TOL)

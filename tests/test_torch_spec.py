@@ -42,10 +42,14 @@ def llm_params():
     return jp, from_numpy_tree(jp, "cpu")
 
 
+@jax.jit  # one compile per text length, not one per op
+def _jax_prompt(jp, text, n_text):
+    return jl.build_inference_prompt(jp, CFG.llm, text, n_text, jnp.zeros((0,), jnp.int32),
+                                     jnp.int32(0))
+
+
 def _prompt(jp, text):
-    emb, plen = jl.build_inference_prompt(
-        jp, CFG.llm, jnp.asarray(text), jnp.int32(len(text)), jnp.zeros((0,), jnp.int32),
-        jnp.int32(0))
+    emb, plen = _jax_prompt(jp, jnp.asarray(text), jnp.int32(len(text)))
     return np.asarray(emb), int(plen)
 
 
@@ -129,9 +133,8 @@ def test_generate_batched_speculative_matches_jax(llm_params):
     jp, tp = llm_params
     lens = [12, 5, 16, 9]
     text = np.stack([(np.arange(16, dtype=np.int32) * (7 + i)) % 256 for i in range(4)])
-    emb, plen = jax.vmap(lambda tt, tl_: jl.build_inference_prompt(
-        jp, CFG.llm, tt, tl_, jnp.zeros((0,), jnp.int32), jnp.int32(0)))(
-        jnp.asarray(text), jnp.asarray(lens, jnp.int32))
+    emb, plen = jax.jit(jax.vmap(_jax_prompt, (None, 0, 0)))(  # one compile
+        jp, jnp.asarray(text), jnp.asarray(lens, jnp.int32))
     min_len, max_len = [6, 7, 3, 0], [34, 7, 25, 0]
     key = jax.random.PRNGKey(77)
     want = _jax_batched_spec(jp, key, emb, plen, jnp.asarray(min_len, jnp.int32),

@@ -113,8 +113,8 @@ def test_dit_streaming_mask_matches_jax(engines):
     mask[0, :, 10:60] = 0  # chunk 0's queries keep only frames 0-9
     mask[1, :, 31:] = 0  # rows with no key: the finite NEG_INF bias, as in JAX
     args = (x, mask, mu, tt_, spks, cond)
-    want = jdit.forward(jax_engine.flow_params["estimator"], ecfg, *map(jnp.asarray, args),
-                        streaming=True)
+    want = jax.jit(lambda p, *a: jdit.forward(p, ecfg, *a, streaming=True))(  # one compile
+        jax_engine.flow_params["estimator"], *map(jnp.asarray, args))
     got = tdit.forward(torch_engine.flow_params["estimator"], ecfg, *map(t, args),
                        streaming=True)
     assert np.isfinite(n(got)).all()
@@ -139,10 +139,10 @@ def test_flow_streaming_forms_match_jax(engines, form):
     emit = (np.arange(t_tok) < n_valid - fcfg.pre_lookahead_len)[None]
     use_emit = form == "emit_valid"
     finalize = form == "finalize"
-    want = jflow.inference(
-        jax_engine.flow_params, fcfg, jnp.asarray(token), jnp.asarray(valid),
-        jnp.asarray(prompt), jnp.int32(pm_len), jnp.asarray(emb), finalize=finalize,
-        streaming=True, emit_valid=jnp.asarray(emit) if use_emit else None)
+    want = jax.jit(lambda p, *a, emit_valid: jflow.inference(  # one compile, not one per op
+        p, fcfg, *a, finalize=finalize, streaming=True, emit_valid=emit_valid))(
+        jax_engine.flow_params, jnp.asarray(token), jnp.asarray(valid), jnp.asarray(prompt),
+        jnp.int32(pm_len), jnp.asarray(emb), emit_valid=jnp.asarray(emit) if use_emit else None)
     got = tflow.inference(
         torch_engine.flow_params, fcfg, t(token), t(valid), t(prompt), pm_len, t(emb),
         finalize=finalize, streaming=True, emit_valid=t(emit) if use_emit else None)

@@ -128,9 +128,14 @@ def _flow_loss_draws(rng, b, t_mel, mel_dim, depth, widths, rate):
 
 
 @functools.partial(jax.jit, static_argnums=(1, 2, 3))
-def _vocoder_draws(rng, b, t, nh):
+def _vocoder_draws(rng, b, size, nh):
+    """hift.py:228's (rand_ini (b, nh), noise) with the noise drawn flat, at
+    `size` elements. The partitionable threefry (JAX's default) draws
+    element i of any shape from counter i, so the first b x t x nh elements
+    of a flat draw are the (b, t, nh) draw in row-major order: a size class
+    compiles once, where each length would compile its own program."""
     rng_ini, rng_noise = jax.random.split(rng)
-    return jax.random.uniform(rng_ini, (b, nh)), jax.random.normal(rng_noise, (b, t, nh))
+    return jax.random.uniform(rng_ini, (b, nh)), jax.random.normal(rng_noise, (size,))
 
 
 class JaxReplayNoise:
@@ -172,7 +177,10 @@ class JaxReplayNoise:
         return tuple(t(d).to(self.device) for d in draws)
 
     def vocoder(self, b: int, length: int, nh: int):
-        ri, rn = _vocoder_draws(self.key, b, length, nh)
+        assert jax.config.jax_threefry_partitionable, "flat draws need the partitionable threefry"
+        size = b * length * nh
+        ri, rn = _vocoder_draws(self.key, b, 1 << max(size - 1, 1).bit_length(), nh)
+        rn = np.asarray(rn)[:size].reshape(b, length, nh)
         return t(ri).to(self.device), t(rn).to(self.device)
 
     def flow_loss(self, b: int, t_mel: int, mel_dim: int, depth: int, widths, rate: float):
