@@ -247,7 +247,33 @@ exits non-zero without either. Phases, each fatal on failure:
      the trained tree, and one /api/v1/tts at heads 2 served from it, its
      launches held to the prediction. Printed: ms per step (median of steps
      3-12), audio seconds per second and peak memory;
-  6. the kernels line (launches: phases 5 to 5m; the int8 form's: 5i), the
+  5n. the training and model-admin routes, through the port's HTTP server
+     on the main engine with a TrainingManager on cuda: 64 seeded LLM rows
+     (random words of a fixed list, 200-256 speech tokens over the full
+     speech vocab) written by the port's dataset writer into chiprun_out/
+     and read back equal, directly and through load_hf_dataset; the main
+     engine's seed-0 LLM written as npz; POST /api/v1/training/start of an
+     llm job on that dataset from that npz (B 8, 12 steps, logging every
+     step, 2 warm-up steps): a second start while it runs must give 400,
+     /api/v1/training/list must show it, its status must reach completed
+     with rc 0 within ROUTE_JOB_LIMIT_S, its log must name the cuda device
+     and hold 12 finite step losses, /api/v1/training/plot must be a
+     990 x 550 RGB PNG (IHDR, the IDAT inflating to its rows) of 12 points;
+     then a second llm job, stopped once its log shows step 2: status
+     stopped, its process group gone, its pid absent from nvidia-smi's
+     compute apps and the card's free memory back within 1 GiB of what it
+     was before the job, within the grace period; then, with TTS_MODEL_ROOT
+     at the run's directory, /api/v1/models/list must name step_12.pt as a
+     train state, /api/v1/models/convert {action average} of the seed-0 and the
+     trained npz must complete and equal their f32 mean, and
+     /api/v1/models/delete must remove a file and answer 400 to ../x. The
+     trained LLM (from step_12.pt, as npz) is loaded through load_models
+     and served: one /api/v1/tts at heads 2, launches held; last, a speaker
+     enrolled by /api/v1/speakers/add {dataset_dir} from 3 voiced 16 kHz
+     rows written here, and one /api/v1/tts on it, launches held. Printed:
+     seconds from start to completion, ms per step from the log (median of
+     steps 3-12), the stop's seconds, the convert job's seconds;
+  6. the kernels line (launches: phases 5 to 5n; the int8 form's: 5i), the
      card line, and the final JSON line.
 
 TF32 is off for matmuls and cuDNN convs throughout, so f32 is full f32 in
@@ -3619,6 +3645,304 @@ def drive_gan(engine, frontend, da, mg, card):
             torch.cuda.empty_cache()
 
 
+
+# phase 5n: the training and model-admin routes, a route-started trainer
+ROUTE_ROWS = 64  # LLM rows of the dataset the port's writer makes on the machine
+ROUTE_SHAPE = dict(batch_size=8, max_steps=12, logging_steps=1, warmup_steps=2)
+ROUTE_SEED = 41
+ROUTE_JOB_LIMIT_S = 420  # start to completed, the 2.8 GB checkpoint read and step_12.pt write
+ROUTE_STOP_AT = 2  # the long job is stopped once its log shows this step
+ROUTE_GRACE_S = 10.0  # stop_training's SIGTERM -> SIGKILL grace
+ROUTE_FREE_SLACK = 2 ** 30  # bytes: the card's free memory after the stop against before the job
+ROUTE_SPEAKER_ROWS = 3  # 3 s voiced rows at 16 kHz of the speaker dataset
+
+
+def png_check(png: bytes, what: str) -> dict:
+    """A PNG's IHDR and its tEXt chunks; the IDAT must inflate to the
+    RGB rows' size (a filter byte per row)."""
+    import struct
+    import zlib
+
+    if png[:8] != b"\x89PNG\r\n\x1a\n":
+        fail(f"{what}: no PNG signature")
+    pos, chunks = 8, {}
+    while pos < len(png):
+        (n,), kind = struct.unpack(">I", png[pos:pos + 4]), png[pos + 4:pos + 8]
+        chunks.setdefault(kind, []).append(png[pos + 8:pos + 8 + n])
+        pos += 12 + n
+    w, h, depth, color = struct.unpack(">IIBB", chunks[b"IHDR"][0][:10])
+    raw = zlib.decompress(b"".join(chunks[b"IDAT"]))
+    if (w, h, depth, color) != (990, 550, 8, 2) or len(raw) != h * (1 + 3 * w):
+        fail(f"{what}: IHDR {w} x {h} depth {depth} color {color}, IDAT {len(raw)} bytes")
+    text = dict(t.split(b"\0", 1) for t in chunks.get(b"tEXt", []))
+    return {"width": w, "height": h, "extents": json.loads(text[b"extents"])}
+
+
+def compute_pids() -> list:
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return [int(x) for x in out.stdout.split() if x.strip().isdigit()]
+
+
+def poll_job(url, tid, until, what, limit_s):
+    """Status polls until `until(data, log so far)`; returns (data, log)."""
+    log, deadline = "", time.time() + limit_s
+    while time.time() < deadline:
+        code, body = http_call(url, f"/api/v1/training/status/{tid}")
+        if code != 200:
+            fail(f"{what}: status {code} {body}")
+        log += body["data"]["new_log"]
+        if until(body["data"], log):
+            return body["data"], log
+        time.sleep(0.5)
+    fail(f"{what}: not there within {limit_s} s; log tail:\n{log[-3000:]}")
+
+
+def drive_training_routes(engine, frontend, da, mg, card):
+    """Phase 5n: the training and model routes on the card (see the module
+    docstring). Returns (record, launches of the two served requests)."""
+    import os
+    import re
+    import shutil
+    import tempfile
+
+    import torch
+
+    from flowmirror_hydravox_tpu_torch import __main__ as launcher
+    from flowmirror_hydravox_tpu_torch.params import flatten_params
+    from flowmirror_hydravox_tpu_torch.runtime.engine import Engine
+    from flowmirror_hydravox_tpu_torch.runtime.training_manager import TrainingManager
+    from flowmirror_hydravox_tpu_torch.runtime.training_plots import parse_training_logs
+    from flowmirror_hydravox_tpu_torch.train import checkpoint
+    from flowmirror_hydravox_tpu_torch.train.data import load_hf_dataset
+    from flowmirror_hydravox_tpu_torch.utils import hf_dataset
+
+    cfg, dev = engine.cfg, torch.device(engine.device)
+    rec = {}
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="hydravox_routes_"))
+    root = tmp / "models"
+    model_dir = tmp / "served"
+    for d in (root, model_dir):
+        d.mkdir()
+    saved_root = os.environ.get("TTS_MODEL_ROOT")
+    os.environ["TTS_MODEL_ROOT"] = str(root)
+    torch.cuda.empty_cache()
+
+    # 5n.1: the dataset, written by the port's writer on this machine
+    t0 = time.time()
+    rows = llm_rows(np.random.default_rng(ROUTE_SEED), ROUTE_ROWS, cfg.llm)
+    ds_dir = ROOT / "chiprun_out" / "routes_llm_ds"
+    shutil.rmtree(ds_dir, ignore_errors=True)
+    hf_dataset.save_to_disk(rows, str(ds_dir))
+    back = hf_dataset.load_from_disk(str(ds_dir))
+    train_rows, _ = load_hf_dataset(str(ds_dir))
+    if list(back) != rows or [train_rows[i] for i in range(len(train_rows))] != rows:
+        fail("5n: the dataset read back differs from the rows written")
+    rec["dataset"] = dict(rows=len(rows), seconds=time.time() - t0,
+                          bytes=sum(f.stat().st_size for f in ds_dir.iterdir()))
+    print("5n dataset", json.dumps(rec["dataset"]), flush=True)
+
+    manager = TrainingManager(device="cuda")
+    servers = start_servers(engine, frontend, window={"training": manager})
+    url = servers["window"][2]
+    try:
+        # 5n.2: the seed-0 LLM as npz, fine-tuned by a route-started trainer
+        t0 = time.time()
+        seed0 = str(root / "seed0_llm.npz")
+        checkpoint.save_params_npz(seed0, engine.llm_params)
+        rec["npz_write_s"] = time.time() - t0
+        run_dir = root / "run"
+        req = {"model_type": "llm", "train_data": str(ds_dir), "output_dir": str(run_dir),
+               "model_checkpoint": seed0, **ROUTE_SHAPE}
+        t_start = time.time()
+        code, body = http_status(url, "/api/v1/training/start", req)
+        if code != 200:
+            fail(f"5n: /api/v1/training/start {code} {body}")
+        tid = body["data"]["training_id"]
+        code, body = http_status(url, "/api/v1/training/start", req)
+        if code != 400:
+            fail(f"5n: a second start while one runs answered {code}, not 400")
+        listed = http_call(url, "/api/v1/training/list")[1]["data"]["trainings"]
+        if [t["id"] for t in listed] != [tid]:
+            fail(f"5n: /api/v1/training/list {listed}")
+        status, log = poll_job(url, tid, lambda d, _: d["status"] != "running", "5n training",
+                               ROUTE_JOB_LIMIT_S)
+        seconds = time.time() - t_start
+        if status["status"] != "completed" or status["returncode"] != 0:
+            fail(f"5n: the training ended {status['status']} rc {status['returncode']}:\n"
+                 f"{log[-3000:]}")
+        if "training on device cuda" not in log:
+            fail("5n: the trainer's log does not name the cuda device")
+        points = parse_training_logs(log)
+        if points["steps"] != list(range(1, ROUTE_SHAPE["max_steps"] + 1)) or \
+                not np.isfinite(points["losses"]).all():
+            fail(f"5n: step losses {points['steps']} {points['losses']}")
+        s_per_it = [float(x) for x in
+                    re.findall(r"step \d+ loss .*?\(([\d.]+) s/it\)", log)]
+        req_png = urllib.request.Request(f"{url}/api/v1/training/plot/{tid}")
+        with urllib.request.urlopen(req_png, timeout=120) as r:
+            if r.status != 200 or r.headers.get("Content-Type") != "image/png":
+                fail(f"5n: plot {r.status} {r.headers.get('Content-Type')}")
+            plot = png_check(r.read(), "5n plot")
+        if plot["extents"]["points"]["steps"] != ROUTE_SHAPE["max_steps"]:
+            fail(f"5n: the plot has {plot['extents']['points']} points")
+        rec["training"] = dict(
+            start_to_completed_s=seconds, step_ms=statistics.median(s_per_it[2:]) * 1e3,
+            step_ms_range=[min(s_per_it[2:]) * 1e3, max(s_per_it[2:]) * 1e3],
+            losses=points["losses"], accs=points["accs"], plot=plot, card=card,
+            batch=[ROUTE_SHAPE["batch_size"], 64, 256])
+        print("5n training", json.dumps({k: v for k, v in rec["training"].items()
+                                         if k not in ("losses", "accs", "plot")}), flush=True)
+
+        # 5n.3: a long job, stopped at step ROUTE_STOP_AT
+        free_before = torch.cuda.mem_get_info(dev)[0]
+        code, body = http_status(url, "/api/v1/training/start",
+                                 {**req, "model_checkpoint": None, "max_steps": 100000,
+                                  "output_dir": str(tmp / "long")})
+        if code != 200:
+            fail(f"5n: the long job's start {code} {body}")
+        tid_long = body["data"]["training_id"]
+        pid = manager.trainings[tid_long]["pid"]
+        poll_job(url, tid_long, lambda d, text: f"step {ROUTE_STOP_AT} loss" in text
+                 or d["status"] != "running", "5n long job", ROUTE_JOB_LIMIT_S)
+        on_card = pid in compute_pids()
+        free_running = torch.cuda.mem_get_info(dev)[0]
+        t0 = time.time()
+        code, body = http_status(url, f"/api/v1/training/stop/{tid_long}", {})
+        stop_s = time.time() - t0
+        state = http_call(url, f"/api/v1/training/status/{tid_long}")[1]["data"]["status"]
+        if code != 200 or state != "stopped":
+            fail(f"5n: stop answered {code}, status {state}")
+        try:
+            os.killpg(pid, 0)
+            fail(f"5n: the stopped job's process group {pid} is still there")
+        except ProcessLookupError:
+            pass
+        deadline = time.time() + ROUTE_GRACE_S
+        while (pid in compute_pids() or torch.cuda.mem_get_info(dev)[0]
+               < free_before - ROUTE_FREE_SLACK) and time.time() < deadline:
+            time.sleep(0.5)
+        free_after = torch.cuda.mem_get_info(dev)[0]
+        if pid in compute_pids() or free_after < free_before - ROUTE_FREE_SLACK:
+            fail(f"5n: pid {pid} still holds the card {ROUTE_GRACE_S} s after the stop: "
+                 f"{free_after / 1e9:.2f} GB free, {free_before / 1e9:.2f} before the job")
+        # nvidia-smi may list host pids only: the card's free memory is the proof
+        rec["stop"] = dict(stop_s=stop_s, pid_seen_on_card=on_card,
+                           free_gb_before=free_before / 1e9,
+                           free_gb_running=free_running / 1e9, free_gb_after=free_after / 1e9)
+        print("5n stop", json.dumps(rec["stop"]), flush=True)
+
+        # 5n.4: the model routes under TTS_MODEL_ROOT
+        listed = http_call(url, "/api/v1/models/list")[1]["data"]["models"]
+        kinds = {m["path"]: m["kind"] for m in listed}
+        if kinds.get(os.path.join("run", f"step_{ROUTE_SHAPE['max_steps']}.pt")) != "orbax":
+            fail(f"5n: /api/v1/models/list {kinds}")
+        t0 = time.time()
+        saved = torch.load(run_dir / f"step_{ROUTE_SHAPE['max_steps']}.pt", map_location="cpu",
+                           weights_only=True)["params"]
+        trained = str(root / "trained_llm.npz")
+        np.savez(trained, **{k: v.to(torch.float32).numpy() for k, v in saved.items()})
+        avg = root / "avg" / "avg_llm.npz"
+        code, body = http_status(url, "/api/v1/models/convert",
+                                 {"action": "average", "model": "llm", "inputs": [seed0, trained],
+                                  "dst": str(avg)})
+        if code != 200:
+            fail(f"5n: /api/v1/models/convert {code} {body}")
+        status, log = poll_job(url, body["data"]["training_id"],
+                               lambda d, _: d["status"] != "running", "5n convert",
+                               ROUTE_JOB_LIMIT_S)
+        if status["status"] != "completed":
+            fail(f"5n: the convert job ended {status['status']}:\n{log[-3000:]}")
+        convert_s = time.time() - t0
+        with np.load(avg) as f, np.load(seed0) as fa, np.load(trained) as fb:
+            if set(f.files) != set(fa.files):
+                fail("5n: the average has other keys")
+            for k in f.files:
+                if not np.array_equal(f[k], (fa[k] + fb[k]) / np.float32(2)):
+                    fail(f"5n: the average's {k} is not the f32 mean")
+        code, _ = http_status(url, "/api/v1/models/delete", {"path": "../x"})
+        code_ok, body = http_status(url, "/api/v1/models/delete",
+                                    {"path": os.path.join("avg", "avg_llm.npz")})
+        if code != 400 or code_ok != 200 or avg.exists():
+            fail(f"5n: /api/v1/models/delete answered {code} on ../x and {code_ok} {body}")
+        rec["models"] = dict(listed=len(listed), convert_s=convert_s)
+        print("5n models", json.dumps(rec["models"]), flush=True)
+
+        # 5n.5: the trained LLM served through both kernels
+        t0 = time.time()
+        shutil.move(trained, model_dir / "llm.npz")
+        cfg_s, trees = launcher.load_models(False, str(model_dir), frontend.tokenizer, dev)
+        served_tree = flatten_params(trees["llm"])
+        for k, v in saved.items():
+            if not torch.equal(served_tree[k].cpu(), v):
+                fail(f"5n: the served LLM's {k} is not the trained one")
+        del saved, served_tree
+        served = Engine(cfg_s, trees["llm"], trees["flow"], trees["hift"], max_tokens=MAX_TOKENS,
+                        device=dev)
+        rec["load_s"] = time.time() - t0
+    finally:
+        manager.stop_all()
+        stop_servers(servers)
+        shutil.rmtree(tmp, ignore_errors=True)
+        if saved_root is None:
+            os.environ.pop("TTS_MODEL_ROOT", None)
+        else:
+            os.environ["TTS_MODEL_ROOT"] = saved_root
+
+    launched_all = [0, 0]
+    servers = start_servers(served, frontend, window={})
+    try:
+        with EngineCalls(served) as calls:
+            da.launch_count = mg.launch_count = 0
+            recs, launched, (samples, peak) = held_worker(
+                "5n trained LLM, /api/v1/tts", calls, da, mg, cfg_s.llm,
+                lambda: tts(servers["window"][2], TRAIN_TEXT, 2, seed=ROUTE_SEED),
+                [("synthesize", 1)])
+        launched_all = [a + b for a, b in zip(launched_all, launched)]
+        rec["served"] = dict(tokens=recs[0]["tokens"], steps=recs[0]["steps"],
+                             audio_s=samples / SAMPLE_RATE, peak=peak,
+                             attention_launches=launched[0], mlp_launches=launched[1],
+                             predicted=list(predicted_launches(recs, cfg_s.llm)))
+        print("5n served", json.dumps(rec["served"]), flush=True)
+    finally:
+        stop_servers(servers)
+        del served
+        torch.cuda.empty_cache()
+
+    # 5n.6: a speaker enrolled from a dataset written here, then served
+    spk_dir = ROOT / "chiprun_out" / "routes_speaker_ds"
+    shutil.rmtree(spk_dir, ignore_errors=True)
+    hf_dataset.save_to_disk([{"audio": {"array": voiced(16000, 3.0, ROUTE_SEED + i),
+                                        "sampling_rate": 16000}}
+                             for i in range(ROUTE_SPEAKER_ROWS)], str(spk_dir))
+    servers = start_servers(engine, frontend, window={})
+    try:
+        url = servers["window"][2]
+        t0 = time.time()
+        code, body = http_status(url, "/api/v1/speakers/add",
+                                 {"speaker_id": "from_dataset", "dataset_dir": str(spk_dir)})
+        if code != 200 or body["data"]["rows_averaged"] != ROUTE_SPEAKER_ROWS:
+            fail(f"5n: /api/v1/speakers/add with dataset_dir {code} {body}")
+        rec["speaker"] = dict(add_s=time.time() - t0)
+        with EngineCalls(engine) as calls:
+            da.launch_count = mg.launch_count = 0
+            recs, launched, (samples, _) = held_worker(
+                "5n dataset speaker, /api/v1/tts", calls, da, mg, cfg.llm,
+                lambda: audio_of(*http_status(url, "/api/v1/tts", {
+                    "text": TRAIN_TEXT, "speaker_id": "from_dataset",
+                    "extra_params": {"inference_head_num": 2, "seed": ROUTE_SEED}}),
+                    "5n dataset speaker"),
+                [("synthesize", 1)])
+        launched_all = [a + b for a, b in zip(launched_all, launched)]
+        rec["speaker"].update(tokens=recs[0]["tokens"], audio_s=samples / SAMPLE_RATE,
+                              attention_launches=launched[0], mlp_launches=launched[1])
+        print("5n speaker", json.dumps(rec["speaker"]), flush=True)
+    finally:
+        frontend.remove_speaker("from_dataset")
+        stop_servers(servers)
+    return rec, tuple(launched_all)
+
+
 def main():
     t_start = time.time()
     if not (ROOT / "flowmirror_hydravox_tpu_torch" / "csrc").is_dir():
@@ -3741,11 +4065,13 @@ def main():
     readout["kernels"] = check_served_shapes(served, da, mg, flush, readout_launched, phase="5l")
     phase_s["5l kernels"] = time.time() - t0
     gan, gan_launched = phase("5m", drive_gan, engine, frontend, da, mg, card)
+    routes, routes_launched = phase("5n", drive_training_routes, engine, frontend, da, mg, card)
     phase_s["all"] = time.time() - t_start
     print("phase seconds", json.dumps({k: round(v, 1) for k, v in phase_s.items()}), flush=True)
     attention_launches, mlp_launches = (sum(x) for x in zip(
         launches, more, streamed, zs_launched, pt_launched, zsb_launched, solo_launched,
-        spec_launched, int8_launched[:2], train_launched, readout_launched, gan_launched))
+        spec_launched, int8_launched[:2], train_launched, readout_launched, gan_launched,
+        routes_launched))
     del flush
 
     # the kernels line: each kernel at its serving shape (bf16; decode
@@ -3810,7 +4136,7 @@ def main():
          "serving": serving, "streaming": streaming, "zero_shot": zero_shot,
          "pt_weights": pt_weights, "zero_shot_batched": zs_batched, "solo_route": solo_rule,
          "spec_decode": spec, "int8": int8, "training": training, "dpo": dpo,
-         "spec_readout": readout, "gan": gan, "phase_s": phase_s,
+         "spec_readout": readout, "gan": gan, "training_routes": routes, "phase_s": phase_s,
          **kernels},
         indent=1))
     print(json.dumps(kernels), flush=True)

@@ -46,6 +46,10 @@ route (one utterance, the flash batch, the stream lane, the continuous
 slots), drafts with MTP heads 1..K-1 and verifies against head 0, the exact
 heads=1 output distribution; with slots it needs `--continuous-heads` >= 2.
 
+The training and model routes (/api/v1/training/*, /api/v1/models/*) run
+their jobs as subprocesses of one TrainingManager, whose trainers take this
+launcher's --device and --tiny.
+
 `--quantize int8` (default: the HYDRAVOX_QUANTIZE environment variable; JAX
 :62-65) serves the LLM as weight-only int8 with per-output-channel scales
 (ops/quant.py) on every route, the decode MLP through the int8 form of the
@@ -71,6 +75,7 @@ from .frontend.tokenizer import get_tokenizer
 from .params import init_flow_params, init_hift_params, init_llm_params
 from .runtime.engine import Engine
 from .runtime.server import serve
+from .runtime.training_manager import TrainingManager
 
 
 def parse_args(argv=None):
@@ -175,7 +180,8 @@ def main(argv=None):
     engine, frontend = build(args)
     serve(args.api_host, args.api_port, engine, frontend,
           continuous_slots=args.continuous_batching, continuous_head_num=args.continuous_heads,
-          continuous_reserve_stream=args.continuous_reserve)
+          continuous_reserve_stream=args.continuous_reserve,
+          training=TrainingManager(device=args.device, tiny=args.tiny))
 
 
 if __name__ == "__main__":

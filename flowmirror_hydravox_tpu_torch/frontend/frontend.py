@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from ..config import HydraVoxConfig
 from ..device import resolve_device
 from ..params import flatten_params, from_numpy_tree, load_params_npz
-from ..utils import audio
+from ..utils import audio, hf_dataset
 from . import speech_tokenizer as st
 from .text_norm import normalize, split_text_by_punctuation
 from .tokenizer import get_tokenizer
@@ -286,10 +286,10 @@ class Frontend:
         """Enrol a speaker as the mean embedding over a Hugging Face dataset
         on disk (speaker_manage.py:191-259): a precomputed 'embedding' column
         if there is one, else one extraction per 'audio' row, sampling 5000
-        rows at most. Returns the number of rows averaged."""
-        from datasets import load_from_disk
-
-        ds = load_from_disk(dataset_dir)
+        rows at most (`datasets`' shuffle at seed 42: the JAX frontend's
+        rows). Returns the number of rows averaged. The dataset is read by
+        utils/hf_dataset.py, not by the `datasets` library."""
+        ds = hf_dataset.load_from_disk(dataset_dir)
         cols = ds.column_names
         embs = []
         if "embedding" in cols:

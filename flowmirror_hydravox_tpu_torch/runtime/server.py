@@ -1,6 +1,6 @@
-"""HTTP serving layer, a port of the inference routes of
-flowmirror_hydravox_tpu/runtime/server.py, with the reference's REST schema
-(server/router.py):
+"""HTTP serving layer, a port of flowmirror_hydravox_tpu/runtime/server.py
+(every route but /api/v1/data/run, which waits for the preprocessing
+modules), with the reference's REST schema (server/router.py):
 
   GET  /health            -> {"status": "ok"}
   GET  /api/v1/speakers   -> {success, message, data: {speakers}, error}
@@ -28,6 +28,28 @@ flowmirror_hydravox_tpu/runtime/server.py, with the reference's REST schema
   GET  /api/v1/samples    -> {..., data: {root, samples}} (runtime/samples.py)
   POST /api/v1/samples/load {path} -> {..., data: {audio_base64, prompt_text}};
                            a path outside the samples root -> 400
+  POST /api/v1/training/start {train_data, model_type llm|flow|hift|dpo,
+                           output_dir, model_checkpoint, batch_size, ...} ->
+                           {..., data: {training_id, log_path}}; 400 without
+                           train_data or while a training runs
+  POST /api/v1/training/stop/<id> -> 200, or 404 for an unknown id
+  GET  /api/v1/training/status/<id> -> {..., data: {training_id, status,
+                           model_type, output_dir, elapsed_s, new_log,
+                           returncode}}; 404 for an unknown id
+  GET  /api/v1/training/list -> {..., data: {trainings: [{id, status,
+                           model_type, output_dir}]}}
+  GET  /api/v1/training/plot/<id> -> image/png (runtime/training_plots.py);
+                           404 for an unknown id, 500 when rendering fails
+  GET  /api/v1/models/list -> {..., data: {root, models}} (runtime/models_admin.py)
+  POST /api/v1/models/delete {path} -> 400 without a path or for one outside
+                           the models root, 404 when missing
+  POST /api/v1/models/convert {action import|average|graft-mtp, model, src |
+                           inputs, dst, tiny} -> a job in the training
+                           registry; 400 on a bad request
+
+The training and convert jobs are subprocesses of the server's
+`TrainingManager` (runtime/training_manager.py), which the launcher builds
+for its --device and --tiny.
 
 Errors: unknown speaker -> 500 naming the speakers; bad JSON, a stream
 without text or speaker_id, zero-shot without prompt audio, voice conversion
@@ -106,10 +128,12 @@ from ..convert import torch_import
 from ..noise import RowNoise
 from ..ops.sampling import SamplingParams
 from ..utils.wavio import audio_to_base64, load_audio_from_base64
-from . import samples
+from . import models_admin, samples
 from .continuous import ContinuousBatcher
 from .engine import Engine
 from .profiling import MetricsAggregator
+from .training_manager import TrainingManager
+from .training_plots import generate_training_plot
 
 logger = logging.getLogger("hydravox.server")
 
@@ -676,6 +700,7 @@ def _response(success: bool, message: str, data=None, error=None) -> dict:
 
 class _Handler(BaseHTTPRequestHandler):
     service: TTSService = None  # injected by make_server
+    training: TrainingManager = None  # injected by make_server
 
     def log_message(self, fmt, *args):
         logger.debug(fmt, *args)
@@ -699,10 +724,66 @@ class _Handler(BaseHTTPRequestHandler):
         elif self.path == "/api/v1/samples":
             self._send(200, _response(True, "ok", data={"root": samples.samples_root(),
                                                         "samples": samples.list_samples()}))
+        elif self.path.startswith("/api/v1/training/status/"):
+            status = self.training.get_training_status(self.path.rsplit("/", 1)[1])
+            if status.get("success"):
+                self._send(200, _response(True, "ok", data=status))
+            else:
+                self._send(404, _response(False, "unknown training", error=status.get("error")))
+        elif self.path.startswith("/api/v1/training/plot/"):
+            self._send_plot(self.path.split("?")[0].rsplit("/", 1)[1])
+        elif self.path.startswith("/api/v1/models/list"):
+            self._send(200, _response(True, "ok", data={"root": models_admin.models_root(),
+                                                        "models": models_admin.list_models()}))
+        elif self.path == "/api/v1/training/list":
+            self._send(200, _response(True, "ok",
+                                      data={"trainings": self.training.list_trainings()}))
         elif self.path in ("/health", "/"):
             self._send(200, {"status": "ok"})
         else:
             self._send(404, _response(False, "not found", error="not found"))
+
+    def _send_plot(self, tid: str):
+        """GET /api/v1/training/plot/<id> (server.py:1082-1102)."""
+        with self.training.lock:
+            entry = self.training.trainings.get(tid)
+        if entry is None:
+            self._send(404, _response(False, "unknown training", error=tid))
+            return
+        try:
+            with open(generate_training_plot(entry["log_path"], entry["output_dir"]), "rb") as f:
+                body = f.read()
+        except Exception as e:
+            self._send(500, _response(False, "plot failed", error=str(e)))
+            return
+        self.send_response(200)
+        self.send_header("Content-Type", "image/png")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _send_job(self, result: dict, started: str):
+        """A job route's answer (server.py:1223-1255): 200 with the result,
+        else 400 with its error."""
+        ok = bool(result.get("success"))
+        self._send(200 if ok else 400, _response(
+            ok, started if ok else "failed", data=result if ok else None,
+            error=result.get("error")))
+
+    def _handle_delete_model(self, body: dict):
+        """POST /api/v1/models/delete (server.py:1206-1222)."""
+        if not body.get("path"):
+            self._send(400, _response(False, "missing fields", error="path required"))
+            return
+        try:
+            result = models_admin.delete_model(body["path"])
+        except ValueError as e:
+            self._send(400, _response(False, "bad path", error=str(e)))
+            return
+        ok = bool(result.get("success"))
+        self._send(200 if ok else 404, _response(
+            ok, "deleted" if ok else "failed", data=result if ok else None,
+            error=result.get("error")))
 
     def do_POST(self):
         try:
@@ -729,6 +810,16 @@ class _Handler(BaseHTTPRequestHandler):
                     body.get("llm_pt"), body.get("flow_pt"))))
             elif self.path == "/api/v1/samples/load":
                 self._handle_load_sample(body)
+            elif self.path == "/api/v1/models/delete":
+                self._handle_delete_model(body)
+            elif self.path == "/api/v1/models/convert":
+                self._send_job(models_admin.convert_model(body, self.training), "convert started")
+            elif self.path == "/api/v1/training/start":
+                self._send_job(self.training.start_training(body), "training started")
+            elif self.path.startswith("/api/v1/training/stop/"):
+                result = self.training.stop_training(self.path.rsplit("/", 1)[1])
+                self._send(200 if result.get("success") else 404, _response(
+                    result.get("success", False), "stopped", error=result.get("error")))
             else:
                 self._send(404, _response(False, "not found", error="not found"))
         except TimeoutError:
@@ -881,28 +972,33 @@ class _Handler(BaseHTTPRequestHandler):
 
 def make_server(host: str, port: int, engine: Engine, frontend, request_timeout: float = 60.0,
                 batch_window: float = 0.03, max_batch: int = 8, continuous_slots: int = 0,
-                continuous_head_num: int = 2,
-                continuous_reserve_stream: int = 1) -> ThreadingHTTPServer:
+                continuous_head_num: int = 2, continuous_reserve_stream: int = 1,
+                training: Optional[TrainingManager] = None) -> ThreadingHTTPServer:
+    """The HTTP server; `training` is the job registry of the training and
+    model routes (default: one whose trainers run on the engine's device)."""
     service = TTSService(engine, frontend, request_timeout=request_timeout,
                          batch_window=batch_window, max_batch=max_batch,
                          continuous_slots=continuous_slots,
                          continuous_head_num=continuous_head_num,
                          continuous_reserve_stream=continuous_reserve_stream)
-    handler = type("Handler", (_Handler,), {"service": service})
+    training = training or TrainingManager(device=engine.device.type)
+    handler = type("Handler", (_Handler,), {"service": service, "training": training})
     return ThreadingHTTPServer((host, port), handler)
 
 
 def serve(host: str, port: int, engine: Engine, frontend, request_timeout: float = 60.0,
           continuous_slots: int = 0, continuous_head_num: int = 2,
-          continuous_reserve_stream: int = 1):
+          continuous_reserve_stream: int = 1, training: Optional[TrainingManager] = None):
     server = make_server(host, port, engine, frontend, request_timeout=request_timeout,
                          continuous_slots=continuous_slots,
                          continuous_head_num=continuous_head_num,
-                         continuous_reserve_stream=continuous_reserve_stream)
+                         continuous_reserve_stream=continuous_reserve_stream,
+                         training=training)
     logger.info("serving on %s:%d (continuous_slots=%d, reserved for streams %d)", host, port,
                 continuous_slots, continuous_reserve_stream if continuous_slots else 0)
     try:
         server.serve_forever()
     finally:
         server.RequestHandlerClass.service.shutdown()
+        server.RequestHandlerClass.training.stop_all()
         server.server_close()

@@ -1,5 +1,5 @@
 """Flags and set-up shared by the trainers (train_llm.py, train_flow.py,
-train_dpo.py).
+train_dpo.py; train_hift.py takes `LATER_PARALLEL` and `train_device`).
 
 The trainers keep the JAX trainers' flags. This port trains on one device
 (`--device`, default cuda). The multi-device flags are refused with a
@@ -9,8 +9,12 @@ message that names the slice that ports them, never ignored.
 from __future__ import annotations
 
 import argparse
+import logging
+
+import torch
 
 from ..convert import torch_import
+from ..device import resolve_device
 from ..params import cast_like
 from .checkpoint import load_params_npz, tree_device
 
@@ -71,6 +75,14 @@ def check_args(parser: argparse.ArgumentParser, args):
         if args.batch_size % args.grad_accum:
             parser.error(f"batch_size {args.batch_size} not divisible by "
                          f"grad_accum {args.grad_accum}")
+
+
+def train_device(args) -> torch.device:
+    """The trainer's `--device` (device.resolve_device), named in the log
+    (logger `hydravox.train`), so a job's log shows where it ran."""
+    device = resolve_device(args.device)
+    logging.getLogger("hydravox.train").info("training on device %s", device)
+    return device
 
 
 def load_weights(path: str, name: str, cfg, params):

@@ -5,7 +5,11 @@ Rows come from an HF `datasets` directory (the reference's
 extract_speech_token_dataset.py schema: "text", optional "audio" {array,
 sampling_rate}, "speech_token", "embedding", "mel"/"mel_feat"), a parquet
 shard list, or any iterable of dicts; collators pad each batch to a bucket
-grid. `datasets` and `pyarrow` are imported only where a dataset is opened.
+grid. Saved datasets are read by the port's own reader
+(utils/hf_dataset.py), never by the `datasets` library, which the GPU
+machine does not have. A parquet shard still needs `pyarrow`, which that
+machine does not have either: there it raises ImportError, a refusal, not
+a fallback.
 
 Not ported: speech tokens or speaker embeddings extracted from a row's
 audio (no trainer passes the JAX collators an extractor for them): rows
@@ -21,6 +25,7 @@ from typing import Any, Dict, Iterable, Iterator, List, Optional
 import numpy as np
 
 from ..frontend.text_norm import normalize
+from ..utils import hf_dataset
 
 logger = logging.getLogger("hydravox.data")
 
@@ -37,11 +42,11 @@ SPEECH_BUCKETS = (128, 256, 512, 1024)
 
 
 def load_hf_dataset(path: str, val_split: float = 0.0, seed: int = 42):
-    """load_from_disk + optional auto val split (train_speech_model.py:850-865)."""
-    import datasets
-
-    ds = datasets.load_from_disk(path)
-    if isinstance(ds, datasets.DatasetDict):
+    """load_from_disk + optional auto val split (train_speech_model.py:850-865),
+    through utils/hf_dataset.py: the rows and split the `datasets` library
+    gives for the same seed."""
+    ds = hf_dataset.load_from_disk(path)
+    if isinstance(ds, hf_dataset.DatasetDict):
         if "train" in ds:
             train = ds["train"]
             val = ds.get("validation") or ds.get("test")
@@ -211,7 +216,10 @@ def shard_list_iterator(
     """Parquet shard-list chain (reference dataset/dataset.py:51-122 +
     dataset/processor.py:29 parquet_opener): a text file with one shard path
     per line (parquet file or HF-dataset dir) -> epoch-seeded shuffle ->
-    two-level rank x worker modulo sharding -> open -> yield row dicts."""
+    two-level rank x worker modulo sharding -> open -> yield row dicts.
+    A parquet shard is read with `pyarrow.parquet` (ImportError where
+    pyarrow is absent, as on the GPU machine); a dataset directory with
+    utils/hf_dataset.py."""
     with open(list_file) as f:
         shards = [line.strip() for line in f if line.strip()]
     epoch = 0
@@ -231,10 +239,7 @@ def shard_list_iterator(
                 for i in range(table.num_rows):
                     yield {c: table.column(c)[i].as_py() for c in cols}
             else:
-                import datasets
-
-                ds = datasets.load_from_disk(shard)
-                for row in ds:
+                for row in hf_dataset.load_from_disk(shard):
                     yield row
         epoch += 1
 

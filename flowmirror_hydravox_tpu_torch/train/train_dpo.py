@@ -31,10 +31,9 @@ import logging
 import torch
 
 from ..config import HydraVoxConfig, tiny_config
-from ..device import resolve_device
 from ..params import flatten_params, init_llm_params, unflatten_params
 from . import checkpoint as ckpt
-from .cli import check_args, common_parser, load_weights, summary_writer
+from .cli import check_args, common_parser, load_weights, summary_writer, train_device
 from .data import DPOCollator, make_batch_source
 from .steps import OptimConfig, Optimizer, batch_to, dpo_train_step, init_state, train_loop
 
@@ -101,7 +100,7 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     from ..frontend.tokenizer import get_tokenizer
 
-    device = resolve_device(args.device)
+    device = train_device(args)
     full_cfg = tiny_config() if args.tiny else HydraVoxConfig()
     cfg = full_cfg.llm
     params = init_llm_params(cfg, torch.Generator(device=device).manual_seed(args.seed), device,

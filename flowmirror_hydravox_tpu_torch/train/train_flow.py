@@ -21,12 +21,11 @@ import numpy as np
 import torch
 
 from ..config import HydraVoxConfig, tiny_config
-from ..device import resolve_device
 from ..noise import TorchNoise
 from ..params import init_flow_params
 from ..utils import audio as audio_utils
 from . import checkpoint as ckpt
-from .cli import check_args, common_parser, load_weights, summary_writer
+from .cli import check_args, common_parser, load_weights, summary_writer, train_device
 from .data import FlowCollator, make_batch_source
 from .steps import OptimConfig, Optimizer, batch_to, flow_train_step, init_state, train_loop
 
@@ -67,7 +66,7 @@ def train(args, cfg, params, batches, on_step=None):
 def main(argv=None):
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    device = resolve_device(args.device)
+    device = train_device(args)
     full_cfg = tiny_config() if args.tiny else HydraVoxConfig()
     cfg, m = full_cfg.flow, full_cfg.mel
     params = init_flow_params(cfg, torch.Generator(device=device).manual_seed(args.seed),

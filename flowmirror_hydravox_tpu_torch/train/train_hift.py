@@ -34,12 +34,11 @@ import numpy as np
 import torch
 
 from ..config import HiFTConfig, HydraVoxConfig, MelConfig, tiny_config
-from ..device import resolve_device
 from ..noise import TorchNoise
 from ..params import init_disc_params, init_hift_params
 from ..utils import audio as audio_utils
 from . import checkpoint as ckpt
-from .cli import LATER_PARALLEL
+from .cli import LATER_PARALLEL, train_device
 from .gan import gan_train_step
 from .steps import OptimConfig, Optimizer, batch_to, init_state
 
@@ -177,7 +176,7 @@ def train(args, cfg: HiFTConfig, gen_params: dict, disc_params: dict, batch_iter
 def main(argv=None):
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    device = resolve_device(args.device)
+    device = train_device(args)
     full_cfg = tiny_config() if args.tiny else HydraVoxConfig()
     cfg = full_cfg.hift
     gen = torch.Generator(device=device).manual_seed(args.seed)

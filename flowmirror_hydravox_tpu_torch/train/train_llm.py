@@ -29,11 +29,10 @@ import numpy as np
 import torch
 
 from ..config import HydraVoxConfig, tiny_config
-from ..device import resolve_device
 from ..models import llm as llm_model
 from ..params import init_llm_params
 from . import checkpoint as ckpt
-from .cli import check_args, common_parser, load_weights, summary_writer
+from .cli import check_args, common_parser, load_weights, summary_writer, train_device
 from .data import LLMCollator, batch_iterator, make_batch_source
 from .steps import OptimConfig, Optimizer, batch_to, init_state, llm_train_step, train_loop
 
@@ -96,7 +95,7 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     from ..frontend.tokenizer import get_tokenizer
 
-    device = resolve_device(args.device)
+    device = train_device(args)
     full_cfg = tiny_config() if args.tiny else HydraVoxConfig()
     cfg = full_cfg.llm
     params = init_llm_params(cfg, torch.Generator(device=device).manual_seed(args.seed), device,

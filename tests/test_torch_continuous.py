@@ -360,13 +360,17 @@ def test_metrics_route(tiny):
 def test_launcher_batching_flags(monkeypatch, tiny, argv, slots):
     """The batching flags reach the service: the slots, their head count and
     the slots reserved for streams (default 1, as in the JAX launcher); the
-    launcher asks cuDNN for deterministic algorithms."""
+    launcher asks cuDNN for deterministic algorithms, and hands the server
+    one TrainingManager on its --device and --tiny."""
     reserve = 2 if "--continuous-reserve" in argv else 1
     seen = {}
     monkeypatch.setattr(launcher, "build", lambda args: tiny)
     monkeypatch.setattr(launcher, "serve", lambda *a, **kw: seen.update(kw))
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
     launcher.main(["--tiny", "--device", "cpu"] + argv)
+    training = seen.pop("training")
+    assert (type(training).__name__, training.device, training.tiny) == (
+        "TrainingManager", "cpu", True)
     assert seen == {"continuous_slots": slots, "continuous_head_num": 2,
                     "continuous_reserve_stream": reserve}
     assert torch.backends.cudnn.deterministic
