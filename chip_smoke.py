@@ -221,7 +221,7 @@ exits non-zero without either. Phases, each fatal on failure:
      its acc rise; the artifact written to chiprun_out/spec_readout.npz and
      loaded into a fresh seed-0 draw bit for bit. Then tools/bench_spec.py's
      measurement (heads 4 against heads 1, 125 tokens of a 63-token text,
-     4 reps after a warm-up) on the untrained and the trained tree: the
+     2 reps after a warm-up) on the untrained and the trained tree: the
      trained acceptance must beat the untrained; both kernels' launches
      (counts set to 0 before the decodes, read after) must equal the
      prediction (speculative and blind decodes each by their own count),
@@ -273,7 +273,36 @@ exits non-zero without either. Phases, each fatal on failure:
      rows written here, and one /api/v1/tts on it, launches held. Printed:
      seconds from start to completion, ms per step from the log (median of
      steps 3-12), the stop's seconds, the convert job's seconds;
-  6. the kernels line (launches: phases 5 to 5n; the int8 form's: 5i), the
+  5o. the data-preprocessing pipeline, through the port's HTTP server on the
+     main engine with a TrainingManager on cuda: a raw corpus of 8 seeded
+     synthetic clips (train/synth_speech.py, speakers 300-307, utterance ids
+     30000+, 4-12 s, 16 kHz WAV) in two sub-directories of chiprun_out/,
+     then POST /api/v1/data/run of stage 1 (to 24 kHz), stage 2 (the native
+     VAD; sidecar transcripts are then put beside the segments of 4 clips),
+     stage 3 (the native ASR, no filename fallback) and stage 4 once per
+     sub-directory, the two jobs at once, and stage 5 merging the two: each
+     job must complete with rc 0 and the logs of stages 1-4 must name the
+     cuda device (stage 1's may name ffmpeg instead, when the machine has
+     it). Then each stage again in this process with --device cpu on the
+     same inputs, against the route's output: stage 1 within 1 int16 step
+     (and stage 1's resampling on the card against the CPU, whatever
+     converted the route's); stage 2's VAD probabilities within
+     PRE_VAD_ATOL and the same segments, except in a clip with a frame
+     within PRE_VAD_ATOL of 0.5 (those frames counted); stage 3's rows
+     equal; stage 4's tokens under 5d's margin rule, the embedding within
+     5d's EMB_ATOL, the mel within 5d's MEL_ATOL in bins within 60 dB of
+     the clip's loudest and within PRE_MEL_QUIET_ATOL in all; stage 5's rows
+     and features equal. Stages 2-4
+     also run in this process on the card, timed. Then the shipped models'
+     quality bars on the card: eval_vad (2 clips, SNR 5 dB, 4 s) native F1
+     above 0.8 on white and hum and above energy + 0.2, above 0.85 clean;
+     NativeASR on 6 held-out clips, mean TER below 0.25. Last, a
+     route-started train_flow job on the merged dataset (full-width DiT,
+     B 2, 4 steps): completed, rc 0, 4 finite losses. 5o launches neither
+     kernel. Printed: seconds from start to completion per stage, audio
+     seconds per second of stages 2-4 in this process on the card and the
+     CPU, NativeASR's ms per clip, peak memory;
+  6. the kernels line (launches: phases 5 to 5o; the int8 form's: 5i), the
      card line, and the final JSON line.
 
 TF32 is off for matmuls and cuDNN convs throughout, so f32 is full f32 in
@@ -3314,7 +3343,8 @@ def drive_dpo(engine, frontend, da, mg, card):
 
 # phase 5l: the spec readout trained on the card, served through the spec decode
 READOUT_STEPS = 400  # the JAX tool's default recipe
-SPEC_BENCH = dict(heads=4, reps=4, n_tokens=125, text_len=63)  # bench_spec's defaults
+# bench_spec's defaults, but 2 reps of its 4: the whole run's time limit
+SPEC_BENCH = dict(heads=4, reps=2, n_tokens=125, text_len=63)
 
 
 def drive_spec_readout(engine, frontend, da, mg, flush):
@@ -3943,6 +3973,350 @@ def drive_training_routes(engine, frontend, da, mg, card):
     return rec, tuple(launched_all)
 
 
+# phase 5o: the data-preprocessing pipeline through the data route, its output
+# fed to a route-started trainer
+PRE_DEVICE = "cuda"  # the card: the route's jobs, the in-process card runs, the quality bars
+PRE_SEED = 43
+PRE_CLIPS = 8  # speakers 300-307, utterance ids 30000+: outside the ASR's training pool
+PRE_SECONDS = (4.0, 12.0)  # clip lengths, drawn from PRE_SEED
+PRE_SIDECAR = (0, 3, 5, 6)  # clips whose segments get a sidecar transcript; the rest: the ASR
+PRE_VAD_ATOL = 1e-4  # VAD probabilities (f32), card against the CPU
+# stage 4's log-mel, card (cuFFT) against the CPU: 5d's MEL_ATOL in the bins
+# within PRE_MEL_RANGE (ln 1000: 60 dB of magnitude) of the clip's loudest;
+# below that the log magnifies the FFTs' rounding (~1e-7 of the peak), and
+# every bin is held to PRE_MEL_QUIET_ATOL
+PRE_MEL_RANGE = float(np.log(1000.0))
+PRE_MEL_QUIET_ATOL = 1e-2
+PRE_JOB_LIMIT_S = 300  # a stage's job, start to completed
+PRE_FLOW = dict(batch_size=2, max_steps=4, logging_steps=1, warmup_steps=1, save_steps=4)
+PRE_VAD_EVAL = dict(n_clips=2, snr_db=5.0, seconds=4.0)  # tests/test_preprocess_depth.py:117-135
+PRE_ASR_CLIPS = 6  # tests/test_asr.py:117-130: mean TER below PRE_TER
+PRE_TER = 0.25
+
+
+def data_stage(url, reqs, what):
+    """POST /api/v1/data/run for each request at once, then poll every job
+    to its end: each must complete with rc 0. Returns (seconds from the
+    first start to the last completion, [each job's log])."""
+    t0, tids = time.time(), []
+    for req in reqs:
+        code, body = http_status(url, "/api/v1/data/run", req)
+        if code != 200:
+            fail(f"5o {what}: /api/v1/data/run {code} {body}")
+        tids.append(body["data"]["training_id"])
+    logs = []
+    for tid in tids:
+        status, log = poll_job(url, tid, lambda d, _: d["status"] != "running", f"5o {what}",
+                               PRE_JOB_LIMIT_S)
+        if status["status"] != "completed" or status["returncode"] != 0:
+            fail(f"5o {what}: the job ended {status['status']} rc {status['returncode']}:\n"
+                 f"{log[-3000:]}")
+        logs.append(log)
+    return time.time() - t0, logs
+
+
+def wav_tree(root: pathlib.Path) -> dict:
+    from flowmirror_hydravox_tpu_torch.utils.wavio import decode_wav
+
+    return {str(p.relative_to(root)): decode_wav(p.read_bytes())
+            for p in sorted(root.rglob("*.wav"))}
+
+
+def audio_seconds(tree: dict) -> float:
+    return sum(len(w) / sr for w, sr in tree.values())
+
+
+def same_wavs(a: dict, b: dict, what: str, steps: int = 1) -> float:
+    """Equal file lists and rates, samples within `steps` int16 steps;
+    returns the largest difference in steps."""
+    if list(a) != list(b):
+        fail(f"5o {what}: files {list(a)} against {list(b)}")
+    worst = 0.0
+    for k in a:
+        if a[k][1] != b[k][1] or a[k][0].shape != b[k][0].shape:
+            fail(f"5o {what}: {k} {a[k][0].shape} at {a[k][1]} Hz against "
+                 f"{b[k][0].shape} at {b[k][1]} Hz")
+        worst = max(worst, float(np.abs(a[k][0] - b[k][0]).max()) * 32768)
+    if worst > steps + 1e-6:
+        fail(f"5o {what}: {worst} int16 steps apart")
+    return worst
+
+
+def vad_card_cpu(s1: dict):
+    """The native VAD's probabilities on the card and on the CPU for each
+    stage-1 file: (largest difference, frames whose CPU probability lies
+    within PRE_VAD_ATOL of 0.5, {file: those frames})."""
+    from flowmirror_hydravox_tpu_torch.preprocess.vad_model import NativeVAD
+
+    card, cpu = NativeVAD(device=PRE_DEVICE), NativeVAD(device="cpu")
+    worst, near = 0.0, {}
+    for k, (wav, sr) in s1.items():
+        p_card, p_cpu = card(wav, sr), cpu(wav, sr)
+        worst = max(worst, float(np.abs(p_card - p_cpu).max()))
+        near[k] = np.flatnonzero(np.abs(p_cpu - 0.5) <= PRE_VAD_ATOL).tolist()
+    return worst, sum(len(v) for v in near.values()), near
+
+
+def token_flips(extractor, audio: dict, card: list, cpu: list) -> list:
+    """Positions where the card's tokens differ from the CPU's, each with the
+    CPU value's distance to its half-integer (5d's margin rule)."""
+    import torch
+
+    from flowmirror_hydravox_tpu_torch.frontend import speech_tokenizer as st
+    from flowmirror_hydravox_tpu_torch.utils.audio import resample_linear, whisper_log_mel
+
+    card, cpu = np.asarray(card), np.asarray(cpu)
+    if card.shape != cpu.shape:
+        fail(f"5o stage 4: {len(card)} tokens on the card, {len(cpu)} on the CPU")
+    diff = np.flatnonzero(card != cpu)
+    if not diff.size:
+        return []
+    wav = torch.tensor(audio["array"], dtype=torch.float32)[None]
+    wav16 = resample_linear(wav, audio["sampling_rate"], 16000)
+    wav16 = torch.nn.functional.pad(wav16, (0, -wav16.shape[-1] % 640))
+    with torch.inference_mode():
+        z = st.encode_fsq_values(extractor.tok_params, extractor.st_cfg, whisper_log_mel(wav16))
+        v = st.fsq_values(z, extractor.st_cfg.fsq_levels)[0].numpy()
+    dist = np.abs(np.abs(v - np.floor(v)) - 0.5)
+    return [dict(position=int(i), card=int(card[i]), cpu=int(cpu[i]),
+                 distance=float(dist[i].min())) for i in diff]
+
+
+def drive_preprocess(engine, frontend, da, mg, card):
+    """Phase 5o: the preprocessing pipeline on the card through the data
+    route, each stage against the CPU, the models' quality bars, and a
+    route-started flow trainer on the merged dataset (see the module
+    docstring). Returns (record, the phase's launches of both kernels)."""
+    import logging
+    import shutil
+    import tempfile
+
+    import torch
+
+    from flowmirror_hydravox_tpu_torch.preprocess import (extract_tokens, merge, resample,
+                                                          transcribe, vad)
+    from flowmirror_hydravox_tpu_torch.preprocess.asr_model import NativeASR, token_error_rate
+    from flowmirror_hydravox_tpu_torch.runtime.training_manager import TrainingManager
+    from flowmirror_hydravox_tpu_torch.runtime.training_plots import parse_training_logs
+    from flowmirror_hydravox_tpu_torch.tools import eval_vad
+    from flowmirror_hydravox_tpu_torch.train.synth_speech import synth_utterance_with_segments
+    from flowmirror_hydravox_tpu_torch.utils import hf_dataset
+    from flowmirror_hydravox_tpu_torch.utils.wavio import encode_wav
+
+    root_log = logging.getLogger()  # the stages' own INFO lines, in this process: not printed
+    saved_level = root_log.level
+    if not root_log.handlers:
+        logging.basicConfig(level=logging.WARNING)
+    root_log.setLevel(logging.WARNING)
+    dev = torch.device(PRE_DEVICE)
+    da.launch_count = mg.launch_count = 0
+    rec = {"card": card}
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="hydravox_pre_"))
+    raw = ROOT / "chiprun_out" / "preprocess_raw"
+    shutil.rmtree(raw, ignore_errors=True)
+    rng = np.random.default_rng(PRE_SEED)
+    for i in range(PRE_CLIPS):
+        sub = raw / ("a" if i < PRE_CLIPS // 2 else "b")
+        sub.mkdir(parents=True, exist_ok=True)
+        wav, _ = synth_utterance_with_segments(300 + i, 30_000 + i,
+                                               float(rng.uniform(*PRE_SECONDS)), seed=1)
+        (sub / f"clip{i}.wav").write_bytes(encode_wav(wav, 16000))
+    raw_tree = wav_tree(raw)
+    rec["corpus"] = dict(clips=len(raw_tree), audio_s=audio_seconds(raw_tree))
+    d = {k: tmp / k for k in ("s1", "s2", "s3a", "s3b", "s4a", "s4b", "merged", "cpu", "card")}
+    manager = TrainingManager(device=PRE_DEVICE)
+    servers = start_servers(engine, frontend, window={"training": manager})
+    url = servers["window"][2]
+    stage_s = {}
+    try:
+        # 5o.1: the five stages through /api/v1/data/run, the jobs on the card
+        stage_s["1"], (log1,) = data_stage(url, [{"stage": "1", "input_dir": str(raw),
+                                                  "output_dir": str(d["s1"]),
+                                                  "sample_rate": 24000}], "stage 1")
+        ffmpeg = "resampling" not in log1
+        if not (ffmpeg and f"ffmpeg converted {PRE_CLIPS}/{PRE_CLIPS}" in log1) and \
+                f"resampling {PRE_CLIPS} files on device {PRE_DEVICE}" not in log1:
+            fail(f"5o stage 1: the log names no resampling on {PRE_DEVICE}:\n{log1[-2000:]}")
+        stage_s["2"], (log2,) = data_stage(url, [{"stage": "2", "input_dir": str(d["s1"]),
+                                                  "output_dir": str(d["s2"]),
+                                                  "vad_model": "native"}], "stage 2")
+        s2_tree = wav_tree(d["s2"])
+        sidecars = 0
+        for k in s2_tree:
+            if int(pathlib.Path(k).stem.split("_")[0][4:]) in PRE_SIDECAR:
+                (d["s2"] / k).with_suffix(".txt").write_text(f"sidecar transcript of {k}")
+                sidecars += 1
+        stage_s["3"], logs3 = data_stage(url, [
+            {"stage": "3", "input_dir": str(d["s2"] / sub), "output_dir": str(d[f"s3{sub}"]),
+             "asr_module": "native", "no_filename_fallback": True} for sub in "ab"], "stage 3")
+        stage_s["4"], logs4 = data_stage(url, [
+            {"stage": "4", "input_dir": str(d[f"s3{sub}"]), "output_dir": str(d[f"s4{sub}"])}
+            for sub in "ab"], "stage 4")
+        stage_s["5"], _ = data_stage(url, [{"stage": "5",
+                                            "input_dir": f"{d['s4a']},{d['s4b']}",
+                                            "output_dir": str(d["merged"])}], "stage 5")
+        for what, log, line in (("stage 2", log2, "native VAD on device"),
+                                *((f"stage 3{s}", l, "native ASR on device")
+                                  for s, l in zip("ab", logs3)),
+                                *((f"stage 4{s}", l, "rows on device")
+                                  for s, l in zip("ab", logs4))):
+            if f"{line} {PRE_DEVICE}" not in log:
+                fail(f"5o {what}: the log does not name the {PRE_DEVICE} device:\n{log[-2000:]}")
+        rec["stages"] = dict(seconds=stage_s, stage1_ffmpeg=ffmpeg, sidecars=sidecars,
+                             segments=len(s2_tree))
+        print("5o stages", json.dumps(rec["stages"]), flush=True)
+
+        # 5o.2: each stage again in this process, on the CPU and on the card
+        s1_tree = wav_tree(d["s1"])
+        cmp = {}
+        resample.main(["--input_dir", str(raw), "--output_dir", str(d["cpu"] / "s1"),
+                       "--device", "cpu"])
+        cmp["stage1_steps"] = same_wavs(s1_tree, wav_tree(d["cpu"] / "s1"), "stage 1")
+        for k in raw_tree:  # the card's resampling itself, whatever converted stage 1
+            for dv, out in ((PRE_DEVICE, d["card"]), ("cpu", d["cpu"])):
+                resample.resample_wav(str(raw / k), str(out / "r1" / k), 24000, torch.device(dv))
+        cmp["resample_steps"] = same_wavs(wav_tree(d["card"] / "r1"), wav_tree(d["cpu"] / "r1"),
+                                          "stage 1 resampling")
+        timed = {}
+        torch.cuda.reset_peak_memory_stats(dev)
+        for where, dv in (("card", PRE_DEVICE), ("cpu", "cpu")):
+            out = d[where]
+            t0 = time.time()
+            vad.main(["--input_dir", str(d["s1"]), "--output_dir", str(out / "s2"),
+                      "--model", "native", "--device", dv])
+            timed[f"stage2_{where}_s"] = time.time() - t0
+            t0 = time.time()
+            for sub in "ab":
+                transcribe.main(["--input_dir", str(d["s2"] / sub), "--output_dir",
+                                 str(out / f"s3{sub}"), "--asr_module", "native",
+                                 "--no_filename_fallback", "--device", dv])
+            timed[f"stage3_{where}_s"] = time.time() - t0
+            t0 = time.time()
+            for sub in "ab":
+                extract_tokens.main(["--input_dir", str(d[f"s3{sub}"]), "--output_dir",
+                                     str(out / f"s4{sub}"), "--device", dv])
+            timed[f"stage4_{where}_s"] = time.time() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        merge.main(["--input_dir", f"{d['s4a']},{d['s4b']}", "--output_dir",
+                    str(d["cpu"] / "merged")])
+
+        # stage 2: the same segments, unless a frame lies on the threshold
+        vad_err, near, near_at = vad_card_cpu(s1_tree)
+        s2_cpu = wav_tree(d["cpu"] / "s2")
+        if vad_err > PRE_VAD_ATOL:
+            fail(f"5o stage 2: VAD probabilities {vad_err} apart, card against CPU")
+        differing = {pathlib.Path(k).stem.rsplit("_", 1)[0]
+                     for k in set(s2_cpu) | set(s2_tree)
+                     if k not in s2_cpu or k not in s2_tree
+                     or not np.array_equal(s2_cpu[k][0], s2_tree[k][0])}
+        if not all(near_at[k] for k in s1_tree if pathlib.Path(k).stem in differing):
+            fail(f"5o stage 2: segments differ on the card in {sorted(differing)} with no "
+                 f"frame within {PRE_VAD_ATOL} of 0.5")
+        cmp.update(vad_max_abs_err=vad_err, vad_frames_near_half=near,
+                   stage2_differing_clips=sorted(differing))
+        # stage 3: the same texts and audio
+        audio_s = {"stage2": audio_seconds(s1_tree), "stage3": audio_seconds(s2_tree),
+                   "stage4": 0.0}
+        for sub in "ab":
+            route = hf_dataset.load_from_disk(str(d[f"s3{sub}"]))
+            audio_s["stage4"] += sum(len(r["audio"]["array"]) / r["audio"]["sampling_rate"]
+                                     for r in route)
+            cpu = hf_dataset.load_from_disk(str(d["cpu"] / f"s3{sub}"))
+            if list(route) != list(cpu):
+                fail(f"5o stage 3{sub}: rows differ, card {route['text']} CPU {cpu['text']}")
+        # stage 4: tokens under 5d's margin rule, mel and embedding within 5d's tolerances
+        cpu_extractor = extract_tokens.Extractor(device="cpu")
+        flips, mel_err, mel_quiet_err, emb_err, rows4 = [], 0.0, 0.0, 0.0, 0
+        for sub in "ab":
+            route = hf_dataset.load_from_disk(str(d[f"s4{sub}"]))
+            cpu = hf_dataset.load_from_disk(str(d["cpu"] / f"s4{sub}"))
+            if len(route) != len(cpu) or route.features != cpu.features:
+                fail(f"5o stage 4{sub}: {len(route)} rows on the card, {len(cpu)} on the CPU")
+            for r_card, r_cpu in zip(route, cpu):
+                rows4 += 1
+                flips += token_flips(cpu_extractor, r_cpu["audio"], r_card["speech_token"],
+                                     r_cpu["speech_token"])
+                mel_cpu = np.asarray(r_cpu["mel"])
+                err = np.abs(np.asarray(r_card["mel"]) - mel_cpu)
+                loud = mel_cpu >= mel_cpu.max() - PRE_MEL_RANGE
+                mel_err = max(mel_err, float(err[loud].max()))
+                mel_quiet_err = max(mel_quiet_err, float(err.max()))
+                emb_err = max(emb_err, float(np.abs(np.asarray(r_card["embedding"])
+                                                    - np.asarray(r_cpu["embedding"])).max()))
+        if any(f["distance"] > FLIP_DISTANCE for f in flips) or mel_err > MEL_ATOL or \
+                mel_quiet_err > PRE_MEL_QUIET_ATOL or emb_err > EMB_ATOL:
+            fail(f"5o stage 4: the card disagrees with the CPU: flips {flips}, mel {mel_err} "
+                 f"(all bins {mel_quiet_err}), embedding {emb_err}")
+        # stage 5: the same rows in the same order, the same features
+        merged = hf_dataset.load_from_disk(str(d["merged"]))
+        merged_cpu = hf_dataset.load_from_disk(str(d["cpu"] / "merged"))
+        if len(merged) != rows4 or merged["text"] != merged_cpu["text"] or \
+                merged.features != merged_cpu.features:
+            fail(f"5o stage 5: {len(merged)} rows, {rows4} from stage 4; texts "
+                 f"{merged['text']} against {merged_cpu['text']}")
+        cmp.update(token_flips=flips, mel_max_abs_err=mel_err,
+                   mel_max_abs_err_all_bins=mel_quiet_err, emb_max_abs_err=emb_err, rows=rows4)
+        rec["card_vs_cpu"] = cmp
+        print("5o card vs CPU", json.dumps(cmp), flush=True)
+        rec["in_process"] = dict(
+            audio_s=audio_s, peak_gb=peak / 1e9, **timed,
+            **{f"{st}_{where}_audio_s_per_s": audio_s[st] / timed[f"{st}_{where}_s"]
+               for st in ("stage2", "stage3", "stage4") for where in ("card", "cpu")})
+        print("5o in-process", json.dumps(rec["in_process"]), flush=True)
+
+        # 5o.3: the shipped models' quality bars, on the card
+        vad_f1 = eval_vad.evaluate(**PRE_VAD_EVAL, device=PRE_DEVICE)
+        f1 = {cond: {det: v[2] for det, v in dets.items()} for cond, dets in vad_f1.items()}
+        if not (all(f1[c]["native"] > 0.8 and f1[c]["native"] > f1[c]["energy"] + 0.2
+                    for c in ("white", "hum")) and f1["clean"]["native"] > 0.85):
+            fail(f"5o: VAD F1 below the bars: {f1}")
+        asr = NativeASR(device=PRE_DEVICE)
+        asr(synth_utterance_with_segments(299, 9_999, 4.0, seed=1)[0], 16000)  # first use
+        ters, asr_s = [], 0.0
+        for c in range(PRE_ASR_CLIPS):
+            wav, segs = synth_utterance_with_segments(300 + c, 10_000 + c, 4.0, seed=1)
+            t0 = time.time()
+            hyp = asr(wav, 16000)
+            asr_s += time.time() - t0
+            ters.append(token_error_rate(segs, list(hyp)))
+        if not float(np.mean(ters)) < PRE_TER:
+            fail(f"5o: NativeASR's TER {ters} on the card, mean not below {PRE_TER}")
+        rec["quality"] = dict(vad_f1=f1, asr_ters=ters, asr_mean_ter=float(np.mean(ters)),
+                              asr_ms_per_clip=asr_s / PRE_ASR_CLIPS * 1e3)
+        print("5o quality", json.dumps(rec["quality"]), flush=True)
+
+        # 5o.4: a route-started flow trainer on the merged dataset
+        t0 = time.time()
+        code, body = http_status(url, "/api/v1/training/start", {
+            "model_type": "flow", "train_data": str(d["merged"]),
+            "output_dir": str(tmp / "flow"), **PRE_FLOW})
+        if code != 200:
+            fail(f"5o: /api/v1/training/start {code} {body}")
+        status, log = poll_job(url, body["data"]["training_id"],
+                               lambda s, _: s["status"] != "running", "5o train_flow",
+                               PRE_JOB_LIMIT_S)
+        if status["status"] != "completed" or status["returncode"] != 0 or \
+                f"training on device {PRE_DEVICE}" not in log:
+            fail(f"5o: train_flow ended {status['status']} rc {status['returncode']}:\n"
+                 f"{log[-3000:]}")
+        points = parse_training_logs(log)
+        if points["steps"] != list(range(1, PRE_FLOW["max_steps"] + 1)) or \
+                not np.isfinite(points["losses"]).all():
+            fail(f"5o: train_flow's step losses {points['steps']} {points['losses']}")
+        rec["train_flow"] = dict(start_to_completed_s=time.time() - t0, losses=points["losses"],
+                                 rows=len(merged))
+        print("5o train_flow", json.dumps(rec["train_flow"]), flush=True)
+    finally:
+        manager.stop_all()
+        stop_servers(servers)
+        shutil.rmtree(tmp, ignore_errors=True)
+        root_log.setLevel(saved_level)
+    launched = (da.launch_count, mg.launch_count)
+    if launched != (0, 0):
+        fail(f"5o launched the kernels {launched} times; nothing on its path runs them")
+    return rec, launched
+
+
 def main():
     t_start = time.time()
     if not (ROOT / "flowmirror_hydravox_tpu_torch" / "csrc").is_dir():
@@ -4066,12 +4440,13 @@ def main():
     phase_s["5l kernels"] = time.time() - t0
     gan, gan_launched = phase("5m", drive_gan, engine, frontend, da, mg, card)
     routes, routes_launched = phase("5n", drive_training_routes, engine, frontend, da, mg, card)
+    preprocess, pre_launched = phase("5o", drive_preprocess, engine, frontend, da, mg, card)
     phase_s["all"] = time.time() - t_start
     print("phase seconds", json.dumps({k: round(v, 1) for k, v in phase_s.items()}), flush=True)
     attention_launches, mlp_launches = (sum(x) for x in zip(
         launches, more, streamed, zs_launched, pt_launched, zsb_launched, solo_launched,
         spec_launched, int8_launched[:2], train_launched, readout_launched, gan_launched,
-        routes_launched))
+        routes_launched, pre_launched))
     del flush
 
     # the kernels line: each kernel at its serving shape (bf16; decode
@@ -4136,7 +4511,8 @@ def main():
          "serving": serving, "streaming": streaming, "zero_shot": zero_shot,
          "pt_weights": pt_weights, "zero_shot_batched": zs_batched, "solo_route": solo_rule,
          "spec_decode": spec, "int8": int8, "training": training, "dpo": dpo,
-         "spec_readout": readout, "gan": gan, "training_routes": routes, "phase_s": phase_s,
+         "spec_readout": readout, "gan": gan, "training_routes": routes,
+         "preprocess": preprocess, "phase_s": phase_s,
          **kernels},
         indent=1))
     print(json.dumps(kernels), flush=True)

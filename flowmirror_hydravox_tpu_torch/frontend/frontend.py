@@ -80,6 +80,26 @@ def load_extractor_cfg(npz_path: str, name: str):
     return st.SpeakerEncoderConfig(**d)
 
 
+def load_extractor(name: str, device, path: Optional[str] = None):
+    """(config, f32 tree on `device`) of the `name` extractor ("tokenizer" or
+    "speaker") from `path`, else HYDRAVOX_<NAME>_NPZ, else the committed
+    checkpoint; the config is the `.json` sidecar beside the file, else the
+    default. Raises when no weights resolve or the file lacks a leaf."""
+    if path is None:
+        env_path = os.environ.get(f"HYDRAVOX_{name.upper()}_NPZ")
+        path = (env_path if env_path and os.path.exists(env_path)
+                else os.path.join(ASSET_DIR, f"{name}.npz"))
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no {name} extractor weights at {path}")
+    cfg = load_extractor_cfg(path, name) or (
+        st.SpeechTokenizerConfig() if name == "tokenizer" else st.SpeakerEncoderConfig())
+    tree = load_params_npz(path, device, torch.float32)
+    missing = st.expected_keys(cfg) - set(flatten_params(tree))
+    if missing:
+        raise KeyError(f"{path} lacks {sorted(missing)}")
+    return cfg, tree
+
+
 class Frontend:
     def __init__(self, cfg: HydraVoxConfig, tokenizer=None, tokenizer_params=None,
                  speaker_params=None, device="cuda"):
@@ -100,22 +120,11 @@ class Frontend:
         from the sidecar. Raises when no weights resolve."""
         if explicit is not None:
             return from_numpy_tree(explicit, self.device, torch.float32)
-        env_path = os.environ.get(f"HYDRAVOX_{name.upper()}_NPZ")
-        path = (env_path if env_path and os.path.exists(env_path)
-                else os.path.join(ASSET_DIR, f"{name}.npz"))
-        if not os.path.exists(path):
-            raise FileNotFoundError(f"no {name} extractor weights at {path}")
-        loaded = load_extractor_cfg(path, name)
-        if loaded is not None:
-            if name == "tokenizer":
-                self.st_cfg = loaded
-            else:
-                self.spk_cfg = loaded
-        tree = load_params_npz(path, self.device, torch.float32)
-        cfg = self.st_cfg if name == "tokenizer" else self.spk_cfg
-        missing = st.expected_keys(cfg) - set(flatten_params(tree))
-        if missing:
-            raise KeyError(f"{path} lacks {sorted(missing)}")
+        cfg, tree = load_extractor(name, self.device)
+        if name == "tokenizer":
+            self.st_cfg = cfg
+        else:
+            self.spk_cfg = cfg
         return tree
 
     # -- text ---------------------------------------------------------------

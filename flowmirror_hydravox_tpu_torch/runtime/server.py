@@ -1,6 +1,5 @@
 """HTTP serving layer, a port of flowmirror_hydravox_tpu/runtime/server.py
-(every route but /api/v1/data/run, which waits for the preprocessing
-modules), with the reference's REST schema (server/router.py):
+(every route), with the reference's REST schema (server/router.py):
 
   GET  /health            -> {"status": "ok"}
   GET  /api/v1/speakers   -> {success, message, data: {speakers}, error}
@@ -46,8 +45,12 @@ modules), with the reference's REST schema (server/router.py):
   POST /api/v1/models/convert {action import|average|graft-mtp, model, src |
                            inputs, dst, tiny} -> a job in the training
                            registry; 400 on a bad request
+  POST /api/v1/data/run   {stage 1-5, input_dir, output_dir, ...} -> a
+                           preprocessing stage as a job in the training
+                           registry, {..., data: {training_id, log_path}};
+                           400 for another stage or without the directories
 
-The training and convert jobs are subprocesses of the server's
+The training, convert and data-stage jobs are subprocesses of the server's
 `TrainingManager` (runtime/training_manager.py), which the launcher builds
 for its --device and --tiny.
 
@@ -814,6 +817,8 @@ class _Handler(BaseHTTPRequestHandler):
                 self._handle_delete_model(body)
             elif self.path == "/api/v1/models/convert":
                 self._send_job(models_admin.convert_model(body, self.training), "convert started")
+            elif self.path == "/api/v1/data/run":
+                self._send_job(self.training.start_data_stage(body), "stage started")
             elif self.path == "/api/v1/training/start":
                 self._send_job(self.training.start_training(body), "training started")
             elif self.path.startswith("/api/v1/training/stop/"):

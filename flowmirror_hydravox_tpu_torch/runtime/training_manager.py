@@ -6,7 +6,11 @@ Spawns a trainer as a subprocess in a process group of its own
 (`python -m flowmirror_hydravox_tpu_torch.train.<train_llm|train_flow|
 train_hift|train_dpo>`), with one log file per job, tracks its status,
 tails its log incrementally, and stops it with SIGTERM, then SIGKILL after
-a grace period. One training runs at a time (reference behaviour).
+a grace period. One training runs at a time (reference behaviour). The
+preprocessing stages (`start_data_stage`, `python -m
+flowmirror_hydravox_tpu_torch.preprocess.<resample|vad|transcribe|
+extract_tokens|merge>`) are jobs of the same registry, labelled
+`data_stage<N>`, and do not count as the running training.
 
 The request schema and the trainer flags are JAX's (`build_command`). The
 manager adds two flags of its own to every trainer: `--device <device>`,
@@ -17,9 +21,9 @@ flag in a request (`tensor_parallel`, `shard_optimizer`,
 trainers refuse it with exit 2 (train/cli.py), so the job ends `failed`
 with returncode 2.
 
-Not here: the preprocessing stages (`build_data_command`,
-`start_data_stage`, the `/api/v1/data/run` route), which wait for the
-port's preprocess/ modules.
+The data stages take JAX's request schema and flags (`build_data_command`),
+and stages 1-4 also `--device <device>`, so their models and resampling run
+on the server's device; stage 5 runs on the host.
 """
 
 from __future__ import annotations
@@ -99,6 +103,60 @@ class TrainingManager:
         if self.tiny:
             cmd.append("--tiny")
         return cmd
+
+    def build_data_command(self, req: dict) -> List[str]:
+        """A data-pipeline stage's CLI (JAX training_manager.py:79-127; the
+        reference data_tab.py one-click pipeline): stage 1 resample, 2 vad,
+        3 transcribe, 4 extract, 5 merge. Raises KeyError without input_dir
+        or output_dir and ValueError on another stage."""
+        stage = str(req.get("stage"))
+        base = [sys.executable, "-m"]
+        device = ["--device", self.device]
+        if stage == "1":
+            return base + [f"{PACKAGE}.preprocess.resample",
+                           "--input_dir", req["input_dir"], "--output_dir", req["output_dir"],
+                           "--sample_rate", str(req.get("sample_rate", 24000))] + device
+        if stage == "2":
+            cmd = base + [f"{PACKAGE}.preprocess.vad",
+                          "--input_dir", req["input_dir"], "--output_dir", req["output_dir"]]
+            for key, flag in (("min_dur", "--min_dur"), ("max_dur", "--max_dur"),
+                              ("min_gap", "--min_gap"), ("vad_model", "--model")):
+                if req.get(key) is not None:
+                    cmd += [flag, str(req[key])]
+            return cmd + device
+        if stage == "3":
+            cmd = base + [f"{PACKAGE}.preprocess.transcribe",
+                          "--input_dir", req["input_dir"], "--output_dir", req["output_dir"]]
+            if req.get("transcript_file"):
+                cmd += ["--transcript_file", req["transcript_file"]]
+            if req.get("asr_module"):
+                cmd += ["--asr_module", req["asr_module"]]
+            for key, flag in (("num_workers", "--num_workers"), ("min_sec", "--min_sec")):
+                if req.get(key) is not None:
+                    cmd += [flag, str(req[key])]
+            if req.get("normalize_loudness"):
+                cmd.append("--normalize_loudness")
+            if req.get("no_filename_fallback"):
+                cmd.append("--no_filename_fallback")
+            return cmd + device
+        if stage == "4":
+            return base + [f"{PACKAGE}.preprocess.extract_tokens",
+                           "--input_dir", req["input_dir"],
+                           "--output_dir", req["output_dir"]] + device
+        if stage == "5":
+            return base + [f"{PACKAGE}.preprocess.merge",
+                           "--input_dir", req["input_dir"], "--output_dir", req["output_dir"]]
+        raise ValueError(f"unknown stage {stage}")
+
+    def start_data_stage(self, req: dict) -> dict:
+        """A preprocessing stage as a job of the registry (JAX :129-136), its
+        log `<output_dir>/data_stage<N>_<id>.log`; a request without its
+        directories or of another stage fails."""
+        try:
+            cmd = self.build_data_command(req)
+        except (KeyError, ValueError) as e:
+            return {"success": False, "error": str(e)}
+        return self._spawn(cmd, req.get("output_dir", "data_out"), f"data_stage{req.get('stage')}")
 
     def _spawn(self, cmd: List[str], output_dir: str, label: str) -> dict:
         """Start `cmd` in a new session (its own process group), its output

@@ -119,6 +119,8 @@ def stft_magnitude(y: torch.Tensor, n_fft: int, hop: int, win_size: int,
     """|STFT| of (..., T) -> (..., n_freqs, n_frames). Assumes pre-padded
     input, center=False."""
     frames = frame_signal(y, win_size, hop) * window
+    if frames.shape[-2] == 0:  # a clip shorter than one window (MKL's FFT refuses no rows)
+        return frames.new_zeros(*frames.shape[:-2], n_fft // 2 + 1, 0)
     spec = torch.fft.rfft(frames, n=n_fft, dim=-1)  # zero-pads win_size < n_fft
     mag = torch.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-9)
     return mag.transpose(-1, -2)

@@ -15,9 +15,13 @@ library (which, with `pyarrow`, the GPU machine does not have).
 and `DatasetDict.save_to_disk` a `dataset_dict.json` ({"splits": [...]})
 beside one such directory per split. `load_from_disk` reads both layouts
 into a `Dataset` (rows as `datasets` gives them: dicts of Python values) or a
-`DatasetDict`; `save_to_disk` writes what `datasets.load_from_disk` reads
-back unchanged. The flatbuffer tables are those of Arrow's `Message.fbs`
-and `Schema.fbs` (metadata version V5).
+`DatasetDict`, going by `state.json` and `dataset_dict.json` alone, so other
+files in the directory (a job's log, `corpus_stats.json`) are ignored;
+`save_to_disk` and `save_dataset_dict_json` write both, and what they write
+`datasets.load_from_disk` reads back unchanged. `concatenate_datasets`
+chains datasets row for row, as the library's does along axis 0. The
+flatbuffer tables are those of Arrow's `Message.fbs` and `Schema.fbs`
+(metadata version V5).
 
 Types: signed and unsigned ints, float16/32/64, bool, utf8 and large_utf8,
 binary and large_binary, null, list and large_list (nested to any depth)
@@ -473,6 +477,11 @@ class Dataset:
     def column_names(self) -> List[str]:
         return [name for name, _ in self._fields]
 
+    @property
+    def features(self) -> dict:
+        """The columns' `datasets` features (the dataset_info.json form)."""
+        return {name: type_to_features(t) for name, t in self._fields}
+
     def __len__(self) -> int:
         return int(self._starts[-1]) if self._indices is None else len(self._indices)
 
@@ -531,6 +540,42 @@ class DatasetDict(dict):
     @property
     def column_names(self) -> Dict[str, List[str]]:
         return {k: v.column_names for k, v in self.items()}
+
+
+def concatenate_datasets(parts: List[Dataset]) -> Dataset:
+    """The rows of `parts`, one part after the other
+    (`datasets.concatenate_datasets` along axis 0). Columns keep the first
+    part's order, those that only later parts have follow, and a part
+    without a column gives None there. A column whose type differs between
+    two parts (neither null) raises ValueError naming it, as the library
+    does."""
+    if not parts:
+        raise ValueError("concatenate_datasets needs at least one dataset")
+    types: Dict[str, ArrowType] = {}
+    for part in parts:
+        if not isinstance(part, Dataset):
+            raise ValueError(f"can only concatenate Datasets, not a {type(part).__name__}")
+        for name, t in part._fields:
+            have = types.get(name)
+            if have is None or have.kind == "null":
+                types[name] = t
+            elif t != have and t.kind != "null":
+                raise ValueError(f"The features can't be aligned because the key {name} has type "
+                                 f"{type_to_features(t)} in one dataset and "
+                                 f"{type_to_features(have)} in another")
+    fields = list(types.items())
+    batches, indices, start, direct = [], [], 0, True
+    for part in parts:
+        cols_of = dict(zip(part.column_names, range(len(part._fields))))
+        for length, cols in part._batches:
+            batches.append((length, [cols[cols_of[name]] if name in cols_of
+                                     else _Column(ArrowType("null"), length)
+                                     for name, _ in fields]))
+        n_rows = int(part._starts[-1])
+        direct = direct and part._indices is None
+        indices.append(start + (np.arange(n_rows) if part._indices is None else part._indices))
+        start += n_rows
+    return Dataset(fields, batches, None if direct else np.concatenate(indices))
 
 
 def load_from_disk(path: str):
@@ -684,6 +729,20 @@ class _BodyWriter:
         self.column(item, [x for v in lists for x in v])
 
 
+def _column_names(rows: List[dict]) -> List[str]:
+    names: List[str] = []
+    for row in rows:
+        names += [k for k in row if k not in names]
+    return names
+
+
+def infer_features(rows: List[dict]) -> dict:
+    """The features (dataset_info.json form) that `save_to_disk` infers for
+    these rows' columns, as `datasets` infers them from the same values."""
+    return {name: type_to_features(_unify_all(_infer(row.get(name)) for row in rows))
+            for name in _column_names(rows)}
+
+
 def _rows_of(data) -> List[dict]:
     if isinstance(data, dict):
         names = list(data)
@@ -692,25 +751,32 @@ def _rows_of(data) -> List[dict]:
     return list(data)
 
 
+def save_dataset_dict_json(path: str, splits: List[str]):
+    """`path/dataset_dict.json`, which makes the split directories under
+    `path` (each written by `save_to_disk`) one saved DatasetDict."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "dataset_dict.json"), "w") as f:
+        json.dump({"splits": splits}, f)
+
+
 def save_to_disk(data, path: str, features: Optional[dict] = None, num_shards: int = 1,
                  writer_batch_size: int = 1000):
-    """Write `data` (a list of row dicts, or a dict of equal-length columns)
-    to `path` as `datasets.Dataset.save_to_disk` does: `num_shards`
-    contiguous shards of `writer_batch_size`-row record batches. Column
-    types follow `features` (the dataset_info.json form) where given, else
-    what pyarrow infers from the values: Python int/float/str/bytes/bool as
-    int64/float64/string/binary/bool, numpy scalars and arrays at their
-    dtype, lists as list, dicts as struct, None as null."""
+    """Write `data` (a list of row dicts, a dict of equal-length columns, or
+    a `Dataset`) to `path` as `datasets.Dataset.save_to_disk` does:
+    `num_shards` contiguous shards of `writer_batch_size`-row record
+    batches. Column types follow `features` (the dataset_info.json form)
+    where given, then a `Dataset`'s own, else what pyarrow infers from the
+    values: Python int/float/str/bytes/bool as int64/float64/string/binary/
+    bool, numpy scalars and arrays at their dtype, lists as list, dicts as
+    struct, None as null. A DatasetDict is each split saved under `path`
+    by this function, then `save_dataset_dict_json(path, splits)`."""
+    if isinstance(data, Dataset):
+        features = {**data.features, **(features or {})}
     rows = _rows_of(data)
-    names = list(features or {})
-    for row in rows:
-        names += [k for k in row if k not in names]
-    types = []
-    for name in names:
-        if features and name in features:
-            types.append(features_to_type(features[name]))
-        else:
-            types.append(_unify_all(_infer(row.get(name)) for row in rows))
+    features = features or {}
+    names = list(features) + [k for k in _column_names(rows) if k not in features]
+    types = [features_to_type(features[name]) if name in features
+             else _unify_all(_infer(row.get(name)) for row in rows) for name in names]
     feats = {name: type_to_features(t) for name, t in zip(names, types)}
     schema = _T((1, "tables", [_field_table(n, t) for n, t in zip(names, types)]),
                 (2, "tables", [_T((0, "str", "huggingface"),

@@ -1,8 +1,8 @@
-"""The port stands alone: nothing under flowmirror_hydravox_tpu_torch/ and
-nothing in chip_smoke.py imports jax or the JAX package, nor a library the
-GPU machine lacks (`datasets`, `matplotlib`, `safetensors`; `pyarrow` only
-in `shard_list_iterator`'s parquet branch, where its ImportError is the
-refusal)."""
+"""The port stands alone: nothing under flowmirror_hydravox_tpu_torch/ (its
+preprocess/ stages among them) and nothing in chip_smoke.py imports jax or
+the JAX package, nor a library the GPU machine lacks (`datasets`,
+`matplotlib`, `safetensors`; `pyarrow` only in `shard_list_iterator`'s
+parquet branch, where its ImportError is the refusal)."""
 
 import ast
 import pathlib
@@ -65,8 +65,11 @@ def test_package_imports_with_jax_blocked():
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "for name in ('server', 'continuous', 'profiling', 'streaming'):\n"
-        "    assert 'flowmirror_hydravox_tpu_torch.runtime.' + name in mods, name\n"
+        "for name in ('runtime.server', 'runtime.continuous', 'runtime.profiling',\n"
+        "             'runtime.streaming', 'preprocess.resample', 'preprocess.vad',\n"
+        "             'preprocess.vad_model', 'preprocess.asr_model', 'preprocess.transcribe',\n"
+        "             'preprocess.extract_tokens', 'preprocess.merge'):\n"
+        "    assert 'flowmirror_hydravox_tpu_torch.' + name in mods, name\n"
         "print(len(mods))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

@@ -12,8 +12,9 @@ package's, on the CPU:
   990 x 550 PNG whose points are the JAX parser's; a job stopped at step 2
   ends `stopped` with its process group gone; a `tensor_parallel` job ends
   `failed` with rc 2 (the trainer refuses it), and its plot, once its log
-  is gone, is 500; unknown ids are 404, and so
-  is /api/v1/data/run until the preprocessing modules are ported; then
+  is gone, is 500; unknown ids are 404, and
+  /api/v1/data/run without its directories is 400 (a stage runs in
+  tests/test_torch_preprocess_data.py); then
   /api/v1/models/{list,convert,delete} under TTS_MODEL_ROOT. Three trainer
   subprocesses, one of which exits at its argument parsing;
 - `models_admin` list / delete / the containment guard equal JAX's on the
@@ -189,9 +190,9 @@ def test_training_and_model_routes(tmp_path, monkeypatch):
 
         for path, method_body in (("/api/v1/training/status/nope", None),
                                   ("/api/v1/training/plot/nope", None),
-                                  ("/api/v1/training/stop/nope", {}),
-                                  ("/api/v1/data/run", {"stage": "1"})):  # not ported yet
+                                  ("/api/v1/training/stop/nope", {})):
             assert _call(base, path, method_body)[0] == 404, path
+        assert _call(base, "/api/v1/data/run", {"stage": "1"})[0] == 400  # no directories
 
         # the model routes under TTS_MODEL_ROOT
         code, body = _json(base, "/api/v1/models/list")
