@@ -301,8 +301,46 @@ exits non-zero without either. Phases, each fatal on failure:
      B 2, 4 steps): completed, rc 0, 4 finite losses. 5o launches neither
      kernel. Printed: seconds from start to completion per stage, audio
      seconds per second of stages 2-4 in this process on the card and the
-     CPU, NativeASR's ms per clip, peak memory;
-  6. the kernels line (launches: phases 5 to 5o; the int8 form's: 5i), the
+     CPU, NativeASR's ms per clip, peak memory; stage 3's first dataset is
+     kept in chiprun_out/preprocess_s3a for phase 5p;
+  5p. frontend-extractor, VAD and ASR training on the card: kaldi_fbank on
+     four seeded voiced clips against the CPU (within EXT_FBANK_ATOL in the
+     bins within 60 dB of each clip's loudest, EXT_FBANK_QUIET_ATOL in every
+     bin, every bin finite), and on the speaker step's own clips (within
+     EXT_FBANK_ATOL within 60 dB; the largest difference printed per 20 dB
+     band below each clip's loudest); one f32 step of each model at full width
+     from the same tree and batch on the card and on the CPU (the
+     tokenizer at --preset reference, B 4 x 4 s; the speaker encoder, B 8 x
+     3 s, 8 classes, on the CPU's kaldi fbank; the VAD, B 32 x 4 s; the
+     ASR, B 8 x 4 s, 12 symbols), each with its trainer's optimizer: losses
+     within EXT_LOSS_REL, Adam's moments within EXT_MOMENT_TOL of each
+     leaf's largest, except that where
+     the card and the CPU put a ReLU input on two sides of 0 (each such input
+     within EXT_FLIP_Z of its layer's largest, a rounding flip) the leaves
+     of the ReLU stack are held to EXT_FLIP_TOL; the same steps on the card
+     again with TF32 on for matmuls and cuDNN convs, their readings printed
+     beside the gates (not gated: a lower-precision step that the gates must
+     see); each trainer's main in this
+     process for 15 steps at the CLI's shapes (the VAD and ASR pools cut to
+     EXT_POOLS), timed (ms per step, the median of steps 3-12, synced; audio
+     s/s; peak memory), steps 13-15 traced by torch.profiler, unsynced
+     (per step: wall, device busy and idle share, launches, host syncs, the
+     host and device ms of the train.loss_grad and train.optimizer ranges,
+     the top kernels), its files loaded by the port's loaders on the card
+     equal to the trained tree (fp16 where the trainer stores fp16); the
+     four CLIs (train_frontend tokenizer and speaker at --preset shipped on
+     a 64-utterance corpus, train_vad and train_asr at their defaults) for
+     40 steps and train_asr --dataset on 5o's stage-3 dataset for 4, as
+     subprocesses at once on the card: rc 0, the cuda device in each log,
+     every logged loss finite, and in the first four the mean loss of the
+     last 10 steps below that of the first 10; the card-trained tokenizer
+     and speaker encoder then serve one /api/v1/zero-shot request at heads
+     2 through the main engine, prompted by a 3 s clip of the demo set that
+     tools/make_demo_samples.py writes into chiprun_out/ (launches held);
+     eval_frontend_real on that set with the trained and the shipped
+     extractors, eval_vad and eval_asr with the trained VAD and ASR
+     (printed, no bar). No training step launches either kernel;
+  6. the kernels line (launches: phases 5 to 5p; the int8 form's: 5i), the
      card line, and the final JSON line.
 
 TF32 is off for matmuls and cuDNN convs throughout, so f32 is full f32 in
@@ -312,9 +350,12 @@ chiprun_out/chip_smoke.json.
 """
 
 import base64
+import contextlib
 import io
 import json
+import os
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -3675,6 +3716,20 @@ def drive_gan(engine, frontend, da, mg, card):
             torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def patched_env(env: dict):
+    """`env` set in os.environ while entered, the earlier values back after."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
 
 # phase 5n: the training and model-admin routes, a route-started trainer
 ROUTE_ROWS = 64  # LLM rows of the dataset the port's writer makes on the machine
@@ -3754,8 +3809,6 @@ def drive_training_routes(engine, frontend, da, mg, card):
     model_dir = tmp / "served"
     for d in (root, model_dir):
         d.mkdir()
-    saved_root = os.environ.get("TTS_MODEL_ROOT")
-    os.environ["TTS_MODEL_ROOT"] = str(root)
     torch.cuda.empty_cache()
 
     # 5n.1: the dataset, written by the port's writer on this machine
@@ -3775,149 +3828,146 @@ def drive_training_routes(engine, frontend, da, mg, card):
     manager = TrainingManager(device="cuda")
     servers = start_servers(engine, frontend, window={"training": manager})
     url = servers["window"][2]
-    try:
-        # 5n.2: the seed-0 LLM as npz, fine-tuned by a route-started trainer
-        t0 = time.time()
-        seed0 = str(root / "seed0_llm.npz")
-        checkpoint.save_params_npz(seed0, engine.llm_params)
-        rec["npz_write_s"] = time.time() - t0
-        run_dir = root / "run"
-        req = {"model_type": "llm", "train_data": str(ds_dir), "output_dir": str(run_dir),
-               "model_checkpoint": seed0, **ROUTE_SHAPE}
-        t_start = time.time()
-        code, body = http_status(url, "/api/v1/training/start", req)
-        if code != 200:
-            fail(f"5n: /api/v1/training/start {code} {body}")
-        tid = body["data"]["training_id"]
-        code, body = http_status(url, "/api/v1/training/start", req)
-        if code != 400:
-            fail(f"5n: a second start while one runs answered {code}, not 400")
-        listed = http_call(url, "/api/v1/training/list")[1]["data"]["trainings"]
-        if [t["id"] for t in listed] != [tid]:
-            fail(f"5n: /api/v1/training/list {listed}")
-        status, log = poll_job(url, tid, lambda d, _: d["status"] != "running", "5n training",
-                               ROUTE_JOB_LIMIT_S)
-        seconds = time.time() - t_start
-        if status["status"] != "completed" or status["returncode"] != 0:
-            fail(f"5n: the training ended {status['status']} rc {status['returncode']}:\n"
-                 f"{log[-3000:]}")
-        if "training on device cuda" not in log:
-            fail("5n: the trainer's log does not name the cuda device")
-        points = parse_training_logs(log)
-        if points["steps"] != list(range(1, ROUTE_SHAPE["max_steps"] + 1)) or \
-                not np.isfinite(points["losses"]).all():
-            fail(f"5n: step losses {points['steps']} {points['losses']}")
-        s_per_it = [float(x) for x in
-                    re.findall(r"step \d+ loss .*?\(([\d.]+) s/it\)", log)]
-        req_png = urllib.request.Request(f"{url}/api/v1/training/plot/{tid}")
-        with urllib.request.urlopen(req_png, timeout=120) as r:
-            if r.status != 200 or r.headers.get("Content-Type") != "image/png":
-                fail(f"5n: plot {r.status} {r.headers.get('Content-Type')}")
-            plot = png_check(r.read(), "5n plot")
-        if plot["extents"]["points"]["steps"] != ROUTE_SHAPE["max_steps"]:
-            fail(f"5n: the plot has {plot['extents']['points']} points")
-        rec["training"] = dict(
-            start_to_completed_s=seconds, step_ms=statistics.median(s_per_it[2:]) * 1e3,
-            step_ms_range=[min(s_per_it[2:]) * 1e3, max(s_per_it[2:]) * 1e3],
-            losses=points["losses"], accs=points["accs"], plot=plot, card=card,
-            batch=[ROUTE_SHAPE["batch_size"], 64, 256])
-        print("5n training", json.dumps({k: v for k, v in rec["training"].items()
-                                         if k not in ("losses", "accs", "plot")}), flush=True)
-
-        # 5n.3: a long job, stopped at step ROUTE_STOP_AT
-        free_before = torch.cuda.mem_get_info(dev)[0]
-        code, body = http_status(url, "/api/v1/training/start",
-                                 {**req, "model_checkpoint": None, "max_steps": 100000,
-                                  "output_dir": str(tmp / "long")})
-        if code != 200:
-            fail(f"5n: the long job's start {code} {body}")
-        tid_long = body["data"]["training_id"]
-        pid = manager.trainings[tid_long]["pid"]
-        poll_job(url, tid_long, lambda d, text: f"step {ROUTE_STOP_AT} loss" in text
-                 or d["status"] != "running", "5n long job", ROUTE_JOB_LIMIT_S)
-        on_card = pid in compute_pids()
-        free_running = torch.cuda.mem_get_info(dev)[0]
-        t0 = time.time()
-        code, body = http_status(url, f"/api/v1/training/stop/{tid_long}", {})
-        stop_s = time.time() - t0
-        state = http_call(url, f"/api/v1/training/status/{tid_long}")[1]["data"]["status"]
-        if code != 200 or state != "stopped":
-            fail(f"5n: stop answered {code}, status {state}")
+    with patched_env({"TTS_MODEL_ROOT": str(root)}):
         try:
-            os.killpg(pid, 0)
-            fail(f"5n: the stopped job's process group {pid} is still there")
-        except ProcessLookupError:
-            pass
-        deadline = time.time() + ROUTE_GRACE_S
-        while (pid in compute_pids() or torch.cuda.mem_get_info(dev)[0]
-               < free_before - ROUTE_FREE_SLACK) and time.time() < deadline:
-            time.sleep(0.5)
-        free_after = torch.cuda.mem_get_info(dev)[0]
-        if pid in compute_pids() or free_after < free_before - ROUTE_FREE_SLACK:
-            fail(f"5n: pid {pid} still holds the card {ROUTE_GRACE_S} s after the stop: "
-                 f"{free_after / 1e9:.2f} GB free, {free_before / 1e9:.2f} before the job")
-        # nvidia-smi may list host pids only: the card's free memory is the proof
-        rec["stop"] = dict(stop_s=stop_s, pid_seen_on_card=on_card,
-                           free_gb_before=free_before / 1e9,
-                           free_gb_running=free_running / 1e9, free_gb_after=free_after / 1e9)
-        print("5n stop", json.dumps(rec["stop"]), flush=True)
+            # 5n.2: the seed-0 LLM as npz, fine-tuned by a route-started trainer
+            t0 = time.time()
+            seed0 = str(root / "seed0_llm.npz")
+            checkpoint.save_params_npz(seed0, engine.llm_params)
+            rec["npz_write_s"] = time.time() - t0
+            run_dir = root / "run"
+            req = {"model_type": "llm", "train_data": str(ds_dir), "output_dir": str(run_dir),
+                   "model_checkpoint": seed0, **ROUTE_SHAPE}
+            t_start = time.time()
+            code, body = http_status(url, "/api/v1/training/start", req)
+            if code != 200:
+                fail(f"5n: /api/v1/training/start {code} {body}")
+            tid = body["data"]["training_id"]
+            code, body = http_status(url, "/api/v1/training/start", req)
+            if code != 400:
+                fail(f"5n: a second start while one runs answered {code}, not 400")
+            listed = http_call(url, "/api/v1/training/list")[1]["data"]["trainings"]
+            if [t["id"] for t in listed] != [tid]:
+                fail(f"5n: /api/v1/training/list {listed}")
+            status, log = poll_job(url, tid, lambda d, _: d["status"] != "running", "5n training",
+                                   ROUTE_JOB_LIMIT_S)
+            seconds = time.time() - t_start
+            if status["status"] != "completed" or status["returncode"] != 0:
+                fail(f"5n: the training ended {status['status']} rc {status['returncode']}:\n"
+                     f"{log[-3000:]}")
+            if "training on device cuda" not in log:
+                fail("5n: the trainer's log does not name the cuda device")
+            points = parse_training_logs(log)
+            if points["steps"] != list(range(1, ROUTE_SHAPE["max_steps"] + 1)) or \
+                    not np.isfinite(points["losses"]).all():
+                fail(f"5n: step losses {points['steps']} {points['losses']}")
+            s_per_it = [float(x) for x in
+                        re.findall(r"step \d+ loss .*?\(([\d.]+) s/it\)", log)]
+            req_png = urllib.request.Request(f"{url}/api/v1/training/plot/{tid}")
+            with urllib.request.urlopen(req_png, timeout=120) as r:
+                if r.status != 200 or r.headers.get("Content-Type") != "image/png":
+                    fail(f"5n: plot {r.status} {r.headers.get('Content-Type')}")
+                plot = png_check(r.read(), "5n plot")
+            if plot["extents"]["points"]["steps"] != ROUTE_SHAPE["max_steps"]:
+                fail(f"5n: the plot has {plot['extents']['points']} points")
+            rec["training"] = dict(
+                start_to_completed_s=seconds, step_ms=statistics.median(s_per_it[2:]) * 1e3,
+                step_ms_range=[min(s_per_it[2:]) * 1e3, max(s_per_it[2:]) * 1e3],
+                losses=points["losses"], accs=points["accs"], plot=plot, card=card,
+                batch=[ROUTE_SHAPE["batch_size"], 64, 256])
+            print("5n training", json.dumps({k: v for k, v in rec["training"].items()
+                                             if k not in ("losses", "accs", "plot")}), flush=True)
 
-        # 5n.4: the model routes under TTS_MODEL_ROOT
-        listed = http_call(url, "/api/v1/models/list")[1]["data"]["models"]
-        kinds = {m["path"]: m["kind"] for m in listed}
-        if kinds.get(os.path.join("run", f"step_{ROUTE_SHAPE['max_steps']}.pt")) != "orbax":
-            fail(f"5n: /api/v1/models/list {kinds}")
-        t0 = time.time()
-        saved = torch.load(run_dir / f"step_{ROUTE_SHAPE['max_steps']}.pt", map_location="cpu",
-                           weights_only=True)["params"]
-        trained = str(root / "trained_llm.npz")
-        np.savez(trained, **{k: v.to(torch.float32).numpy() for k, v in saved.items()})
-        avg = root / "avg" / "avg_llm.npz"
-        code, body = http_status(url, "/api/v1/models/convert",
-                                 {"action": "average", "model": "llm", "inputs": [seed0, trained],
-                                  "dst": str(avg)})
-        if code != 200:
-            fail(f"5n: /api/v1/models/convert {code} {body}")
-        status, log = poll_job(url, body["data"]["training_id"],
-                               lambda d, _: d["status"] != "running", "5n convert",
-                               ROUTE_JOB_LIMIT_S)
-        if status["status"] != "completed":
-            fail(f"5n: the convert job ended {status['status']}:\n{log[-3000:]}")
-        convert_s = time.time() - t0
-        with np.load(avg) as f, np.load(seed0) as fa, np.load(trained) as fb:
-            if set(f.files) != set(fa.files):
-                fail("5n: the average has other keys")
-            for k in f.files:
-                if not np.array_equal(f[k], (fa[k] + fb[k]) / np.float32(2)):
-                    fail(f"5n: the average's {k} is not the f32 mean")
-        code, _ = http_status(url, "/api/v1/models/delete", {"path": "../x"})
-        code_ok, body = http_status(url, "/api/v1/models/delete",
-                                    {"path": os.path.join("avg", "avg_llm.npz")})
-        if code != 400 or code_ok != 200 or avg.exists():
-            fail(f"5n: /api/v1/models/delete answered {code} on ../x and {code_ok} {body}")
-        rec["models"] = dict(listed=len(listed), convert_s=convert_s)
-        print("5n models", json.dumps(rec["models"]), flush=True)
+            # 5n.3: a long job, stopped at step ROUTE_STOP_AT
+            free_before = torch.cuda.mem_get_info(dev)[0]
+            code, body = http_status(url, "/api/v1/training/start",
+                                     {**req, "model_checkpoint": None, "max_steps": 100000,
+                                      "output_dir": str(tmp / "long")})
+            if code != 200:
+                fail(f"5n: the long job's start {code} {body}")
+            tid_long = body["data"]["training_id"]
+            pid = manager.trainings[tid_long]["pid"]
+            poll_job(url, tid_long, lambda d, text: f"step {ROUTE_STOP_AT} loss" in text
+                     or d["status"] != "running", "5n long job", ROUTE_JOB_LIMIT_S)
+            on_card = pid in compute_pids()
+            free_running = torch.cuda.mem_get_info(dev)[0]
+            t0 = time.time()
+            code, body = http_status(url, f"/api/v1/training/stop/{tid_long}", {})
+            stop_s = time.time() - t0
+            state = http_call(url, f"/api/v1/training/status/{tid_long}")[1]["data"]["status"]
+            if code != 200 or state != "stopped":
+                fail(f"5n: stop answered {code}, status {state}")
+            try:
+                os.killpg(pid, 0)
+                fail(f"5n: the stopped job's process group {pid} is still there")
+            except ProcessLookupError:
+                pass
+            deadline = time.time() + ROUTE_GRACE_S
+            while (pid in compute_pids() or torch.cuda.mem_get_info(dev)[0]
+                   < free_before - ROUTE_FREE_SLACK) and time.time() < deadline:
+                time.sleep(0.5)
+            free_after = torch.cuda.mem_get_info(dev)[0]
+            if pid in compute_pids() or free_after < free_before - ROUTE_FREE_SLACK:
+                fail(f"5n: pid {pid} still holds the card {ROUTE_GRACE_S} s after the stop: "
+                     f"{free_after / 1e9:.2f} GB free, {free_before / 1e9:.2f} before the job")
+            # nvidia-smi may list host pids only: the card's free memory is the proof
+            rec["stop"] = dict(stop_s=stop_s, pid_seen_on_card=on_card,
+                               free_gb_before=free_before / 1e9,
+                               free_gb_running=free_running / 1e9, free_gb_after=free_after / 1e9)
+            print("5n stop", json.dumps(rec["stop"]), flush=True)
 
-        # 5n.5: the trained LLM served through both kernels
-        t0 = time.time()
-        shutil.move(trained, model_dir / "llm.npz")
-        cfg_s, trees = launcher.load_models(False, str(model_dir), frontend.tokenizer, dev)
-        served_tree = flatten_params(trees["llm"])
-        for k, v in saved.items():
-            if not torch.equal(served_tree[k].cpu(), v):
-                fail(f"5n: the served LLM's {k} is not the trained one")
-        del saved, served_tree
-        served = Engine(cfg_s, trees["llm"], trees["flow"], trees["hift"], max_tokens=MAX_TOKENS,
-                        device=dev)
-        rec["load_s"] = time.time() - t0
-    finally:
-        manager.stop_all()
-        stop_servers(servers)
-        shutil.rmtree(tmp, ignore_errors=True)
-        if saved_root is None:
-            os.environ.pop("TTS_MODEL_ROOT", None)
-        else:
-            os.environ["TTS_MODEL_ROOT"] = saved_root
+            # 5n.4: the model routes under TTS_MODEL_ROOT
+            listed = http_call(url, "/api/v1/models/list")[1]["data"]["models"]
+            kinds = {m["path"]: m["kind"] for m in listed}
+            if kinds.get(os.path.join("run", f"step_{ROUTE_SHAPE['max_steps']}.pt")) != "orbax":
+                fail(f"5n: /api/v1/models/list {kinds}")
+            t0 = time.time()
+            saved = torch.load(run_dir / f"step_{ROUTE_SHAPE['max_steps']}.pt", map_location="cpu",
+                               weights_only=True)["params"]
+            trained = str(root / "trained_llm.npz")
+            np.savez(trained, **{k: v.to(torch.float32).numpy() for k, v in saved.items()})
+            avg = root / "avg" / "avg_llm.npz"
+            code, body = http_status(url, "/api/v1/models/convert",
+                                     {"action": "average", "model": "llm",
+                                      "inputs": [seed0, trained], "dst": str(avg)})
+            if code != 200:
+                fail(f"5n: /api/v1/models/convert {code} {body}")
+            status, log = poll_job(url, body["data"]["training_id"],
+                                   lambda d, _: d["status"] != "running", "5n convert",
+                                   ROUTE_JOB_LIMIT_S)
+            if status["status"] != "completed":
+                fail(f"5n: the convert job ended {status['status']}:\n{log[-3000:]}")
+            convert_s = time.time() - t0
+            with np.load(avg) as f, np.load(seed0) as fa, np.load(trained) as fb:
+                if set(f.files) != set(fa.files):
+                    fail("5n: the average has other keys")
+                for k in f.files:
+                    if not np.array_equal(f[k], (fa[k] + fb[k]) / np.float32(2)):
+                        fail(f"5n: the average's {k} is not the f32 mean")
+            code, _ = http_status(url, "/api/v1/models/delete", {"path": "../x"})
+            code_ok, body = http_status(url, "/api/v1/models/delete",
+                                        {"path": os.path.join("avg", "avg_llm.npz")})
+            if code != 400 or code_ok != 200 or avg.exists():
+                fail(f"5n: /api/v1/models/delete answered {code} on ../x and {code_ok} {body}")
+            rec["models"] = dict(listed=len(listed), convert_s=convert_s)
+            print("5n models", json.dumps(rec["models"]), flush=True)
+
+            # 5n.5: the trained LLM served through both kernels
+            t0 = time.time()
+            shutil.move(trained, model_dir / "llm.npz")
+            cfg_s, trees = launcher.load_models(False, str(model_dir), frontend.tokenizer, dev)
+            served_tree = flatten_params(trees["llm"])
+            for k, v in saved.items():
+                if not torch.equal(served_tree[k].cpu(), v):
+                    fail(f"5n: the served LLM's {k} is not the trained one")
+            del saved, served_tree
+            served = Engine(cfg_s, trees["llm"], trees["flow"], trees["hift"],
+                            max_tokens=MAX_TOKENS, device=dev)
+            rec["load_s"] = time.time() - t0
+        finally:
+            manager.stop_all()
+            stop_servers(servers)
+            shutil.rmtree(tmp, ignore_errors=True)
 
     launched_all = [0, 0]
     servers = start_servers(served, frontend, window={})
@@ -3992,6 +4042,7 @@ PRE_FLOW = dict(batch_size=2, max_steps=4, logging_steps=1, warmup_steps=1, save
 PRE_VAD_EVAL = dict(n_clips=2, snr_db=5.0, seconds=4.0)  # tests/test_preprocess_depth.py:117-135
 PRE_ASR_CLIPS = 6  # tests/test_asr.py:117-130: mean TER below PRE_TER
 PRE_TER = 0.25
+PRE_S3_KEEP = ROOT / "chiprun_out" / "preprocess_s3a"
 
 
 def data_stage(url, reqs, what):
@@ -4149,6 +4200,8 @@ def drive_preprocess(engine, frontend, da, mg, card):
         stage_s["3"], logs3 = data_stage(url, [
             {"stage": "3", "input_dir": str(d["s2"] / sub), "output_dir": str(d[f"s3{sub}"]),
              "asr_module": "native", "no_filename_fallback": True} for sub in "ab"], "stage 3")
+        shutil.rmtree(PRE_S3_KEEP, ignore_errors=True)
+        shutil.copytree(d["s3a"], PRE_S3_KEEP)  # phase 5p's train_asr --dataset
         stage_s["4"], logs4 = data_stage(url, [
             {"stage": "4", "input_dir": str(d[f"s3{sub}"]), "output_dir": str(d[f"s4{sub}"])}
             for sub in "ab"], "stage 4")
@@ -4317,6 +4370,550 @@ def drive_preprocess(engine, frontend, da, mg, card):
     return rec, launched
 
 
+# phase 5p: frontend-extractor, VAD and ASR training
+EXT_DEVICE = "cuda"  # the card (a CPU rehearsal sets "cpu")
+EXT_SEED = 47
+EXT_FBANK_ATOL = 1e-3  # kaldi_fbank (log power), card against the CPU, within 60 dB of the loudest
+EXT_FBANK_QUIET_ATOL = 1e-2  # every bin of the voiced clips (5o's mel rule)
+# the speaker clips' pauses hold bins far below the loudest, where the log power
+# reads the FFTs' f32 rounding (tests/test_torch_train_frontend.py: up to ~0.2
+# apart 120 dB down, CPU against JAX): there, per 20 dB band, printed
+EXT_FBANK_BANDS_DB = (20, 40, 60, 80, 100, 120)
+EXT_LOSS_REL = 1e-5  # one f32 step, card against the CPU
+EXT_MOMENT_TOL = 1e-4  # Adam's moments, of each leaf's largest
+# a ReLU input that the card and the CPU put on two sides of 0 must lie within
+# EXT_FLIP_Z of its layer's largest |input| (their f32 rounding); the moments of
+# the ReLU stack's leaves, whose gradients pass through it, are then held to
+# EXT_FLIP_TOL (the card's VAD step read 8.3e-4 across 10 such flips, on an
+# H100 with TF32 off)
+EXT_FLIP_Z = 1e-4
+EXT_FLIP_TOL = 3e-3
+EXT_CROSS = {"tokenizer": (4, 4.0), "speaker": (8, 3.0), "vad": (32, 4.0), "asr": (8, 4.0)}
+EXT_TIMED_STEPS = 12  # the in-process runs; steps 3-12 are timed
+EXT_TRACED_STEPS = 3  # and the next ones traced
+EXT_POOLS = {"vad": dict(speech_pool=64, noise_pool=8), "asr": dict(pool=64, noise_pool=4)}
+EXT_CLI_STEPS = 40
+EXT_DATASET_STEPS = 4
+EXT_JOB_LIMIT_S = 600
+EXT_SERVE_SEED = 4747
+EXT_ASR_EVAL = dict(n_clips=6)
+EXT_CLIS = {  # name: (module, flags); each adds --output_dir, --device, --max_steps, --logging_steps 1
+    "tokenizer": ("train_frontend", ["--model", "tokenizer", "--preset", "shipped",
+                                     "--synthetic_speech", "--corpus_utts", "64",
+                                     "--n_speakers", "8", "--batch_size", "32",
+                                     "--seconds", "4"]),
+    "speaker": ("train_frontend", ["--model", "speaker", "--preset", "shipped",
+                                   "--synthetic_speech", "--corpus_utts", "64", "--n_speakers",
+                                   "8", "--batch_size", "64", "--seconds", "3"]),
+    "vad": ("train_vad", []),
+    "asr": ("train_asr", []),
+}
+EXT_LOSS_LINE = {"train_frontend": r"step (\d+) \{'loss': ([^,}]+)",
+                 "train_vad": r"step (\d+) loss (\S+) acc", "train_asr": r"step (\d+) loss (\S+) emit"}
+
+
+class ReluInputs:
+    """While entered, keeps a CPU copy of the input of every torch.relu and
+    torch.nn.functional.relu call (the VAD's and the speaker encoder's)."""
+
+    def __enter__(self):
+        import torch
+
+        self.inputs = []
+        self.saved = torch.relu, torch.nn.functional.relu
+
+        def recorded(fn):
+            def relu(x, *args, **kwargs):
+                self.inputs.append(x.detach().float().cpu())
+                return fn(x, *args, **kwargs)
+
+            return relu
+
+        torch.relu, torch.nn.functional.relu = (recorded(f) for f in self.saved)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.relu, torch.nn.functional.relu = self.saved
+
+
+def relu_flips(card: list, cpu: list) -> list:
+    """Per ReLU call, the |CPU input| / its layer's largest at each element
+    the card and the CPU put on two sides of 0."""
+    out = []
+    for a, b in zip(card, cpu, strict=True):
+        flipped = (a > 0) != (b > 0)
+        out.append([float(v) for v in (b[flipped].abs() / b.abs().max()).tolist()])
+    return out
+
+
+def moment_errs(opt_a, opt_b) -> dict:
+    """{leaf: largest over mu and nu of max |a - b| / max |b|}."""
+    out = {}
+    for name in ("mu", "nu"):
+        for k, mb in opt_b[name].items():
+            scale = float(mb.abs().max())
+            err = float((opt_a[name][k].cpu() - mb).abs().max()) / scale if scale > 0 else 0.0
+            out[k] = max(out.get(k, 0.0), err)
+    return out
+
+
+def ext_clips(b: int, seconds: float, seed: int) -> np.ndarray:
+    """(b, 16 kHz samples) f32 synthetic utterances of 8 speakers, pauses
+    included: the frontend models' cross-device batch."""
+    from flowmirror_hydravox_tpu_torch.train.synth_speech import synth_utterance
+
+    return np.stack([synth_utterance(i % 8, 50_000 + i, seconds, seed=seed)
+                     for i in range(b)]).astype(np.float32)
+
+
+def ext_models(seed: int):
+    """{model: (tree on the CPU, loss_fn, optimizer, numpy batch, the
+    leaves behind its ReLU stack)} at full width, each tree from a torch
+    generator seeded with `seed`, each optimizer its trainer's."""
+    import torch
+
+    from flowmirror_hydravox_tpu_torch.preprocess import asr_model, vad_model
+    from flowmirror_hydravox_tpu_torch.train import steps, train_asr, train_frontend, train_vad
+    from flowmirror_hydravox_tpu_torch.utils.audio import kaldi_fbank
+    from flowmirror_hydravox_tpu_torch.train.synth_speech import FRIC_SYMBOLS, VOWEL_SYMBOLS
+
+    def gen():
+        return torch.Generator().manual_seed(seed)
+
+    out = {}
+    for model in ("tokenizer", "speaker"):
+        args = train_frontend.parse_args(["--model", model, "--output_dir", "unused",
+                                          "--seed", str(seed)])
+        cfg = train_frontend.model_config(args)
+        b, sec = EXT_CROSS[model]
+        batch, fn = {"wavs": ext_clips(b, sec, seed)}, train_frontend.loss_fn(model, cfg)
+        if model == "speaker":
+            # both devices from the CPU's fbank: 5p.1 holds kaldi_fbank itself on
+            # these clips, and its differences in their near-silent bins (the FFTs'
+            # rounding, printed per band there) would set this comparison
+            batch = {"feats": kaldi_fbank(torch.from_numpy(batch["wavs"])).numpy(),
+                     "labels": (np.arange(b) % args.n_speakers).astype(np.int32)}
+            def fn(p, bt, cfg=cfg):
+                return train_frontend.speaker_feature_loss(p, cfg, bt["feats"], bt["labels"])
+        opt = steps.Optimizer(steps.OptimConfig(learning_rate=args.learning_rate,
+                                                warmup_steps=args.warmup_steps,
+                                                total_steps=args.max_steps))
+        out[model] = (train_frontend.init_tree(args, cfg, "cpu"), fn, opt, batch,
+                      {"speaker": ("spk.proj", "classifier")}.get(model, ()))
+    vcfg = vad_model.VADModelConfig()
+    b, sec = EXT_CROSS["vad"]
+    wavs, labels = next(train_vad.mixture_batches(b, sec, seed, **EXT_POOLS["vad"]))
+
+    def vad_loss(p, batch):
+        loss, acc = vad_model.bce_loss(p, vcfg, batch["wavs"], batch["labels"])
+        return loss, {"acc": acc}
+
+    out["vad"] = (vad_model.init_params(vcfg, gen()), vad_loss, train_vad.optimizer(1e-3, 2000),
+                  {"wavs": wavs, "labels": labels}, ("out.w", "out.b"))
+    vocab = list(VOWEL_SYMBOLS) + list(FRIC_SYMBOLS)
+    acfg = asr_model.ASRModelConfig(vocab_size=len(vocab) + 1)
+    b, sec = EXT_CROSS["asr"]
+    wavs, wav_len, labels, label_len = next(train_asr.synthetic_batches(
+        b, sec, seed, vocab, **EXT_POOLS["asr"]))
+
+    def asr_loss(p, batch):
+        loss, emit = asr_model.ctc_loss(p, acfg, batch["wavs"], batch["wav_len"],
+                                        batch["labels"], batch["label_len"])
+        return loss, {"emit_frac": emit}
+
+    out["asr"] = (asr_model.init_params(acfg, gen()), asr_loss, train_asr.optimizer(2e-3, 3000),
+                  {"wavs": wavs, "wav_len": wav_len, "labels": labels,
+                   "label_len": label_len}, ())
+    return out
+
+
+def ext_fbank(dev) -> dict:
+    """5p.1: kaldi_fbank on `dev` against the CPU (see the module
+    docstring)."""
+    import torch
+
+    from flowmirror_hydravox_tpu_torch.utils.audio import kaldi_fbank
+
+    def both(wavs):
+        on_dev = kaldi_fbank(torch.from_numpy(wavs).to(dev)).cpu().numpy()
+        on_cpu = kaldi_fbank(torch.from_numpy(wavs)).numpy()
+        if not np.isfinite(on_dev).all() or on_dev.shape != on_cpu.shape:
+            fail(f"5p: kaldi_fbank on the card: shape {on_dev.shape}, finite "
+                 f"{np.isfinite(on_dev).all()}")
+        # each bin's depth below its clip's loudest, dB of power
+        depth = (on_cpu.max(axis=(1, 2), keepdims=True) - on_cpu) * 10 / np.log(10)
+        return np.abs(on_dev - on_cpu), depth
+
+    err, depth = both(np.stack([voiced(16000, 3.0, EXT_SEED + i) for i in range(4)]))
+    out = {"voiced": dict(within_60dB=float(err[depth <= 60].max()),
+                          all_bins=float(err.max()))}
+    b, sec = EXT_CROSS["speaker"]
+    err, depth = both(ext_clips(b, sec, EXT_SEED))
+    bands, lo = {}, 0
+    for hi in (*EXT_FBANK_BANDS_DB, np.inf):
+        inside = (depth >= lo) & (depth < hi)
+        bands[f"{lo}-{hi}dB"] = dict(bins=int(inside.sum()), max_abs_err=float(
+            err[inside].max()) if inside.any() else None)
+        lo = hi
+    out["speaker_clips"] = dict(within_60dB=float(err[depth <= 60].max()),
+                                all_bins=float(err.max()), bands=bands)
+    print("5p kaldi_fbank card vs CPU", json.dumps(out), flush=True)
+    if max(out["voiced"]["within_60dB"], out["speaker_clips"]["within_60dB"]) > EXT_FBANK_ATOL \
+            or out["voiced"]["all_bins"] > EXT_FBANK_QUIET_ATOL:
+        fail(f"5p: kaldi_fbank on the card {out} from the CPU's")
+    return out
+
+
+def ext_step(tree, fn, opt, batch: dict, dev) -> tuple:
+    """(state, metrics, the ReLU inputs) of one step of `fn` from `tree`
+    (updated in place) on `dev`."""
+    from flowmirror_hydravox_tpu_torch.train import steps
+
+    state = steps.init_state(tree, opt)
+    with ReluInputs() as relu:
+        state, metrics = steps.loss_train_step(state, steps.batch_to(batch, dev), fn, opt)
+    return state, metrics, relu.inputs
+
+
+def ext_compare(card: tuple, cpu: tuple, past_relu) -> tuple:
+    """(record, {what: reading} over its 5p.2 gate) of a card step against
+    the CPU's, each an `ext_step` result."""
+    (card_state, m_card, card_relu), (cpu_state, m_cpu, cpu_relu) = card, cpu
+    flips = relu_flips(card_relu, cpu_relu)
+    errs = moment_errs(card_state.opt_state, cpu_state.opt_state)
+    n_flips = sum(len(f) for f in flips)
+    rec = dict(loss=float(m_card["loss"]),
+               loss_rel=abs(float(m_card["loss"]) - float(m_cpu["loss"]))
+               / abs(float(m_cpu["loss"])),
+               moments_err=max(errs.values()),
+               moments_err_past_relu=max([errs[k] for k in past_relu], default=None),
+               relu_flips=n_flips, flip_z=max([max(f) for f in flips if f], default=None))
+    tol = {k: EXT_FLIP_TOL if n_flips and k not in past_relu else EXT_MOMENT_TOL for k in errs}
+    bad = {k: e for k, e in errs.items() if e > tol[k]}
+    if rec["loss_rel"] > EXT_LOSS_REL:
+        bad["loss_rel"] = rec["loss_rel"]
+    if n_flips and rec["flip_z"] > EXT_FLIP_Z:
+        bad["flip_z"] = rec["flip_z"]
+    return rec, bad
+
+
+def ext_cross_device(dev) -> dict:
+    """5p.2: one f32 step of each model on `dev` and on the CPU, then on
+    `dev` with TF32 on (see the module docstring)."""
+    import torch
+
+    from flowmirror_hydravox_tpu_torch.train import steps
+
+    out = {}
+    for model, (tree, fn, opt, batch, past_relu) in ext_models(EXT_SEED).items():
+        card_tree, tf32_tree = tree_to_device(tree, dev), tree_to_device(tree, dev)
+        params = sum(p.numel() for _, p in steps.tree_leaves(tree))
+        cpu = ext_step(tree, fn, opt, batch, "cpu")
+        rec, bad = ext_compare(ext_step(card_tree, fn, opt, batch, dev), cpu, past_relu)
+        rec.update(batch={k: list(v.shape) for k, v in batch.items()}, params=params)
+        print(f"5p card vs CPU {model}", json.dumps(rec), flush=True)
+        if bad:
+            fail(f"5p: the card's {model} step differs from the CPU's: {rec}, over the gate {bad}")
+        if dev.type == "cuda":
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+            try:
+                tf32, tf32_bad = ext_compare(ext_step(tf32_tree, fn, opt, batch, dev), cpu,
+                                             past_relu)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+            rec["tf32"] = dict(tf32, over_the_gates=tf32_bad)
+            print(f"5p card with TF32 vs CPU {model}", json.dumps(rec["tf32"]), flush=True)
+        out[model] = rec
+    return out
+
+
+class ExtStepTimer:
+    """A trainer's `on_step`: synchronises the card and records the wall
+    time (the first one's from the timer's creation: the pool or corpus
+    build, the first batch and the first step) and loss of each of the first
+    EXT_TIMED_STEPS steps; then traces the next EXT_TRACED_STEPS under
+    torch.profiler, without a sync or a loss read between them (`trace`:
+    their per-step `bench_train.trace_summary`)."""
+
+    def __init__(self, dev):
+        self.dev, self.secs, self.losses, self.trace = dev, [], [], None
+        self.steps, self.prof = 0, None
+        self.t = time.perf_counter()
+
+    def sync(self):
+        import torch
+
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def __call__(self, state, metrics):
+        import torch
+        from torch.profiler import ProfilerActivity
+
+        from flowmirror_hydravox_tpu_torch.tools.bench_train import STEP_RANGES, trace_summary
+
+        self.steps += 1
+        if self.steps <= EXT_TIMED_STEPS:
+            self.sync()
+            now = time.perf_counter()
+            self.secs.append(now - self.t)
+            self.t = now
+            loss = float(metrics["loss"])
+            if not np.isfinite(loss):
+                fail(f"5p: step {state.step} loss {loss}")
+            self.losses.append(loss)
+            if self.steps == EXT_TIMED_STEPS:
+                activities = [ProfilerActivity.CPU] + (
+                    [ProfilerActivity.CUDA] if self.dev.type == "cuda" else [])
+                self.prof = torch.profiler.profile(activities=activities)
+                self.prof.start()
+                self.t = time.perf_counter()
+        elif self.steps == EXT_TIMED_STEPS + EXT_TRACED_STEPS:
+            self.sync()
+            wall = time.perf_counter() - self.t
+            self.prof.stop()
+            self.trace = trace_summary(self.prof, wall, EXT_TRACED_STEPS, top=5,
+                                       ranges=STEP_RANGES)
+
+
+def ext_in_process(dev, out_dir: pathlib.Path, cfg, tokenizer) -> dict:
+    """5p.6 and 5p.4: each trainer's main in this process for
+    EXT_TIMED_STEPS + EXT_TRACED_STEPS steps at the CLI's shapes (the VAD and
+    ASR pools cut to EXT_POOLS), timed and traced (`ExtStepTimer`); its files
+    loaded by the port's loaders on `dev` equal to the trained tree. Returns
+    {model: figures}."""
+    import functools
+
+    import torch
+
+    from flowmirror_hydravox_tpu_torch.frontend.frontend import Frontend
+    from flowmirror_hydravox_tpu_torch.params import flatten_params
+    from flowmirror_hydravox_tpu_torch.preprocess.asr_model import NativeASR
+    from flowmirror_hydravox_tpu_torch.preprocess.vad_model import NativeVAD
+    from flowmirror_hydravox_tpu_torch.train import train_asr, train_frontend, train_vad
+
+    modules = {"train_frontend": train_frontend, "train_vad": train_vad, "train_asr": train_asr}
+    saved = train_vad.mixture_batches, train_asr.synthetic_pool
+    train_vad.mixture_batches = functools.partial(saved[0], **EXT_POOLS["vad"])
+    train_asr.synthetic_pool = functools.partial(saved[1], **EXT_POOLS["asr"])
+    out, states = {}, {}
+    try:
+        for model, (module, flags) in EXT_CLIS.items():
+            timer = ExtStepTimer(dev)
+            reset_peak(dev)
+            before = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+            argv = [*flags, "--output_dir", str(out_dir / model), "--device", dev.type,
+                    "--max_steps", str(EXT_TIMED_STEPS + EXT_TRACED_STEPS),
+                    "--logging_steps", "100"]
+            states[model] = modules[module].main(argv, on_step=timer)
+            args = modules[module].parse_args(argv)
+            step_s = statistics.median(timer.secs[2:])
+            audio_s = args.batch_size * args.seconds
+            out[model] = dict(step_ms=step_s * 1e3,
+                              step_ms_range=[min(timer.secs[2:]) * 1e3,
+                                             max(timer.secs[2:]) * 1e3],
+                              audio_s_per_s=audio_s / step_s, batch=args.batch_size,
+                              seconds=args.seconds, to_step1_s=timer.secs[0],
+                              peak_gb=peak_bytes(dev) / 1e9, before_gb=before / 1e9,
+                              losses=timer.losses, trace=timer.trace)
+            if timer.trace["device_busy_ms"] is not None:
+                # the profiler slows the host: the traced busy time over the untraced step
+                out[model]["device_busy_share"] = timer.trace["device_busy_ms"] / out[model][
+                    "step_ms"]
+            print(f"5p in-process {model}", json.dumps({k: v for k, v in out[model].items()
+                                                        if k not in ("losses", "trace")}),
+                  flush=True)
+            print(f"5p trace {model}", json.dumps(timer.trace), flush=True)
+            if dev.type == "cuda" and timer.trace["device_busy_ms"] is None:
+                fail(f"5p: the trace of {model}'s steps saw no device activity")
+    finally:
+        train_vad.mixture_batches, train_asr.synthetic_pool = saved
+
+    # 5p.4: the saved files through the port's loaders, on the device
+    def same(got, trained, what):
+        got = flatten_params(got)
+        want = {k: v.detach().half().float() for k, v in flatten_params(trained).items()}
+        if set(got) != set(want) or not all(torch.equal(got[k], want[k].to(got[k].device))
+                                            for k in want):
+            fail(f"5p: {what} does not load equal to the trained tree (fp16)")
+
+    env = {f"HYDRAVOX_{m.upper()}_NPZ": str(out_dir / m / f"{m}.npz")
+           for m in ("tokenizer", "speaker")}
+    with patched_env(env):
+        fe = Frontend(cfg, tokenizer=tokenizer, device=dev)
+    same(fe.tokenizer_params, states["tokenizer"].params["enc"], "tokenizer.npz (Frontend)")
+    same(fe.speaker_params, states["speaker"].params["spk"], "speaker.npz (Frontend)")
+    if fe.st_cfg.dim != 256 or fe.spk_cfg.dim != 256:
+        fail(f"5p: the Frontend read configs {fe.st_cfg} {fe.spk_cfg} from the sidecars")
+    same(NativeVAD(str(out_dir / "vad" / "vad.npz"), device=dev).params,
+         states["vad"].params, "vad.npz (NativeVAD)")
+    same(NativeASR(str(out_dir / "asr" / "asr.npz"), device=dev).params,
+         states["asr"].params, "asr.npz (NativeASR)")
+    return out
+
+
+def ext_cli(module: str, flags: list, out_dir: pathlib.Path, dev, steps: int):
+    """The trainer `module` as a subprocess on `dev`: (Popen, log path)."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    log = out_dir / "train.log"
+    cmd = [sys.executable, "-m", f"flowmirror_hydravox_tpu_torch.train.{module}", *flags,
+           "--output_dir", str(out_dir), "--device", dev.type, "--max_steps", str(steps),
+           "--logging_steps", "1"]
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    with open(log, "w") as f:
+        return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT), log
+
+
+def ext_losses(module: str, log: str) -> dict:
+    """{step: loss} of a trainer's log lines."""
+    return {int(m.group(1)): float(m.group(2))
+            for m in re.finditer(EXT_LOSS_LINE[module], log)}
+
+
+def ext_clis(dev, out_dir: pathlib.Path) -> dict:
+    """5p.3: the four CLIs and train_asr --dataset as subprocesses at once
+    (see the module docstring). Returns {run: figures}."""
+    runs = {name: (module, flags, EXT_CLI_STEPS) for name, (module, flags) in EXT_CLIS.items()}
+    runs["asr_dataset"] = ("train_asr", ["--dataset", str(PRE_S3_KEEP), "--batch_size", "8",
+                                         "--seconds", "12.5"], EXT_DATASET_STEPS)
+    if not PRE_S3_KEEP.is_dir():
+        fail(f"5p: no stage-3 dataset at {PRE_S3_KEEP} (phase 5o keeps it)")
+    procs, ended, out = {}, {}, {}
+    t0 = time.time()
+    try:
+        for name, (module, flags, steps) in runs.items():
+            procs[name] = (*ext_cli(module, flags, out_dir / name, dev, steps), time.time())
+        while len(ended) < len(procs):  # each one's wall from its own start to its exit
+            for name, (proc, _, started) in procs.items():
+                if name not in ended and proc.poll() is not None:
+                    ended[name] = time.time() - started
+            if time.time() - t0 > EXT_JOB_LIMIT_S:
+                fail(f"5p: {sorted(set(procs) - set(ended))} still running after "
+                     f"{EXT_JOB_LIMIT_S} s")
+            time.sleep(0.1)
+        for name, (proc, log_path, _) in procs.items():
+            rc, wall = proc.returncode, ended[name]
+            log = log_path.read_text()
+            module, _, steps = runs[name]
+            losses = ext_losses(module, log)
+            if rc != 0 or f"training on device {dev.type}" not in log:
+                fail(f"5p {name}: rc {rc}, log:\n{log[-3000:]}")
+            if sorted(losses) != list(range(1, steps + 1)) or \
+                    not np.isfinite(list(losses.values())).all():
+                fail(f"5p {name}: logged losses {losses}")
+            seq = [losses[i] for i in range(1, steps + 1)]
+            rec = dict(wall_s=wall, losses=seq)
+            if name != "asr_dataset":
+                q = steps // 4
+                rec.update(first_quarter=float(np.mean(seq[:q])),
+                           last_quarter=float(np.mean(seq[-q:])))
+                if not rec["last_quarter"] < rec["first_quarter"]:
+                    fail(f"5p {name}: the loss did not fall: {seq}")
+            step1 = re.search(r"step 1 .*\((\d+\.\d)s\)", log)
+            rec["to_step1_s"] = float(step1.group(1)) if step1 else None
+            pool = re.search(r"pool: (\d+) clips, (\d+) noise \((\d+\.\d)s\)", log)
+            if pool:
+                rec["pool"] = dict(clips=int(pool.group(1)), noise=int(pool.group(2)),
+                                   build_s=float(pool.group(3)))
+            rows = re.search(r"dataset: (\d+) usable rows, vocab (\d+)", log)
+            if rows:
+                rec["dataset"] = dict(rows=int(rows.group(1)), vocab=int(rows.group(2)))
+            out[name] = rec
+            print(f"5p cli {name}", json.dumps({k: v for k, v in rec.items() if k != "losses"}),
+                  flush=True)
+    finally:
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out["all_s"] = time.time() - t0
+    return out
+
+
+def drive_ext_training(engine, frontend, da, mg, card):
+    """Phase 5p: frontend-extractor, VAD and ASR training on the card (see
+    the module docstring). Returns (record, the served request's launches)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from flowmirror_hydravox_tpu_torch.frontend.frontend import Frontend
+    from flowmirror_hydravox_tpu_torch.tools import (eval_asr, eval_frontend_real, eval_vad,
+                                                     make_demo_samples)
+
+    dev = torch.device(EXT_DEVICE)
+    da.launch_count = mg.launch_count = 0
+    rec = {"card": card}
+
+    def no_launch(what):
+        if (da.launch_count, mg.launch_count) != (0, 0):
+            fail(f"5p: {what} launched the kernels {(da.launch_count, mg.launch_count)} times")
+
+    # 5p.1: kaldi_fbank on the card against the CPU
+    rec["fbank"] = ext_fbank(dev)
+
+    # 5p.2: one f32 step of each model, card against the CPU
+    rec["card_vs_cpu"] = ext_cross_device(dev)
+    no_launch("a cross-device step")
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="hydravox_ext_"))
+    try:
+        # 5p.6 and 5p.4: each trainer in this process, timed; its files reloaded
+        rec["in_process"] = ext_in_process(dev, tmp / "in_process", engine.cfg,
+                                           frontend.tokenizer)
+        no_launch("the in-process trainers")
+        # 5p.3: the CLIs as subprocesses
+        rec["clis"] = ext_clis(dev, tmp / "cli")
+
+        # 5p.5: serve what the card trained
+        demo = ROOT / "chiprun_out" / "demo_samples"
+        shutil.rmtree(demo, ignore_errors=True)
+        make_demo_samples.main(["--root", str(demo)])
+        clip = demo / "synthetic_voices" / "speaker_a" / "speaker_a_1.wav"
+        env = {f"HYDRAVOX_{m.upper()}_NPZ": str(tmp / "cli" / m / f"{m}.npz")
+               for m in ("tokenizer", "speaker")}
+        with patched_env(env):
+            trained_fe = Frontend(engine.cfg, tokenizer=frontend.tokenizer, device=dev)
+        body = {"tts_text": TRAIN_TEXT, "prompt_text": clip.with_suffix(".txt").read_text().strip(),
+                "mode": "zero_shot",
+                "prompt_audio_base64": base64.b64encode(clip.read_bytes()).decode(),
+                "extra_params": {"inference_head_num": 2, "seed": EXT_SERVE_SEED}}
+        servers = start_servers(engine, trained_fe, window={})
+        try:
+            with EngineCalls(engine) as calls:
+                recs, launched, (samples, peak) = held_worker(
+                    "5p zero-shot on the card-trained extractors", calls, da, mg,
+                    engine.cfg.llm,
+                    lambda: audio_of(*http_status(servers["window"][2], "/api/v1/zero-shot",
+                                                  body), "5p zero-shot"),
+                    [("synthesize", 1)])
+        finally:
+            stop_servers(servers)
+        rec["served"] = dict(tokens=recs[0]["tokens"], steps=recs[0]["steps"],
+                             audio_s=samples / SAMPLE_RATE, peak=peak,
+                             attention_launches=launched[0], mlp_launches=launched[1],
+                             predicted=list(predicted_launches(recs, engine.cfg.llm)))
+        print("5p served", json.dumps(rec["served"]), flush=True)
+        samples_dir = str(demo / "synthetic_voices")
+        rec["eval_frontend_real"] = {
+            "trained": eval_frontend_real.evaluate(samples_dir, trained_fe),
+            "shipped": eval_frontend_real.evaluate(samples_dir, frontend)}
+        with patched_env({"HYDRAVOX_VAD_NPZ": str(tmp / "cli" / "vad" / "vad.npz")}):
+            vad_f1 = eval_vad.evaluate(**PRE_VAD_EVAL, device=dev)
+        rec["eval_vad"] = {cond: {det: v[2] for det, v in dets.items()}
+                           for cond, dets in vad_f1.items()}
+        rec["eval_asr"] = eval_asr.evaluate(**EXT_ASR_EVAL, ckpt=str(tmp / "cli" / "asr" /
+                                                                     "asr.npz"), device=dev)
+        print("5p eval", json.dumps({k: rec[k] for k in ("eval_frontend_real", "eval_vad",
+                                                          "eval_asr")}), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rec, launched
+
+
 def main():
     t_start = time.time()
     if not (ROOT / "flowmirror_hydravox_tpu_torch" / "csrc").is_dir():
@@ -4441,12 +5038,13 @@ def main():
     gan, gan_launched = phase("5m", drive_gan, engine, frontend, da, mg, card)
     routes, routes_launched = phase("5n", drive_training_routes, engine, frontend, da, mg, card)
     preprocess, pre_launched = phase("5o", drive_preprocess, engine, frontend, da, mg, card)
+    extractors, ext_launched = phase("5p", drive_ext_training, engine, frontend, da, mg, card)
     phase_s["all"] = time.time() - t_start
     print("phase seconds", json.dumps({k: round(v, 1) for k, v in phase_s.items()}), flush=True)
     attention_launches, mlp_launches = (sum(x) for x in zip(
         launches, more, streamed, zs_launched, pt_launched, zsb_launched, solo_launched,
         spec_launched, int8_launched[:2], train_launched, readout_launched, gan_launched,
-        routes_launched, pre_launched))
+        routes_launched, pre_launched, ext_launched))
     del flush
 
     # the kernels line: each kernel at its serving shape (bf16; decode
@@ -4512,7 +5110,7 @@ def main():
          "pt_weights": pt_weights, "zero_shot_batched": zs_batched, "solo_route": solo_rule,
          "spec_decode": spec, "int8": int8, "training": training, "dpo": dpo,
          "spec_readout": readout, "gan": gan, "training_routes": routes,
-         "preprocess": preprocess, "phase_s": phase_s,
+         "preprocess": preprocess, "extractor_training": extractors, "phase_s": phase_s,
          **kernels},
         indent=1))
     print(json.dumps(kernels), flush=True)

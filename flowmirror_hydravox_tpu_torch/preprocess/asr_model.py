@@ -18,7 +18,13 @@ stage 3's in-repo recognizer, a conformer-lite over an 80-bin log-mel.
 `assets/asr.npz`, a byte-identical copy of the JAX package's (fp16, run in
 f32), or `path` / HYDRAVOX_ASR_NPZ, and runs on `device`.
 
-Not here yet: `init_params` and `ctc_loss`, which only the ASR trainer uses.
+`init_params` (scaled-normal matrices from a `torch.Generator`) and
+`ctc_loss` serve the ASR trainer (train/train_asr.py). The JAX loss is
+`optax.ctc_loss`; here it is `torch.nn.functional.ctc_loss` (blank 0) on
+the log-softmax, with each row's frames from its padding. One difference:
+a row that no path can emit (more labels than its frames allow) adds 0 to
+the loss and no gradient (`zero_infinity`), where optax clamps the path's
+log-probability at log_epsilon (-1e5) and adds about 1e5 / label_len.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..params import flatten_params, from_numpy_tree, unflatten_params
+from ..params import _Init, flatten_params, from_numpy_tree, unflatten_params
 from ..utils.audio import mel_spectrogram, resample_linear
 
 SR = 16000
@@ -61,6 +67,28 @@ class ASRModelConfig:
 def expected_keys(cfg: ASRModelConfig) -> set:
     return ({f"layers.{i}.{k}" for i in range(cfg.num_layers) for k in _LAYER_KEYS}
             | {"embed", "ln_out.g", "ln_out.b", "head.w", "head.b"})
+
+
+def init_params(cfg: ASRModelConfig, generator: torch.Generator, device="cpu",
+                dtype=torch.float32) -> dict:
+    """Matrices N(0, 1 / fan_in), the depthwise conv N(0, 1 / k), unit
+    LayerNorm gains, zero biases, at the JAX init's shapes
+    (asr_model.py:59); `layers` is a list, as there."""
+    ini, d = _Init(generator, device, dtype), cfg.d_model
+
+    def w(ins, outs):
+        return ini.normal(ins, outs, std=(1.0 / ins) ** 0.5)
+
+    def ln():
+        return {"g": ini.ones(d), "b": ini.zeros(d)}
+
+    layers = [{"ln_attn": ln(), "wq": w(d, d), "wk": w(d, d), "wv": w(d, d), "wo": w(d, d),
+               "ln_conv": ln(), "conv_in": w(d, 2 * d),
+               "conv_dw": ini.normal(cfg.conv_kernel, d, std=(1.0 / cfg.conv_kernel) ** 0.5),
+               "conv_out": w(d, d), "ln_ffn": ln(), "ffn_in": w(d, cfg.ffn_mult * d),
+               "ffn_out": w(cfg.ffn_mult * d, d)} for _ in range(cfg.num_layers)]
+    return {"embed": w(SUBSAMPLE * cfg.n_mels, d), "layers": layers, "ln_out": ln(),
+            "head": {"w": w(d, cfg.vocab_size), "b": ini.zeros(cfg.vocab_size)}}
 
 
 def _layer_norm(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -135,6 +163,22 @@ def logits(params: dict, cfg: ASRModelConfig, wav_16k: torch.Tensor,
 
     x = _layer_norm(params["ln_out"], x)
     return x @ params["head"]["w"] + params["head"]["b"], pad
+
+
+def ctc_loss(params: dict, cfg: ASRModelConfig, wavs, wav_len, labels, label_len):
+    """(mean over rows of the row's CTC loss (blank 0) / max(label_len, 1),
+    the fraction of unpadded frames whose argmax is not the blank). labels
+    (B, L) 1-based, valid up to label_len; see the module docstring for a
+    row no path can emit."""
+    lgts, pad = logits(params, cfg, wavs, wav_len)
+    logp = torch.log_softmax(lgts.float(), dim=-1)
+    valid = 1.0 - pad
+    per_seq = F.ctc_loss(logp.transpose(0, 1), labels.long(), valid.sum(dim=1).long(),
+                         label_len.long(), blank=0, reduction="none", zero_infinity=True)
+    loss = torch.mean(per_seq / torch.clamp(label_len.float(), min=1.0))
+    nonblank = (lgts.argmax(dim=-1) != 0).to(valid.dtype)
+    frac_emitting = torch.sum(nonblank * valid) / torch.clamp(valid.sum(), min=1.0)
+    return loss, frac_emitting
 
 
 def greedy_decode(frame_ids: np.ndarray, n_frames: int) -> List[int]:

@@ -14,7 +14,8 @@ none exist. `maybe_native_vad` turns only that error into None (the energy
 VAD's fallback): any other error raises, where the JAX helper swallows every
 exception (vad_model.py:134-139) and would hide a fault of the device.
 
-Not here yet: `init_params` and `bce_loss`, which only the VAD trainer uses.
+`init_params` (He-normal convs from a `torch.Generator`, zero biases) and
+`bce_loss` serve the VAD trainer (train/train_vad.py).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..params import flatten_params, load_params_npz
+from ..params import _Init, flatten_params, load_params_npz
 from ..utils.audio import mel_spectrogram, resample_linear
 
 SR = 16000
@@ -48,6 +49,20 @@ def expected_keys(cfg: VADModelConfig) -> set:
             | {"out.w", "out.b"})
 
 
+def init_params(cfg: VADModelConfig, generator: torch.Generator, device="cpu",
+                dtype=torch.float32) -> dict:
+    """He-normal convs (std sqrt(2 / fan_in), fan_in = in_ch x k) and zero
+    biases, at the JAX init's shapes (vad_model.py:37)."""
+    ini, convs, ch_in = _Init(generator, device, dtype), [], cfg.n_mels
+    for _ in cfg.dilations:
+        convs.append({"w": ini.normal(cfg.channels, ch_in, 3, std=(2.0 / (ch_in * 3)) ** 0.5),
+                      "b": ini.zeros(cfg.channels)})
+        ch_in = cfg.channels
+    return {"convs": convs,
+            "out": {"w": ini.normal(1, cfg.channels, 1, std=(2.0 / cfg.channels) ** 0.5),
+                    "b": ini.zeros(1)}}
+
+
 def frame_logits(params: dict, cfg: VADModelConfig, wav_16k: torch.Tensor) -> torch.Tensor:
     """wav (B, T) float32 at 16 kHz -> per-frame speech logits (B, n_frames)."""
     mel = mel_spectrogram(wav_16k, 400, cfg.n_mels, SR, 160, 400)  # (B, M, F)
@@ -57,6 +72,17 @@ def frame_logits(params: dict, cfg: VADModelConfig, wav_16k: torch.Tensor) -> to
     for conv, d in zip(params["convs"], cfg.dilations):
         x = F.relu(F.conv1d(x, conv["w"], conv["b"], padding=d, dilation=d))
     return F.conv1d(x, params["out"]["w"], params["out"]["b"])[:, 0, :]
+
+
+def bce_loss(params: dict, cfg: VADModelConfig, wavs, frame_labels):
+    """(mean BCE over frames, frame accuracy); labels (B, F) in {0, 1} on the
+    10 ms hop grid, both truncated to the shorter of the two."""
+    logits = frame_logits(params, cfg, wavs)
+    f = min(logits.shape[1], frame_labels.shape[1])
+    logits, labels = logits[:, :f], frame_labels[:, :f].to(torch.float32)
+    loss = F.binary_cross_entropy_with_logits(logits, labels)
+    acc = ((logits > 0) == (labels > 0.5)).to(torch.float32).mean()
+    return loss, acc
 
 
 class NativeVAD:

@@ -30,9 +30,10 @@ the cuDNN settings it ran under (PyTorch's defaults run f32 convs in
 TF32).
 `--profile N` adds where a step's
 time goes: N steps under torch.profiler (per step: wall, device busy, the
-device's idle share, kernel launches, the kernels with the most device
-time) and the optimizer's update alone (median of 5 synced calls on one
-step's gradients; both optimizers for the GAN). Runs on the card unless
+device's idle share, kernel launches, host synchronisations, the kernels
+with the most device time, the host and device ms of train/steps.py's
+`train.loss_grad` and `train.optimizer` ranges) and the optimizer's update alone (median of 5
+synced calls on one step's gradients; both optimizers for the GAN). Runs on the card unless
 `--device cpu` (a smoke run: no device metric is printed there).
 """
 
@@ -77,11 +78,63 @@ def _union_us(intervals) -> float:
     return total
 
 
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx")
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+STEP_RANGES = ("train.loss_grad", "train.optimizer")  # train/steps.py's record_function names
+
+
+def trace_summary(prof, wall_s: float, n_steps: int, top: int = 10, ranges=()) -> dict:
+    """Per-step figures of `n_steps` steps that `prof` traced over `wall_s`
+    seconds: wall, device busy (the union of kernel and copy intervals),
+    device work (their sum) and the device's idle share, kernel launches,
+    host synchronisations, the kernels with the most device time, and for
+    each `torch.profiler.record_function` name in `ranges` its host ms and
+    the device ms of the work whose op started while it was open, on any
+    thread (the backward's ops run on autograd's own thread). Device figures
+    are None when the profiler saw no device activity."""
+    from torch.autograd import DeviceType
+
+    events = list(prof.events())
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    # a record_function range also shows on the device's timeline, spanning
+    # its kernels and the gaps between them: not device work
+    annotations = {e.name for e in events if getattr(e, "is_user_annotation", False)}
+    annotations.update(STEP_RANGES, ranges)
+    kernels = [(e.time_range.start, e.time_range.end) for e in events
+               if e.device_type == DeviceType.CUDA and e.name not in annotations]
+    busy_ms = _union_us(kernels) / 1e3 / n_steps if kernels else None
+    dev = sorted((a for a in prof.key_averages() if a.device_type == DeviceType.CUDA
+                  and a.key not in annotations and a.self_device_time_total > 0),
+                 key=lambda a: a.self_device_time_total, reverse=True)
+    wall_ms = wall_s * 1e3 / n_steps
+    work_ms = sum(b - a for a, b in kernels) / 1e3 / n_steps if kernels else None
+    out = {"steps": n_steps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_work_ms": work_ms,
+           "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
+           "launches": sum(e.name in LAUNCH_CALLS for e in host) / n_steps,
+           "host_syncs": sum(e.name in SYNC_CALLS for e in host) / n_steps,
+           "device_top": [{"kernel": a.key[:100], "calls": a.count / n_steps,
+                           "device_ms": a.self_device_time_total / 1e3 / n_steps}
+                          for a in dev[:top]]}
+    # a kernel or copy shares its id (CUPTI's correlation id) with the runtime
+    # call that started it: (that call's start, the work's duration)
+    called_at = {e.id: e.time_range.start for e in host if e.name.startswith("cu")}
+    starts = [(called_at[e.id], e.time_range.end - e.time_range.start) for e in events
+              if e.device_type == DeviceType.CUDA and e.name not in annotations
+              and e.id in called_at]
+    if kernels:  # the device work so placed, against device_work_ms
+        out["device_linked_ms"] = sum(us for _, us in starts) / 1e3 / n_steps
+    for name in ranges:
+        spans = [(e.time_range.start, e.time_range.end) for e in host if e.name == name]
+        dev_us = sum(us for t, us in starts if any(a <= t <= b for a, b in spans))
+        out[name] = {"host_ms": sum(b - a for a, b in spans) / 1e3 / n_steps,
+                     "device_ms": dev_us / 1e3 / n_steps if kernels else None}
+    return out
+
+
 def profile(step, n_steps: int, optimizer_apply, top: int = 10) -> dict:
     """`n_steps` calls of `step()` under torch.profiler, then
-    `optimizer_apply()` timed alone. Per-step figures; device figures are
-    None when the profiler saw no device activity."""
-    from torch.autograd import DeviceType
+    `optimizer_apply()` timed alone. Per-step figures (`trace_summary`)."""
     from torch.profiler import ProfilerActivity
 
     torch.cuda.synchronize()
@@ -91,25 +144,10 @@ def profile(step, n_steps: int, optimizer_apply, top: int = 10) -> dict:
             step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = list(prof.events())
-    kernels = [(e.time_range.start, e.time_range.end) for e in events
-               if e.device_type == DeviceType.CUDA]
-    launches = sum(1 for e in events if e.device_type == DeviceType.CPU
-                   and e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
-                                  "cuLaunchKernelEx"))
-    busy_ms = _union_us(kernels) / 1e3 / n_steps if kernels else None
-    dev = sorted((a for a in prof.key_averages() if a.device_type == DeviceType.CUDA
-                  and a.self_device_time_total > 0),
-                 key=lambda a: a.self_device_time_total, reverse=True)
-    opt_secs = time_steps(optimizer_apply, 5, torch.device("cuda"))
-    wall_ms = wall * 1e3 / n_steps
-    return {"steps": n_steps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
-            "launches": launches / n_steps,
-            "optimizer_ms": statistics.median(opt_secs) * 1e3,
-            "device_top": [{"kernel": a.key[:100], "calls": a.count / n_steps,
-                            "device_ms": a.self_device_time_total / 1e3 / n_steps}
-                           for a in dev[:top]]}
+    out = trace_summary(prof, wall, n_steps, top, ranges=STEP_RANGES)
+    out["optimizer_ms"] = statistics.median(time_steps(optimizer_apply, 5,
+                                                       torch.device("cuda"))) * 1e3
+    return out
 
 
 def report(name, secs, tokens, matmul_params, peak_tflops, device, flops_per=6,

@@ -68,8 +68,11 @@ def _to_numpy(x: torch.Tensor) -> np.ndarray:
     return (x.to(torch.float32) if x.dtype == torch.bfloat16 else x).numpy()
 
 
-def save_params_npz(path: str, params):
-    np.savez(path, **{k: _to_numpy(v) for k, v in flatten_params(params).items()})
+def save_params_npz(path: str, params, dtype=None):
+    """`params` in the JAX flat npz format; every leaf cast to the numpy
+    `dtype` when one is given (np.float16 for the committed extractors)."""
+    np.savez(path, **{k: _to_numpy(v) if dtype is None else _to_numpy(v).astype(dtype)
+                      for k, v in flatten_params(params).items()})
 
 
 def load_params_npz(path: str, template):

@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import queue
+import threading
 from typing import Any, Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
@@ -295,6 +297,63 @@ def dynamic_batch_iterator(
             buf.append(row)
     if buf:
         yield emit(buf)
+
+
+class Prefetch:
+    """Iterate `batches` from a daemon host thread, up to `maxsize` items
+    ahead (the JAX trainers' host prefetch, which overlaps synthesis with the
+    device step). An exception in the producer is raised to the consumer,
+    where the JAX thread would die and leave the trainer waiting; `close()`
+    (or leaving the `with` block) lets the producer stop at its next item."""
+
+    _END = object()
+
+    def __init__(self, batches: Iterable, maxsize: int = 4):
+        self._q: queue.Queue = queue.Queue(maxsize=maxsize)
+        self._stop = threading.Event()
+        threading.Thread(target=self._feed, args=(batches,), daemon=True).start()
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def _feed(self, batches):
+        try:
+            for item in batches:
+                if not self._put(item):
+                    return
+        except Exception as e:  # handed to the consumer, which raises it
+            self._put(_Failed(e))
+            return
+        self._put(self._END)
+
+    def __iter__(self):
+        while True:
+            item = self._q.get()
+            if item is self._END:
+                return
+            if isinstance(item, _Failed):
+                raise item.error
+            yield item
+
+    def close(self):
+        self._stop.set()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+@dataclasses.dataclass
+class _Failed:
+    error: Exception
 
 
 def static_batch_iterable(

@@ -28,6 +28,10 @@ and returns that state. Gradients come from `torch.autograd.grad`; a leaf
 that the loss does not reach gets a zero gradient. Under gradient
 accumulation the micro-batch gradients are summed in f32, averaged and cast
 back to the parameter dtype (JAX `_value_and_grad_accum`).
+
+Under torch.profiler each micro-batch's forward and backward appear as a
+`train.loss_grad` range and the update as `train.optimizer`
+(`tools/bench_train.trace_summary` splits a traced step by them).
 """
 
 from __future__ import annotations
@@ -219,7 +223,7 @@ def _value_and_grad_accum(loss_fn, params, batch: dict, accum_steps: int, noise=
     leaves = tree_leaves(params)
 
     def one(mb, nz):
-        with torch.enable_grad():
+        with torch.enable_grad(), torch.profiler.record_function("train.loss_grad"):
             loss, aux = loss_fn(params, mb) if nz is None else loss_fn(params, mb, nz)
             return loss.detach(), _aux_map(torch.Tensor.detach, aux), _grads(loss, leaves)
 
@@ -248,9 +252,20 @@ def _value_and_grad_accum(loss_fn, params, batch: dict, accum_steps: int, noise=
 
 
 def _apply(state: TrainState, grads: dict, optimizer: Optimizer) -> torch.Tensor:
-    gnorm = optimizer.apply(state.params, grads, state.opt_state)
+    with torch.profiler.record_function("train.optimizer"):
+        gnorm = optimizer.apply(state.params, grads, state.opt_state)
     state.step += 1
     return gnorm
+
+
+def loss_train_step(state: TrainState, batch: dict, loss_fn: Callable,
+                    optimizer: Optimizer) -> Tuple[TrainState, dict]:
+    """One optimizer update of any model: `loss_fn(params, batch) -> (loss,
+    {name: metric})` (the frontend, VAD and ASR trainers). Returns (state,
+    {"loss", each metric, "grad_norm"})."""
+    loss, aux, grads = _value_and_grad_accum(loss_fn, state.params, batch, 1)
+    gnorm = _apply(state, grads, optimizer)
+    return state, {"loss": loss, **aux, "grad_norm": gnorm}
 
 
 def llm_train_step(state: TrainState, batch: dict, cfg: LLMConfig, optimizer: Optimizer,

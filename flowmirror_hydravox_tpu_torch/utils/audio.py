@@ -9,6 +9,9 @@
     at 16 kHz (n_fft 400, hop 160) to the speaker encoder.
   - `whisper_log_mel`: the 128-bin 16 kHz whisper log-mel fed to the speech
     tokenizer.
+  - `kaldi_fbank`: the kaldi-style 80-bin fbank the speaker encoder trains
+    on (HTK mel banks, `mel_filterbank(..., htk=True)`), batched over
+    leading axes.
   - `resample_linear`: the frontend's linear-interpolation resampler.
 
 Each runs on the device of its input. Reflect padding follows numpy's
@@ -52,16 +55,30 @@ def mel_to_hz_slaney(mels):
 @functools.lru_cache(maxsize=16)
 def mel_filterbank(
     sr: int, n_fft: int, n_mels: int, fmin: float = 0.0, fmax: Optional[float] = None,
+    htk: bool = False,
 ) -> np.ndarray:
-    """Triangular mel filterbank, (n_mels, n_fft//2 + 1): Slaney scale and
-    normalization, matching librosa.filters.mel(sr, n_fft, n_mels, fmin, fmax)
-    defaults."""
+    """Triangular mel filterbank, (n_mels, n_fft//2 + 1).
+
+    htk=False: Slaney scale + normalization, matching
+    librosa.filters.mel(sr, n_fft, n_mels, fmin, fmax) defaults.
+    htk=True: HTK mel scale, unnormalized (kaldi-fbank style).
+    """
     if fmax is None:
         fmax = sr / 2.0
     n_freqs = n_fft // 2 + 1
     fft_freqs = np.linspace(0.0, sr / 2.0, n_freqs)
-    mel_pts = np.linspace(hz_to_mel_slaney(fmin), hz_to_mel_slaney(fmax), n_mels + 2)
-    hz_pts = mel_to_hz_slaney(mel_pts)
+    if htk:
+        def to_mel(f):
+            return 1127.0 * np.log(1.0 + np.asarray(f, np.float64) / 700.0)
+
+        def to_hz(m):
+            return 700.0 * (np.exp(np.asarray(m, np.float64) / 1127.0) - 1.0)
+
+        mel_pts = np.linspace(to_mel(fmin), to_mel(fmax), n_mels + 2)
+        hz_pts = to_hz(mel_pts)
+    else:
+        mel_pts = np.linspace(hz_to_mel_slaney(fmin), hz_to_mel_slaney(fmax), n_mels + 2)
+        hz_pts = mel_to_hz_slaney(mel_pts)
 
     fdiff = np.diff(hz_pts)
     ramps = hz_pts[:, None] - fft_freqs[None, :]
@@ -69,9 +86,10 @@ def mel_filterbank(
     upper = ramps[2:] / fdiff[1:, None]
     weights = np.maximum(0.0, np.minimum(lower, upper))
 
-    # Slaney normalization: scale each filter to ~constant energy per channel.
-    enorm = 2.0 / (hz_pts[2 : n_mels + 2] - hz_pts[:n_mels])
-    weights = weights * enorm[:, None]
+    if not htk:
+        # Slaney normalization: scale each filter to ~constant energy per channel.
+        enorm = 2.0 / (hz_pts[2 : n_mels + 2] - hz_pts[:n_mels])
+        weights = weights * enorm[:, None]
     return weights.astype(np.float32)
 
 
@@ -110,8 +128,8 @@ def _window(win_size: int, device) -> torch.Tensor:
 
 
 def _filterbank(sr: int, n_fft: int, n_mels: int, device, fmin: float = 0.0,
-                fmax: Optional[float] = None) -> torch.Tensor:
-    return torch.from_numpy(mel_filterbank(sr, n_fft, n_mels, fmin, fmax)).to(device)
+                fmax: Optional[float] = None, htk: bool = False) -> torch.Tensor:
+    return torch.from_numpy(mel_filterbank(sr, n_fft, n_mels, fmin, fmax, htk)).to(device)
 
 
 def stft_magnitude(y: torch.Tensor, n_fft: int, hop: int, win_size: int,
@@ -159,6 +177,34 @@ def whisper_log_mel(y: torch.Tensor, n_mels: int = 128, sample_rate: int = 16000
     log_spec = torch.log10(torch.clamp(mel, min=1e-10))
     floor = log_spec.amax(dim=(-2, -1), keepdim=True) - 8.0
     return (torch.maximum(log_spec, floor) + 4.0) / 4.0
+
+
+def kaldi_fbank(y: torch.Tensor, sample_rate: int = 16000, num_mels: int = 80) -> torch.Tensor:
+    """Kaldi-style log-mel fbank (the campplus features, reference
+    cli/frontend.py:105-116): 25 ms / 10 ms snip-edge frames at the int16
+    scale, DC removal, the povey window, n_fft 512, HTK mel banks from 20 Hz;
+    no dither, as the JAX function.
+
+    y: (..., T) 16 kHz waveform in [-1, 1], each leading row a clip (the JAX
+    function takes one clip and is vmapped). Returns (..., n_frames, num_mels),
+    n_frames = max(1 + (T - 400) // 160, 1); a clip shorter than one frame
+    repeats its last sample."""
+    frame_len = int(sample_rate * 0.025)
+    hop = int(sample_rate * 0.010)
+    y = y.to(torch.float32) * 32768.0  # kaldi int16 scale
+    t = y.shape[-1]
+    n_frames = max(1 + (t - frame_len) // hop, 1)
+    idx = (torch.arange(n_frames, device=y.device)[:, None] * hop
+           + torch.arange(frame_len, device=y.device)[None, :])
+    frames = y[..., idx.clamp(max=t - 1)]
+    frames = frames - frames.mean(dim=-1, keepdim=True)  # remove_dc
+    hann = 0.5 - 0.5 * np.cos(2 * np.pi * np.arange(frame_len) / (frame_len - 1))
+    povey = torch.from_numpy((hann ** 0.85).astype(np.float32)).to(y.device)
+    n_fft = 1 << (frame_len - 1).bit_length()
+    spec = torch.fft.rfft(frames * povey, n=n_fft, dim=-1)
+    power = spec.real ** 2 + spec.imag ** 2
+    mel = power @ _filterbank(sample_rate, n_fft, num_mels, y.device, fmin=20.0, htk=True).T
+    return torch.log(torch.clamp(mel, min=1e-10))
 
 
 def resample_linear(y: torch.Tensor, orig_sr: int, target_sr: int) -> torch.Tensor:

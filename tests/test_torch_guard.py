@@ -1,8 +1,9 @@
 """The port stands alone: nothing under flowmirror_hydravox_tpu_torch/ (its
-preprocess/ stages among them) and nothing in chip_smoke.py imports jax or
-the JAX package, nor a library the GPU machine lacks (`datasets`,
-`matplotlib`, `safetensors`; `pyarrow` only in `shard_list_iterator`'s
-parquet branch, where its ImportError is the refusal)."""
+preprocess/ stages, its trainers and its tools among them) and nothing in
+chip_smoke.py imports jax or the JAX package, nor a library the GPU machine
+lacks (`optax`, `datasets`, `matplotlib`, `safetensors`; `pyarrow` only in
+`shard_list_iterator`'s parquet branch, where its ImportError is the
+refusal)."""
 
 import ast
 import pathlib
@@ -13,7 +14,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flowmirror_hydravox_tpu")
-ABSENT_ON_CARD = ("datasets", "matplotlib", "safetensors", "pyarrow")
+ABSENT_ON_CARD = ("optax", "datasets", "matplotlib", "safetensors", "pyarrow")
 SOURCES = sorted((ROOT / "flowmirror_hydravox_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -58,7 +59,7 @@ def test_no_jax_imports(path):
 def test_package_imports_with_jax_blocked():
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'flowmirror_hydravox_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'flowmirror_hydravox_tpu', 'optax'):\n"
         "    sys.modules[name] = None\n"
         "import importlib, pkgutil\n"
         "import flowmirror_hydravox_tpu_torch as pkg\n"
@@ -68,7 +69,9 @@ def test_package_imports_with_jax_blocked():
         "for name in ('runtime.server', 'runtime.continuous', 'runtime.profiling',\n"
         "             'runtime.streaming', 'preprocess.resample', 'preprocess.vad',\n"
         "             'preprocess.vad_model', 'preprocess.asr_model', 'preprocess.transcribe',\n"
-        "             'preprocess.extract_tokens', 'preprocess.merge'):\n"
+        "             'preprocess.extract_tokens', 'preprocess.merge', 'train.augment',\n"
+        "             'train.train_frontend', 'train.train_vad', 'train.train_asr',\n"
+        "             'tools.eval_frontend_real', 'tools.make_demo_samples'):\n"
         "    assert 'flowmirror_hydravox_tpu_torch.' + name in mods, name\n"
         "print(len(mods))\n"
     )
