@@ -216,12 +216,13 @@ exits non-zero without either. Phases, each fatal on failure:
      B x (2 + Lt + Ls) over 989 TFLOP/s, JAX's count), peak memory; then
      bench_train's `--which dpo` and `--which llm --accum 2` lines;
   5l. the spec-decode readout trained on the card
-     (tools/train_spec_ckpt.py's recipe: 400 steps, B 4, Lt 64, Ls 160,
+     (tools/train_spec_ckpt.py's recipe, B 4, Lt 64, Ls 160, but
+     READOUT_STEPS steps of its 400,
      M 256, lr 2e-3) over the launcher's seed-0 tree: its loss must fall and
      its acc rise; the artifact written to chiprun_out/spec_readout.npz and
      loaded into a fresh seed-0 draw bit for bit. Then tools/bench_spec.py's
      measurement (heads 4 against heads 1, 125 tokens of a 63-token text,
-     2 reps after a warm-up) on the untrained and the trained tree: the
+     1 rep after a warm-up) on the untrained and the trained tree: the
      trained acceptance must beat the untrained; both kernels' launches
      (counts set to 0 before the decodes, read after) must equal the
      prediction (speculative and blind decodes each by their own count),
@@ -264,8 +265,9 @@ exits non-zero without either. Phases, each fatal on failure:
      compute apps and the card's free memory back within 1 GiB of what it
      was before the job, within the grace period; then, with TTS_MODEL_ROOT
      at the run's directory, /api/v1/models/list must name step_12.pt as a
-     train state, /api/v1/models/convert {action average} of the seed-0 and the
-     trained npz must complete and equal their f32 mean, and
+     train state, /api/v1/models/convert {action average, model hift} of the
+     served HiFT and a second seed's as npz must complete and equal their
+     f32 mean (HiFT, not the 2.9 GB LLM npz: the whole run's time limit), and
      /api/v1/models/delete must remove a file and answer 400 to ../x. The
      trained LLM (from step_12.pt, as npz) is loaded through load_models
      and served: one /api/v1/tts at heads 2, launches held; last, a speaker
@@ -329,9 +331,11 @@ exits non-zero without either. Phases, each fatal on failure:
      the top kernels), its files loaded by the port's loaders on the card
      equal to the trained tree (fp16 where the trainer stores fp16); the
      four CLIs (train_frontend tokenizer and speaker at --preset shipped on
-     a 64-utterance corpus, train_vad and train_asr at their defaults) for
-     40 steps and train_asr --dataset on 5o's stage-3 dataset for 4, as
-     subprocesses at once on the card: rc 0, the cuda device in each log,
+     a 64-utterance corpus, train_vad and train_asr on EXT_POOLS through
+     their --speech_pool / --pool and --noise_pool flags) for 40 steps
+     and train_asr --dataset on 5o's stage-3 dataset for 4, as
+     subprocesses at once on the card, beside the in-process steps above
+     (which share the host's cores with them): rc 0, the cuda device in each log,
      every logged loss finite, and in the first four the mean loss of the
      last 10 steps below that of the first 10; the card-trained tokenizer
      and speaker encoder then serve one /api/v1/zero-shot request at heads
@@ -340,7 +344,36 @@ exits non-zero without either. Phases, each fatal on failure:
      eval_frontend_real on that set with the trained and the shipped
      extractors, eval_vad and eval_asr with the trained VAD and ASR
      (printed, no bar). No training step launches either kernel;
-  6. the kernels line (launches: phases 5 to 5p; the int8 form's: 5i), the
+  5q. the serving tools: the launcher (`python -m
+     flowmirror_hydravox_tpu_torch --with-ui --max-tokens 300`, 4 slots by
+     default) as a subprocess on the card; GET / must be the page
+     (text/html), its I18N en and zh tables must hold the same keys and
+     every data-i18n marker, /api/v1/devices must report one gpu, and every
+     route the page calls must answer with a status other than 404 (a
+     speaker added from a 3 s voiced clip and removed, a /tts and a
+     /zero-shot request, a stage-5 data job that fails on a missing
+     directory for the training status, plot and stop routes, the rest
+     with bodies they refuse); tools/loadgen.py's CLI against it, closed
+     /tts then Poisson /tts/stream, LOADGEN_S each: requests > 0, errors 0,
+     continuous_requests rising; the launcher stopped (SIGINT, then
+     SIGKILL). That part launches no kernel in this process and runs on a
+     thread beside phase 5o (the whole run's time limit). Then
+     tools/bench_serving.py at full width (BENCH_ARGS, its own engine,
+     max_tokens 1024), as a subprocess started with phase 5o and running
+     beside 5o and 5p (so its figures read a card and a host that those
+     phases share; `python -m flowmirror_hydravox_tpu_torch.tools.
+     bench_serving` alone measures them): every scenario line in the JAX
+     order, none skipped or failed, errors 0 but in the capacity probe
+     (printed), and both kernels launched during it, as its last line
+     counts them in its process (those launches join the kernels line).
+     Last, CausalHiFT on the served HiFT (f32) and
+     on its voiced copy (every frame voiced: the source's sine half in the
+     waveform) at CAUSAL_SECONDS of seeded mel with seeded fixed noise, each
+     card against the CPU within CAUSAL_TOL, finalize on and off, and calls
+     on a growing prefix (CAUSAL_CHUNK frames a step) on the card within
+     CAUSAL_PREFIX_TOL of the whole; ms per call beside the non-causal
+     inference; no launch;
+  6. the kernels line (launches: phases 5 to 5q; the int8 form's: 5i), the
      card line, and the final JSON line.
 
 TF32 is off for matmuls and cuDNN convs throughout, so f32 is full f32 in
@@ -372,7 +405,7 @@ MAX_TOKENS = 300  # bounds each request's decode so the run stays short
 BURST_WINDOW = 0.25  # s: the coalescing window of the burst's server
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core f32, dense bf16
-N_TIMED = 30
+N_TIMED = 20
 FLUSH_WRITES = 16
 
 
@@ -3383,9 +3416,9 @@ def drive_dpo(engine, frontend, da, mg, card):
 
 
 # phase 5l: the spec readout trained on the card, served through the spec decode
-READOUT_STEPS = 400  # the JAX tool's default recipe
-# bench_spec's defaults, but 2 reps of its 4: the whole run's time limit
-SPEC_BENCH = dict(heads=4, reps=2, n_tokens=125, text_len=63)
+READOUT_STEPS = 150  # of the JAX tool's 400: the whole run's time limit (acc ~0.4 at 100)
+# bench_spec's defaults, but 1 rep of its 4: the whole run's time limit
+SPEC_BENCH = dict(heads=4, reps=1, n_tokens=125, text_len=63)
 
 
 def drive_spec_readout(engine, frontend, da, mg, flush):
@@ -3794,7 +3827,7 @@ def drive_training_routes(engine, frontend, da, mg, card):
     import torch
 
     from flowmirror_hydravox_tpu_torch import __main__ as launcher
-    from flowmirror_hydravox_tpu_torch.params import flatten_params
+    from flowmirror_hydravox_tpu_torch.params import flatten_params, init_hift_params
     from flowmirror_hydravox_tpu_torch.runtime.engine import Engine
     from flowmirror_hydravox_tpu_torch.runtime.training_manager import TrainingManager
     from flowmirror_hydravox_tpu_torch.runtime.training_plots import parse_training_logs
@@ -3926,10 +3959,14 @@ def drive_training_routes(engine, frontend, da, mg, card):
                                weights_only=True)["params"]
             trained = str(root / "trained_llm.npz")
             np.savez(trained, **{k: v.to(torch.float32).numpy() for k, v in saved.items()})
-            avg = root / "avg" / "avg_llm.npz"
+            hift_a, hift_b = str(root / "hift_a.npz"), str(root / "hift_b.npz")
+            checkpoint.save_params_npz(hift_a, engine.hift_params)
+            checkpoint.save_params_npz(hift_b, init_hift_params(
+                cfg.hift, torch.Generator().manual_seed(ROUTE_SEED), "cpu"))
+            avg = root / "avg" / "avg_hift.npz"
             code, body = http_status(url, "/api/v1/models/convert",
-                                     {"action": "average", "model": "llm",
-                                      "inputs": [seed0, trained], "dst": str(avg)})
+                                     {"action": "average", "model": "hift",
+                                      "inputs": [hift_a, hift_b], "dst": str(avg)})
             if code != 200:
                 fail(f"5n: /api/v1/models/convert {code} {body}")
             status, log = poll_job(url, body["data"]["training_id"],
@@ -3938,7 +3975,7 @@ def drive_training_routes(engine, frontend, da, mg, card):
             if status["status"] != "completed":
                 fail(f"5n: the convert job ended {status['status']}:\n{log[-3000:]}")
             convert_s = time.time() - t0
-            with np.load(avg) as f, np.load(seed0) as fa, np.load(trained) as fb:
+            with np.load(avg) as f, np.load(hift_a) as fa, np.load(hift_b) as fb:
                 if set(f.files) != set(fa.files):
                     fail("5n: the average has other keys")
                 for k in f.files:
@@ -3946,7 +3983,7 @@ def drive_training_routes(engine, frontend, da, mg, card):
                         fail(f"5n: the average's {k} is not the f32 mean")
             code, _ = http_status(url, "/api/v1/models/delete", {"path": "../x"})
             code_ok, body = http_status(url, "/api/v1/models/delete",
-                                        {"path": os.path.join("avg", "avg_llm.npz")})
+                                        {"path": os.path.join("avg", "avg_hift.npz")})
             if code != 400 or code_ok != 200 or avg.exists():
                 fail(f"5n: /api/v1/models/delete answered {code} on ../x and {code_ok} {body}")
             rec["models"] = dict(listed=len(listed), convert_s=convert_s)
@@ -4405,8 +4442,10 @@ EXT_CLIS = {  # name: (module, flags); each adds --output_dir, --device, --max_s
     "speaker": ("train_frontend", ["--model", "speaker", "--preset", "shipped",
                                    "--synthetic_speech", "--corpus_utts", "64", "--n_speakers",
                                    "8", "--batch_size", "64", "--seconds", "3"]),
-    "vad": ("train_vad", []),
-    "asr": ("train_asr", []),
+    "vad": ("train_vad", ["--speech_pool", str(EXT_POOLS["vad"]["speech_pool"]),
+                          "--noise_pool", str(EXT_POOLS["vad"]["noise_pool"])]),
+    "asr": ("train_asr", ["--pool", str(EXT_POOLS["asr"]["pool"]),
+                          "--noise_pool", str(EXT_POOLS["asr"]["noise_pool"])]),
 }
 EXT_LOSS_LINE = {"train_frontend": r"step (\d+) \{'loss': ([^,}]+)",
                  "train_vad": r"step (\d+) loss (\S+) acc", "train_asr": r"step (\d+) loss (\S+) emit"}
@@ -4684,8 +4723,6 @@ def ext_in_process(dev, out_dir: pathlib.Path, cfg, tokenizer) -> dict:
     ASR pools cut to EXT_POOLS), timed and traced (`ExtStepTimer`); its files
     loaded by the port's loaders on `dev` equal to the trained tree. Returns
     {model: figures}."""
-    import functools
-
     import torch
 
     from flowmirror_hydravox_tpu_torch.frontend.frontend import Frontend
@@ -4695,41 +4732,35 @@ def ext_in_process(dev, out_dir: pathlib.Path, cfg, tokenizer) -> dict:
     from flowmirror_hydravox_tpu_torch.train import train_asr, train_frontend, train_vad
 
     modules = {"train_frontend": train_frontend, "train_vad": train_vad, "train_asr": train_asr}
-    saved = train_vad.mixture_batches, train_asr.synthetic_pool
-    train_vad.mixture_batches = functools.partial(saved[0], **EXT_POOLS["vad"])
-    train_asr.synthetic_pool = functools.partial(saved[1], **EXT_POOLS["asr"])
     out, states = {}, {}
-    try:
-        for model, (module, flags) in EXT_CLIS.items():
-            timer = ExtStepTimer(dev)
-            reset_peak(dev)
-            before = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
-            argv = [*flags, "--output_dir", str(out_dir / model), "--device", dev.type,
-                    "--max_steps", str(EXT_TIMED_STEPS + EXT_TRACED_STEPS),
-                    "--logging_steps", "100"]
-            states[model] = modules[module].main(argv, on_step=timer)
-            args = modules[module].parse_args(argv)
-            step_s = statistics.median(timer.secs[2:])
-            audio_s = args.batch_size * args.seconds
-            out[model] = dict(step_ms=step_s * 1e3,
-                              step_ms_range=[min(timer.secs[2:]) * 1e3,
-                                             max(timer.secs[2:]) * 1e3],
-                              audio_s_per_s=audio_s / step_s, batch=args.batch_size,
-                              seconds=args.seconds, to_step1_s=timer.secs[0],
-                              peak_gb=peak_bytes(dev) / 1e9, before_gb=before / 1e9,
-                              losses=timer.losses, trace=timer.trace)
-            if timer.trace["device_busy_ms"] is not None:
-                # the profiler slows the host: the traced busy time over the untraced step
-                out[model]["device_busy_share"] = timer.trace["device_busy_ms"] / out[model][
-                    "step_ms"]
-            print(f"5p in-process {model}", json.dumps({k: v for k, v in out[model].items()
-                                                        if k not in ("losses", "trace")}),
-                  flush=True)
-            print(f"5p trace {model}", json.dumps(timer.trace), flush=True)
-            if dev.type == "cuda" and timer.trace["device_busy_ms"] is None:
-                fail(f"5p: the trace of {model}'s steps saw no device activity")
-    finally:
-        train_vad.mixture_batches, train_asr.synthetic_pool = saved
+    for model, (module, flags) in EXT_CLIS.items():
+        timer = ExtStepTimer(dev)
+        reset_peak(dev)
+        before = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+        argv = [*flags, "--output_dir", str(out_dir / model), "--device", dev.type,
+                "--max_steps", str(EXT_TIMED_STEPS + EXT_TRACED_STEPS),
+                "--logging_steps", "100"]
+        states[model] = modules[module].main(argv, on_step=timer)
+        args = modules[module].parse_args(argv)
+        step_s = statistics.median(timer.secs[2:])
+        audio_s = args.batch_size * args.seconds
+        out[model] = dict(step_ms=step_s * 1e3,
+                          step_ms_range=[min(timer.secs[2:]) * 1e3,
+                                         max(timer.secs[2:]) * 1e3],
+                          audio_s_per_s=audio_s / step_s, batch=args.batch_size,
+                          seconds=args.seconds, to_step1_s=timer.secs[0],
+                          peak_gb=peak_bytes(dev) / 1e9, before_gb=before / 1e9,
+                          losses=timer.losses, trace=timer.trace)
+        if timer.trace["device_busy_ms"] is not None:
+            # the profiler slows the host: the traced busy time over the untraced step
+            out[model]["device_busy_share"] = timer.trace["device_busy_ms"] / out[model][
+                "step_ms"]
+        print(f"5p in-process {model}", json.dumps({k: v for k, v in out[model].items()
+                                                    if k not in ("losses", "trace")}),
+              flush=True)
+        print(f"5p trace {model}", json.dumps(timer.trace), flush=True)
+        if dev.type == "cuda" and timer.trace["device_busy_ms"] is None:
+            fail(f"5p: the trace of {model}'s steps saw no device activity")
 
     # 5p.4: the saved files through the port's loaders, on the device
     def same(got, trained, what):
@@ -4754,6 +4785,39 @@ def ext_in_process(dev, out_dir: pathlib.Path, cfg, tokenizer) -> dict:
     return out
 
 
+class Background:
+    """`fn(*args, stop)` on a thread of its own, for work that launches no
+    kernel in this process (subprocesses and their HTTP clients), so that
+    it runs beside a phase: `result()` joins it and fails here if it
+    failed (fail() has printed why); `stop_and_join()` sets `stop`, which
+    `fn` polls, and waits for it to clean up."""
+
+    def __init__(self, fn, *args):
+        self.stop, self.out, self.error = threading.Event(), None, None
+        self.t0, self.wall_s = time.time(), None
+        self.thread = threading.Thread(target=self._run, args=(fn, args), daemon=True)
+        self.thread.start()
+
+    def _run(self, fn, args):
+        try:
+            self.out = fn(*args, self.stop)
+        except BaseException as e:  # fail() raises SystemExit after printing
+            self.error = e
+        self.wall_s = time.time() - self.t0
+
+    def result(self):
+        self.thread.join()
+        if isinstance(self.error, SystemExit):
+            sys.exit(self.error.code)
+        if self.error is not None:
+            raise self.error
+        return self.out
+
+    def stop_and_join(self):
+        self.stop.set()
+        self.thread.join()
+
+
 def ext_cli(module: str, flags: list, out_dir: pathlib.Path, dev, steps: int):
     """The trainer `module` as a subprocess on `dev`: (Popen, log path)."""
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -4772,9 +4836,10 @@ def ext_losses(module: str, log: str) -> dict:
             for m in re.finditer(EXT_LOSS_LINE[module], log)}
 
 
-def ext_clis(dev, out_dir: pathlib.Path) -> dict:
+def ext_clis(dev, out_dir: pathlib.Path, stop: threading.Event) -> dict:
     """5p.3: the four CLIs and train_asr --dataset as subprocesses at once
-    (see the module docstring). Returns {run: figures}."""
+    (see the module docstring), killed if `stop` is set first. Returns
+    {run: figures}."""
     runs = {name: (module, flags, EXT_CLI_STEPS) for name, (module, flags) in EXT_CLIS.items()}
     runs["asr_dataset"] = ("train_asr", ["--dataset", str(PRE_S3_KEEP), "--batch_size", "8",
                                          "--seconds", "12.5"], EXT_DATASET_STEPS)
@@ -4789,9 +4854,9 @@ def ext_clis(dev, out_dir: pathlib.Path) -> dict:
             for name, (proc, _, started) in procs.items():
                 if name not in ended and proc.poll() is not None:
                     ended[name] = time.time() - started
-            if time.time() - t0 > EXT_JOB_LIMIT_S:
+            if time.time() - t0 > EXT_JOB_LIMIT_S or stop.is_set():
                 fail(f"5p: {sorted(set(procs) - set(ended))} still running after "
-                     f"{EXT_JOB_LIMIT_S} s")
+                     f"{time.time() - t0:.0f} s")
             time.sleep(0.1)
         for name, (proc, log_path, _) in procs.items():
             rc, wall = proc.returncode, ended[name]
@@ -4852,21 +4917,23 @@ def drive_ext_training(engine, frontend, da, mg, card):
         if (da.launch_count, mg.launch_count) != (0, 0):
             fail(f"5p: {what} launched the kernels {(da.launch_count, mg.launch_count)} times")
 
-    # 5p.1: kaldi_fbank on the card against the CPU
-    rec["fbank"] = ext_fbank(dev)
-
-    # 5p.2: one f32 step of each model, card against the CPU
-    rec["card_vs_cpu"] = ext_cross_device(dev)
-    no_launch("a cross-device step")
-
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="hydravox_ext_"))
+    # 5p.3: the CLIs as subprocesses, beside 5p.1, 5p.2 and 5p.6 (the whole
+    # run's time limit; their in-process step times share the host's cores)
+    clis = Background(ext_clis, dev, tmp / "cli")
     try:
+        # 5p.1: kaldi_fbank on the card against the CPU
+        rec["fbank"] = ext_fbank(dev)
+
+        # 5p.2: one f32 step of each model, card against the CPU
+        rec["card_vs_cpu"] = ext_cross_device(dev)
+        no_launch("a cross-device step")
+
         # 5p.6 and 5p.4: each trainer in this process, timed; its files reloaded
         rec["in_process"] = ext_in_process(dev, tmp / "in_process", engine.cfg,
                                            frontend.tokenizer)
         no_launch("the in-process trainers")
-        # 5p.3: the CLIs as subprocesses
-        rec["clis"] = ext_clis(dev, tmp / "cli")
+        rec["clis"] = clis.result()
 
         # 5p.5: serve what the card trained
         demo = ROOT / "chiprun_out" / "demo_samples"
@@ -4910,7 +4977,409 @@ def drive_ext_training(engine, frontend, da, mg, card):
         print("5p eval", json.dumps({k: rec[k] for k in ("eval_frontend_real", "eval_vad",
                                                           "eval_asr")}), flush=True)
     finally:
+        clis.stop_and_join()
         shutil.rmtree(tmp, ignore_errors=True)
+    return rec, launched
+
+
+SERVE_FLAGS = ["--device", "cuda"]  # 5q's launcher and bench (a CPU rehearsal: cpu, --tiny)
+SERVE_MAX_TOKENS = 300  # the launcher of 5q: --max-tokens, as the main engine
+LAUNCHER_READY_S = 300  # the launcher's start, engine and frontend built
+LOADGEN_S = 6.0  # each loadgen run's window
+BENCH_ARGS = ["--window", "5", "--budget", "900"]  # tools/bench_serving.py in 5q, + SERVE_FLAGS
+BENCH_LIMIT_S = 900  # the bench subprocess, start to exit
+BENCH_ORDER = ["host_dispatch_rtt_ms", "ttft_under_load_http_continuous",
+               "staggered_load_continuous", "staggered_capacity_continuous",
+               "ttft_under_load_http", "staggered_load_window", "staggered_mode_winner",
+               "service_throughput_8way"]  # the JAX tool's metric lines, in its order
+BENCH_UNGATED = {"staggered_capacity_continuous"}  # meant to saturate: errors printed only
+CAUSAL_SEED = 53
+CAUSAL_SECONDS = 5.0
+CAUSAL_TOL = 1e-4  # f32 waveform, card against the CPU (the CPU tests' bar against JAX)
+CAUSAL_PREFIX_TOL = 5e-2  # a grown prefix against the whole call (tests/test_hift.py)
+CAUSAL_CHUNK = 10  # mel frames per growing-prefix step
+CAUSAL_VOICED_HZ = 150.0  # the voiced copy's F0 offset (voiced_hift)
+CAUSAL_TIMED = 10
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def http_any(base, path, body=None):
+    """GET (no body) or POST `body`: (status, raw bytes), error statuses
+    included."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data, {"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=900) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def launcher_up(base) -> bool:
+    try:
+        return http_any(base, "/health")[0] == 200
+    except OSError:  # not listening yet
+        return False
+
+
+def ui_api_calls(html: str) -> list:
+    """(path, method) of each api('/...') call of the page: POST where the
+    call passes a body, as the page's api(path, body) does."""
+    calls = []
+    for m in re.finditer(r"api\('(/[^']*)'", html):
+        depth, i, post = 1, m.end(), False
+        while depth:
+            depth += (html[i] in "([{") - (html[i] in ")]}")
+            post |= html[i] == "," and depth == 1
+            i += 1
+        calls.append((m.group(1), "POST" if post else "GET"))
+    return calls
+
+
+def ui_sets(html: str):
+    """The tabs, the I18N table's en and zh key sets and the data-i18n
+    markers of a page; None where the page has no I18N table."""
+    m = re.search(r"const I18N = \{\s*en: \{(.*?)\},\s*zh: \{(.*?)\}\s*\};", html, re.S)
+    if not m:
+        return None
+    key_re = r"(?:^|[,{])\s*(\w+):"  # keys only, not colons inside strings
+    return {"tabs": set(re.findall(r'data-tab="(\w+)"', html)),
+            "en": set(re.findall(key_re, m.group(1), re.M)),
+            "zh": set(re.findall(key_re, m.group(2), re.M)),
+            "markers": set(re.findall(r'data-i18n="(\w+)"', html))}
+
+
+def check_ui(base, tmp: pathlib.Path) -> dict:
+    """5q.1: the page at GET /, every data-i18n marker in both languages'
+    tables, /api/v1/devices, and every route the page calls answered with
+    a status other than 404 (ids from the calls before)."""
+    from flowmirror_hydravox_tpu_torch.utils.wavio import audio_to_base64
+
+    with urllib.request.urlopen(base + "/", timeout=60) as r:
+        ctype, html = r.headers["Content-Type"], r.read().decode("utf-8")
+    if ctype != "text/html; charset=utf-8":
+        fail(f"5q: GET / answered {ctype}")
+    sets = ui_sets(html)
+    if sets is None:
+        fail("5q: the page has no I18N table")
+    en, zh, markers, tabs = sets["en"], sets["zh"], sets["markers"], sets["tabs"]
+    if en != zh or not markers <= en or len(tabs) != 6:
+        fail(f"5q: i18n en/zh differ {en ^ zh} or markers unresolved {markers - en}, tabs {tabs}")
+    code, raw = http_any(base, "/api/v1/devices")
+    devices = json.loads(raw)["data"]
+    if code != 200 or devices["platform"] != "gpu" or devices["device_count"] != 1:
+        fail(f"5q: /api/v1/devices {code} {devices}")
+
+    prompt = audio_to_base64(voiced(16000, 3.0, CAUSAL_SEED), 16000)
+    answers = []
+
+    def probe(path, body=None, want=None):
+        code, raw = http_any(base, "/api/v1" + path, body)
+        answers.append((path, "GET" if body is None else "POST", code))
+        if code == 404 or (want is not None and code != want):
+            fail(f"5q: {path} answered {code}: {raw[:300]!r}")
+        return json.loads(raw) if raw[:1] == b"{" else raw
+
+    probe("/speakers", want=200)
+    probe("/speakers/add", {"speaker_id": "ui_probe", "audio_base64": prompt,
+                            "prompt_text": ZS_PROMPT_TEXT}, want=200)
+    probe("/speakers/add", {}, want=400)
+    probe("/speakers/remove/ui_probe", {}, want=200)
+    audio_of(200, probe("/tts", {"text": "The page sends this sentence to the card.",
+                                 "speaker_id": "default"}, want=200), "5q /tts")
+    listed = probe("/samples", want=200)["data"]["samples"]
+    probe("/samples/load", {"path": listed[0]["path"] if listed else "../x"},
+          want=200 if listed else 400)
+    audio_of(200, probe("/zero-shot", {"tts_text": "The page clones this voice.",
+                                       "prompt_text": ZS_PROMPT_TEXT,
+                                       "prompt_audio_base64": prompt, "mode": "zero_shot"},
+                        want=200), "5q /zero-shot")
+    probe("/devices", want=200)
+    tid = probe("/data/run", {"stage": "5", "input_dir": str(tmp / "no_dataset"),
+                              "output_dir": str(tmp / "merged")}, want=200)["data"]["training_id"]
+    deadline = time.time() + 120
+    while probe(f"/training/status/{tid}", want=200)["data"]["status"] == "running":
+        if time.time() > deadline:
+            fail("5q: the probe's data job did not end within 120 s")
+        time.sleep(1.0)
+    probe(f"/training/plot/{tid}")
+    probe(f"/training/stop/{tid}", {}, want=200)
+    probe("/training/start", {}, want=400)
+    probe("/models/list", want=200)
+    probe("/models/delete", {"path": "../x"}, want=400)
+    probe("/models/convert", {}, want=400)
+    probe("/load_pt", {}, want=200)
+    missing = {(p, m) for p, m in ui_api_calls(html)
+               if not any(meth == m and (q == p or (p.endswith("/") and q.startswith(p)))
+                          for q, meth, _ in answers)}
+    if missing:
+        fail(f"5q: the page calls routes this phase did not probe: {sorted(missing)}")
+    rec = dict(bytes=len(html), tabs=len(tabs), i18n_keys=len(en), markers=len(markers),
+               page_calls=len(ui_api_calls(html)), devices=devices,
+               answers=[f"{meth} {p} {c}" for p, meth, c in answers])
+    print("5q ui", json.dumps(rec), flush=True)
+    return rec
+
+
+def loadgen_runs(base, env, stopped) -> list:
+    """5q.2: tools/loadgen.py's CLI against the launcher: closed-loop /tts,
+    then Poisson /tts/stream; every request answered, and the slots'
+    continuous_requests rising with each. `stopped()` fails if the run was
+    stopped."""
+    runs = []
+    for flags in (["--mode", "tts"], ["--mode", "stream", "--arrival", "poisson", "--rate", "1"]):
+        stopped()
+        before = json.loads(http_any(base, "/api/v1/metrics")[1])["data"]["continuous_requests"]
+        out = subprocess.run([sys.executable, "-m", "flowmirror_hydravox_tpu_torch.tools.loadgen",
+                              "--url", base, "--speaker", "default", "--concurrency", "2",
+                              "--duration", str(LOADGEN_S), "--timeout", "120", *flags],
+                             cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        if out.returncode != 0:
+            fail(f"5q: loadgen {flags} rc {out.returncode}: {out.stderr[-2000:]}")
+        line = out.stdout.strip().splitlines()[-1]
+        print("5q loadgen", line, flush=True)
+        res = json.loads(line)
+        if res["requests"] <= 0 or res["errors"] != 0 or res["continuous_requests"] <= before:
+            fail(f"5q: loadgen {flags}: requests {res['requests']}, errors {res['errors']}, "
+                 f"continuous_requests {before} -> {res['continuous_requests']}")
+        runs.append(res)
+    return runs
+
+
+def check_bench(lines: list) -> dict:
+    """5q.3: every scenario of tools/bench_serving.py measured, in the JAX
+    order, none skipped or failed; errors 0 but in the capacity probe."""
+    metrics = [ln for ln in lines if "metric" in ln]
+    bad = [ln for ln in metrics if ln.get("skipped") or "error" in ln]
+    if bad or [ln["metric"] for ln in metrics] != BENCH_ORDER:
+        fail(f"5q: bench_serving lines {[ln['metric'] for ln in metrics]}, failed: {bad}")
+    errs = {ln["metric"]: ln["errors"] for ln in metrics if "errors" in ln}
+    if any(n for name, n in errs.items() if name not in BENCH_UNGATED):
+        fail(f"5q: bench_serving errors {errs}")
+    return {ln["metric"]: {k: v for k, v in ln.items() if k not in ("aux", "metric")}
+            for ln in metrics}
+
+
+def voiced_hift(tree, hz: float):
+    """A HiFT tree whose F0 predictor sits near `hz`: the classifier's bias
+    moved up by `hz`, so that every frame is voiced (the random tree's F0
+    lies below the 10 Hz threshold, where the causal source is its noise
+    alone)."""
+    f0p = tree["f0_predictor"]
+    cls = {**f0p["classifier"], "b": f0p["classifier"]["b"] + hz}
+    return {**tree, "f0_predictor": {**f0p, "classifier": cls}}
+
+
+def check_causal_hift(engine) -> dict:
+    """5q.4: CausalHiFT at the served HiFT (default HiFTConfig, f32) on
+    CAUSAL_SECONDS of seeded mel with seeded fixed noise, on the served tree
+    and on its voiced copy (`voiced_hift`, every frame voiced, so that the
+    source's sine half is in the waveform): card against the CPU, finalize
+    on and off; the growing-prefix check on the card; ms per call beside
+    the non-causal inference."""
+    import torch
+
+    from flowmirror_hydravox_tpu_torch.models import hift
+    from flowmirror_hydravox_tpu_torch.noise import TorchNoise
+
+    cfg, card_p, dev = engine.cfg.hift, engine.hift_params, engine.device
+    t_mel = int(CAUSAL_SECONDS * cfg.sampling_rate) // cfg.upsample_scale
+    mel = torch.from_numpy(np.random.default_rng(CAUSAL_SEED).standard_normal(
+        (1, 80, t_mel)).astype(np.float32) * 0.5).to(dev)
+    rand_ini, noise = hift.causal_noise(cfg, dev, seed=CAUSAL_SEED)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    look = hift.f0_look_right(card_p) + hift.conv_pre_look_right(card_p)
+    trim = int(np.prod(cfg.upsample_rates)) * cfg.istft_hop_len
+    rec = dict(t_mel=t_mel, look_right=look)
+    with torch.inference_mode():
+        for name, params in (("served", card_p), ("voiced", voiced_hift(card_p, CAUSAL_VOICED_HZ))):
+            cpu_p = tree_to_device(params, "cpu")
+            f0 = hift.predict_f0_causal(params, cfg, mel)
+            part_rec = dict(voiced_share=float((f0 > cfg.nsf_voiced_threshold).float().mean()))
+            rec[name] = part_rec
+            if name == "voiced" and part_rec["voiced_share"] < 1.0:
+                fail(f"5q: the voiced CausalHiFT voiced {part_rec['voiced_share']} of its frames")
+            for fin in (True, False):
+                card = hift.inference_causal(params, cfg, mel, rand_ini, noise, finalize=fin)
+                cpu = hift.inference_causal(cpu_p, cfg, mel.cpu(), rand_ini.cpu(), noise.cpu(),
+                                            finalize=fin)
+                want = (t_mel * cfg.upsample_scale if fin
+                        else (t_mel - look) * cfg.upsample_scale - trim)
+                err = float((card.cpu() - cpu).abs().max())
+                part_rec[f"finalize_{fin}"] = dict(samples=card.shape[1], max_abs_err=err,
+                                                   peak=float(cpu.abs().max()))
+                if card.shape != (1, want) or not torch.isfinite(card).all() or err > CAUSAL_TOL:
+                    fail(f"5q: {name} inference_causal finalize={fin}: shape "
+                         f"{tuple(card.shape)} (want {want}), card vs CPU {err:.3g} "
+                         f"(tol {CAUSAL_TOL})")
+            full = hift.inference_causal(params, cfg, mel, rand_ini, noise)
+            up, prefix_err, covered = cfg.upsample_scale, 0.0, 0
+            for i in range(0, t_mel, CAUSAL_CHUNK):
+                end = i + CAUSAL_CHUNK + look
+                part = hift.inference_causal(params, cfg, mel[:, :, :min(end, t_mel)], rand_ini,
+                                             noise, finalize=end >= t_mel)
+                seg = part[:, i * up:]
+                prefix_err = max(prefix_err, float((seg - full[:, i * up:i * up + seg.shape[1]])
+                                                   .abs().max()))
+                covered = i * up + seg.shape[1]
+            part_rec.update(prefix_max_abs_err=prefix_err,
+                            prefix_calls=-(-t_mel // CAUSAL_CHUNK))
+            if covered != full.shape[1] or prefix_err >= CAUSAL_PREFIX_TOL:
+                fail(f"5q: {name} growing prefix {prefix_err:.3g} (tol {CAUSAL_PREFIX_TOL}), "
+                     f"{covered} of {full.shape[1]} samples")
+
+        def ms(fn):
+            for _ in range(2):
+                fn()
+            times = []
+            for _ in range(CAUSAL_TIMED):
+                sync()
+                t0 = time.perf_counter()
+                fn()
+                sync()
+                times.append((time.perf_counter() - t0) * 1000)
+            return statistics.median(times)
+
+        vocoder = TorchNoise(torch.Generator(device=dev).manual_seed(CAUSAL_SEED))
+        rec["causal_ms"] = ms(lambda: hift.inference_causal(card_p, cfg, mel, rand_ini, noise))
+        rec["inference_ms"] = ms(lambda: hift.inference(card_p, cfg, mel, vocoder))
+    print("5q causal_hift", json.dumps(rec), flush=True)
+    return rec
+
+
+def drive_launcher(card, stop: threading.Event) -> dict:
+    """Phase 5q.1 and 5q.2: the launcher with --with-ui as a subprocess, its
+    page and routes, and loadgen's CLI against it (see the module
+    docstring). It launches no kernel in this process, so it runs beside
+    phase 5o (`Background`); `stop` ends it early. Returns its record."""
+    import shutil
+    import signal
+    import tempfile
+
+    def stopped():
+        if stop.is_set():
+            fail("5q: the launcher's checks were stopped: another phase failed")
+
+    rec = {"card": card}
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="hydravox_5q_"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    log_path = ROOT / "chiprun_out" / "5q_launcher.log"
+    log_path.parent.mkdir(exist_ok=True)
+    t0 = time.time()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "flowmirror_hydravox_tpu_torch", "--with-ui", "--max-tokens",
+             str(SERVE_MAX_TOKENS), "--api-host", "127.0.0.1", "--api-port", str(port),
+             *SERVE_FLAGS],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            while not launcher_up(base):
+                stopped()
+                if proc.poll() is not None:
+                    fail(f"5q: the launcher exited with {proc.returncode}: "
+                         f"{log_path.read_text()[-2000:]}")
+                if time.time() - t0 > LAUNCHER_READY_S:
+                    fail(f"5q: the launcher was not up within {LAUNCHER_READY_S} s")
+                time.sleep(1.0)
+            rec["launcher_ready_s"] = time.time() - t0
+            rec["ui"] = check_ui(base, tmp)
+            stopped()
+            rec["loadgen"] = loadgen_runs(base, env, stopped)
+        finally:
+            for sig in (signal.SIGINT, signal.SIGKILL):  # SIGINT runs serve()'s shutdown
+                try:
+                    os.killpg(proc.pid, sig)
+                except ProcessLookupError:
+                    break
+                try:
+                    proc.wait(timeout=30)
+                    break
+                except subprocess.TimeoutExpired:
+                    continue
+            shutil.rmtree(tmp, ignore_errors=True)
+    rec["wall_s"] = time.time() - t0
+    return rec
+
+
+class BenchProcess:
+    """tools/bench_serving.py as a subprocess (BENCH_ARGS + SERVE_FLAGS),
+    its JSON lines to chiprun_out/5q_bench.jsonl and its log beside them.
+    It runs beside phases 5o and 5p, which launch no kernel of this
+    process's counters into its count: the bench reports its own launches
+    (its last line)."""
+
+    def __init__(self):
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        self.lines_path, self.log_path = out / "5q_bench.jsonl", out / "5q_bench.log"
+        env = dict(os.environ,
+                   PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        self.t0 = time.time()
+        with open(self.lines_path, "w") as lines, open(self.log_path, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "flowmirror_hydravox_tpu_torch.tools.bench_serving",
+                 *BENCH_ARGS, *SERVE_FLAGS],
+                cwd=ROOT, env=env, stdout=lines, stderr=log, start_new_session=True)
+
+    def result(self) -> tuple:
+        """(the JSON lines, wall seconds) once the bench has exited with 0."""
+        try:
+            rc = self.proc.wait(timeout=max(1.0, BENCH_LIMIT_S - (time.time() - self.t0)))
+        except subprocess.TimeoutExpired:
+            fail(f"5q: bench_serving still running after {BENCH_LIMIT_S} s")
+        wall = time.time() - self.t0
+        if rc != 0:
+            fail(f"5q: bench_serving exited with {rc}: {self.log_path.read_text()[-3000:]}")
+        return [json.loads(ln) for ln in self.lines_path.read_text().splitlines() if ln], wall
+
+    def kill(self):
+        import signal
+
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+
+
+def drive_serving_tools(engine, frontend, da, mg, card, launcher: Background = None,
+                        bench: BenchProcess = None):
+    """Phase 5q: the launcher's record from `launcher` (drive_launcher,
+    started beside 5o; run here when None), tools/bench_serving.py's lines
+    and launches from `bench` (started with 5o; started here when None),
+    then CausalHiFT (see the module docstring). Returns (record, the
+    bench's launches)."""
+    rec = {"card": card, "launcher": launcher.result() if launcher is not None
+           else drive_launcher(card, threading.Event())}
+    bench = bench or BenchProcess()
+    try:
+        lines, wall = bench.result()
+    finally:
+        bench.kill()
+    for ln in lines:
+        print("5q bench_serving", json.dumps(ln), flush=True)
+    counted = [ln for ln in lines if ln.get("section") == "kernel_launches"]
+    if len(counted) != 1:
+        fail(f"5q: bench_serving reported its kernels' launches {len(counted)} times")
+    launched = (counted[0]["decode_attention"], counted[0]["mlp_gemv"])
+    rec["bench_serving"] = check_bench(lines)
+    rec["bench_serving"]["wall_s"] = wall
+    rec["bench_launches"] = list(launched)
+    print("5q bench_serving launches (attention, mlp):", launched, flush=True)
+    if min(launched) <= 0:
+        fail(f"5q: bench_serving launched the kernels {launched} times")
+
+    da.launch_count = mg.launch_count = 0
+    rec["causal_hift"] = check_causal_hift(engine)
+    if (da.launch_count, mg.launch_count) != (0, 0):
+        fail(f"5q: CausalHiFT launched the kernels {(da.launch_count, mg.launch_count)} times")
     return rec, launched
 
 
@@ -5037,14 +5506,27 @@ def main():
     phase_s["5l kernels"] = time.time() - t0
     gan, gan_launched = phase("5m", drive_gan, engine, frontend, da, mg, card)
     routes, routes_launched = phase("5n", drive_training_routes, engine, frontend, da, mg, card)
-    preprocess, pre_launched = phase("5o", drive_preprocess, engine, frontend, da, mg, card)
-    extractors, ext_launched = phase("5p", drive_ext_training, engine, frontend, da, mg, card)
+    # 5q.1-5q.2 (a launcher subprocess and HTTP clients) and 5q.3 (the bench
+    # as a subprocess) launch no kernel of this process: they run beside 5o
+    # and 5p, the whole run's time limit
+    launcher, bench = Background(drive_launcher, card), BenchProcess()
+    try:
+        preprocess, pre_launched = phase("5o", drive_preprocess, engine, frontend, da, mg, card)
+        extractors, ext_launched = phase("5p", drive_ext_training, engine, frontend, da, mg,
+                                         card)
+        serving_tools, tools_launched = phase("5q", drive_serving_tools, engine, frontend, da,
+                                              mg, card, launcher, bench)
+    finally:
+        launcher.stop_and_join()
+        bench.kill()
+    phase_s["5q launcher (beside 5o)"] = launcher.wall_s
+    phase_s["5q bench (beside 5o, 5p)"] = serving_tools["bench_serving"]["wall_s"]
     phase_s["all"] = time.time() - t_start
     print("phase seconds", json.dumps({k: round(v, 1) for k, v in phase_s.items()}), flush=True)
     attention_launches, mlp_launches = (sum(x) for x in zip(
         launches, more, streamed, zs_launched, pt_launched, zsb_launched, solo_launched,
         spec_launched, int8_launched[:2], train_launched, readout_launched, gan_launched,
-        routes_launched, pre_launched, ext_launched))
+        routes_launched, pre_launched, ext_launched, tools_launched))
     del flush
 
     # the kernels line: each kernel at its serving shape (bf16; decode
@@ -5110,7 +5592,8 @@ def main():
          "pt_weights": pt_weights, "zero_shot_batched": zs_batched, "solo_route": solo_rule,
          "spec_decode": spec, "int8": int8, "training": training, "dpo": dpo,
          "spec_readout": readout, "gan": gan, "training_routes": routes,
-         "preprocess": preprocess, "extractor_training": extractors, "phase_s": phase_s,
+         "preprocess": preprocess, "extractor_training": extractors,
+         "serving_tools": serving_tools, "phase_s": phase_s,
          **kernels},
         indent=1))
     print(json.dumps(kernels), flush=True)

@@ -1,7 +1,7 @@
 """Server launcher (port of flowmirror_hydravox_tpu/__main__.py, its serving
 subset).
 
-  python -m flowmirror_hydravox_tpu_torch --api-port 8080 \
+  python -m flowmirror_hydravox_tpu_torch --api-port 8080 [--with-ui] \
       [--tiny] [--model-dir DIR] [--max-tokens N] [--device cuda|cpu] \
       [--spk2info FILE] [--continuous-batching SLOTS] [--continuous-heads K] \
       [--continuous-reserve N] [--spec-decode] [--quantize none|bf16|int8]
@@ -16,6 +16,8 @@ padded to a multiple of 128; with llm.pt it is the checkpoint's. Serving
 dtypes: bf16 for the LLM and flow, f32 for HiFT; the frontend's extractors
 (the committed speech tokenizer and speaker encoder) f32, on the same
 device.
+
+--with-ui serves the web UI (runtime/webui.py) at GET / (JAX :53, :170).
 
 --spk2info loads a speaker registry: a `.npz` as `Frontend.save_spk2info`
 writes it (embeddings, prompt tokens and mels), anything else as the
@@ -82,6 +84,7 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser("flowmirror_hydravox_tpu_torch")
     p.add_argument("--api-host", default="0.0.0.0")
     p.add_argument("--api-port", type=int, default=8080)
+    p.add_argument("--with-ui", action="store_true", help="serve the web UI at GET /")
     p.add_argument("--model-dir", default=os.environ.get("TTS_MODEL_DIR"))
     p.add_argument("--tokenizer-path", default=None)
     p.add_argument("--spk2info", default=None,
@@ -181,7 +184,7 @@ def main(argv=None):
     serve(args.api_host, args.api_port, engine, frontend,
           continuous_slots=args.continuous_batching, continuous_head_num=args.continuous_heads,
           continuous_reserve_stream=args.continuous_reserve,
-          training=TrainingManager(device=args.device, tiny=args.tiny))
+          training=TrainingManager(device=args.device, tiny=args.tiny), with_ui=args.with_ui)
 
 
 if __name__ == "__main__":

@@ -2,6 +2,8 @@
 (every route), with the reference's REST schema (server/router.py):
 
   GET  /health            -> {"status": "ok"}
+  GET  /                  -> the web UI (runtime/webui.py) as text/html with
+                             `with_ui`, else as /health
   GET  /api/v1/speakers   -> {success, message, data: {speakers}, error}
   GET  /api/v1/metrics    -> {success, message, data: {requests, latency_*,
                              batched_requests, continuous_requests,
@@ -137,6 +139,7 @@ from .engine import Engine
 from .profiling import MetricsAggregator
 from .training_manager import TrainingManager
 from .training_plots import generate_training_plot
+from .webui import INDEX_HTML
 
 logger = logging.getLogger("hydravox.server")
 
@@ -704,6 +707,7 @@ def _response(success: bool, message: str, data=None, error=None) -> dict:
 class _Handler(BaseHTTPRequestHandler):
     service: TTSService = None  # injected by make_server
     training: TrainingManager = None  # injected by make_server
+    with_ui: bool = False  # injected by make_server: GET / answers with the web UI
 
     def log_message(self, fmt, *args):
         logger.debug(fmt, *args)
@@ -741,10 +745,21 @@ class _Handler(BaseHTTPRequestHandler):
         elif self.path == "/api/v1/training/list":
             self._send(200, _response(True, "ok",
                                       data={"trainings": self.training.list_trainings()}))
+        elif self.path == "/" and self.with_ui:
+            self._send_ui()
         elif self.path in ("/health", "/"):
             self._send(200, {"status": "ok"})
         else:
             self._send(404, _response(False, "not found", error="not found"))
+
+    def _send_ui(self):
+        """GET / with the UI on (server.py:1124-1142)."""
+        body = INDEX_HTML.encode("utf-8")
+        self.send_response(200)
+        self.send_header("Content-Type", "text/html; charset=utf-8")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
 
     def _send_plot(self, tid: str):
         """GET /api/v1/training/plot/<id> (server.py:1082-1102)."""
@@ -978,29 +993,34 @@ class _Handler(BaseHTTPRequestHandler):
 def make_server(host: str, port: int, engine: Engine, frontend, request_timeout: float = 60.0,
                 batch_window: float = 0.03, max_batch: int = 8, continuous_slots: int = 0,
                 continuous_head_num: int = 2, continuous_reserve_stream: int = 1,
-                training: Optional[TrainingManager] = None) -> ThreadingHTTPServer:
+                training: Optional[TrainingManager] = None,
+                with_ui: bool = False) -> ThreadingHTTPServer:
     """The HTTP server; `training` is the job registry of the training and
-    model routes (default: one whose trainers run on the engine's device)."""
+    model routes (default: one whose trainers run on the engine's device);
+    `with_ui` serves the web UI at GET / (server.py:1411-1421)."""
     service = TTSService(engine, frontend, request_timeout=request_timeout,
                          batch_window=batch_window, max_batch=max_batch,
                          continuous_slots=continuous_slots,
                          continuous_head_num=continuous_head_num,
                          continuous_reserve_stream=continuous_reserve_stream)
     training = training or TrainingManager(device=engine.device.type)
-    handler = type("Handler", (_Handler,), {"service": service, "training": training})
+    handler = type("Handler", (_Handler,), {"service": service, "training": training,
+                                            "with_ui": with_ui})
     return ThreadingHTTPServer((host, port), handler)
 
 
 def serve(host: str, port: int, engine: Engine, frontend, request_timeout: float = 60.0,
           continuous_slots: int = 0, continuous_head_num: int = 2,
-          continuous_reserve_stream: int = 1, training: Optional[TrainingManager] = None):
+          continuous_reserve_stream: int = 1, training: Optional[TrainingManager] = None,
+          with_ui: bool = False):
     server = make_server(host, port, engine, frontend, request_timeout=request_timeout,
                          continuous_slots=continuous_slots,
                          continuous_head_num=continuous_head_num,
                          continuous_reserve_stream=continuous_reserve_stream,
-                         training=training)
-    logger.info("serving on %s:%d (continuous_slots=%d, reserved for streams %d)", host, port,
-                continuous_slots, continuous_reserve_stream if continuous_slots else 0)
+                         training=training, with_ui=with_ui)
+    logger.info("serving on %s:%d (ui=%s, continuous_slots=%d, reserved for streams %d)", host,
+                port, with_ui, continuous_slots,
+                continuous_reserve_stream if continuous_slots else 0)
     try:
         server.serve_forever()
     finally:

@@ -2,7 +2,7 @@
 (port of flowmirror_hydravox_tpu/tools/eval_int8.py).
 
     python -m flowmirror_hydravox_tpu_torch.tools.eval_int8 [--utterances 6] \
-        [--tokens 125] [--text-len 63] [--tiny] [--device cuda|cpu]
+        [--tokens 125] [--text_len 63] [--tiny] [--device cuda|cpu]
 
 int8 mode (ops/quant.py, `Engine(quantize="int8")`) quantizes the LLM only,
 so audio differences are token differences. On the same seeded weights (the
@@ -13,11 +13,15 @@ seeded texts, two measurements:
      stop ids ignored) with greedy sampling (top_k 1, tau_r 10, so the
      repetition fallback never fires) at four heads (or the config's
      fewer), dense and int8: the exact-sequence matches, the token-level
-     agreement and the first divergence of each utterance that differs;
+     agreement and the median first divergence of the utterances that
+     differ (each one's in `first_divergence_each`);
   2. next-token drift: on the dense greedy prefixes (none, and half of each
      of the first three utterances), the softmax of heads 0-3 with each
-     tree: KL(dense || int8) and top-1 agreement per head.
+     tree: KL(dense || int8), its mean and max over probes and heads, and
+     top-1 agreement over all of them (and per head beside them).
 
+The flags and the JSON fields are JAX's (`--tiny` clamps the tokens to 32
+and the text to 16, as there); `--device` stands in for JAX's `--cpu`.
 Runs on the card unless `--device cpu`. Prints one JSON line.
 """
 
@@ -100,12 +104,17 @@ def evaluate(cfg, dense, int8=None, *, utterances: int = 6, tokens: int = 125,
         device=str(device), utterances=utterances, tokens=tokens, text_len=text_len,
         heads=heads,
         greedy_seq_match=f"{same}/{utterances}",
-        greedy_token_agreement=agree / max(total, 1),
-        first_divergence_tokens=first_div,
+        greedy_token_agreement=round(agree / max(total, 1), 4),
+        first_divergence_tokens=int(np.median(first_div)) if first_div else None,
+        kl_bf16_int8_mean=round(float(kls.mean()), 6),
+        kl_bf16_int8_max=round(float(kls.max()), 6),
+        top1_agreement=round(float(top1.mean()), 4),
+        first_divergence_each=first_div,
         kl_dense_int8_per_head=kls.mean(axis=0).tolist(),
-        kl_dense_int8_max=float(kls.max()),
         top1_agreement_per_head=top1.mean(axis=0).tolist(),
         probes=len(kls),
+        note="weight-only int8 LLM against the dense tree, flow and HiFT unquantized; greedy "
+             "sampling isolates the token stream, so audio deltas are token deltas",
     )
 
 
@@ -113,7 +122,7 @@ def main(argv=None):
     p = argparse.ArgumentParser("eval_int8")
     p.add_argument("--utterances", type=int, default=6)
     p.add_argument("--tokens", type=int, default=125)
-    p.add_argument("--text-len", type=int, default=63)
+    p.add_argument("--text_len", type=int, default=63)
     p.add_argument("--tiny", action="store_true", help="tiny config, f32 weights")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = p.parse_args(argv)
@@ -125,8 +134,10 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg, trees = launcher.load_models(args.tiny, None, get_tokenizer(None), device,
                                       torch.float32 if args.tiny else torch.bfloat16)
-    out = evaluate(cfg.llm, trees["llm"], utterances=args.utterances, tokens=args.tokens,
-                   text_len=args.text_len, device=device)
+    tokens = min(args.tokens, 32) if args.tiny else args.tokens
+    text_len = min(args.text_len, 16) if args.tiny else args.text_len
+    out = evaluate(cfg.llm, trees["llm"], utterances=args.utterances, tokens=tokens,
+                   text_len=text_len, device=device)
     if device.type == "cuda":
         out["card"] = torch.cuda.get_device_name(device)
     print(json.dumps(out), flush=True)

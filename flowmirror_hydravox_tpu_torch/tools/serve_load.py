@@ -19,11 +19,12 @@ stops; on the card the same draws can still end in other tokens on another
 route, because bf16 sums round differently at another batch size, so each
 run reports the tokens it decoded.
 
-Per run: client latency p50/p95/p99/mean/max, the same of each request's
-latency over its own speech tokens, the load's wall time (first send to
-last answer), speech tokens (from each WAV's length), tokens/s and audio
-seconds per second over the load, and the server's /api/v1/metrics;
-for the slots also the batcher's ms per slot step and its seconds of decode
+Requests go through tools/loadgen.py's `_tts_once`, and the percentiles
+are its nearest-rank ones. Per run: client latency p50/p95/p99/mean/max,
+the same of each request's latency over its own speech tokens, the load's
+wall time (first send to last answer), speech tokens (from each WAV's
+length), tokens/s and audio seconds per second over the load, and the
+server's /api/v1/metrics; for the slots also the batcher's ms per slot step and its seconds of decode
 and of synthesis. Prints one JSON line per run and writes them all, with the
 card's name and power limit, to chiprun_out/serve_load.json.
 """
@@ -31,21 +32,19 @@ card's name and power limit, to chiprun_out/serve_load.json.
 from __future__ import annotations
 
 import argparse
-import base64
-import io
 import json
 import os
 import subprocess
 import threading
 import time
 import urllib.request
-import wave
 
 import numpy as np
 import torch
 
 from .. import __main__ as launcher
 from ..runtime.server import make_server
+from .loadgen import _tts_once, percentile
 
 TEXTS = ["The first caller asks for a short weather report.",
          "A second caller wants the opening hours of the library.",
@@ -65,28 +64,18 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 and out.stdout else "unknown"
 
 
-def _post(url: str, body: dict) -> dict:
-    req = urllib.request.Request(url, json.dumps(body).encode(),
-                                 {"Content-Type": "application/json"})
-    with urllib.request.urlopen(req, timeout=900) as r:
-        return json.load(r)
-
-
-def _tts_samples(base: str, text: str, seed: int) -> int:
-    """One /api/v1/tts request at heads 2; the WAV's sample count."""
-    body = _post(base + "/api/v1/tts", {"text": text, "speaker_id": "default",
-                                        "extra_params": {"inference_head_num": 2, "seed": seed}})
-    if not body.get("success"):
-        raise RuntimeError(f"/api/v1/tts: {body.get('error')}")
-    with wave.open(io.BytesIO(base64.b64decode(body["data"]["audio_base64"]))) as w:
-        return w.getnframes()
+def _tts_samples(base: str, text: str, seed: int, sample_rate: int) -> int:
+    """One /api/v1/tts request at heads 2 (loadgen's request); the WAV's
+    sample count."""
+    payload = json.dumps({"text": text, "speaker_id": "default",
+                          "extra_params": {"inference_head_num": 2, "seed": seed}}).encode()
+    return round(_tts_once(base, payload, 900.0)[1] * sample_rate)
 
 
 def _percentiles(name: str, x) -> dict:
-    x = np.asarray(x, np.float64)
-    return {f"{name}_p50": float(np.percentile(x, 50)), f"{name}_p95": float(np.percentile(x, 95)),
-            f"{name}_p99": float(np.percentile(x, 99)), f"{name}_mean": float(x.mean()),
-            f"{name}_max": float(x.max())}
+    """p50/p95/p99 as loadgen takes them (nearest rank), mean and max."""
+    return {**{f"{name}_p{q}": float(percentile(x, q / 100)) for q in (50, 95, 99)},
+            f"{name}_mean": float(np.mean(x)), f"{name}_max": float(max(x))}
 
 
 def run_load(engine, frontend, mode: str, slots: int, gaps, seed_base: int = SEED_BASE) -> dict:
@@ -98,8 +87,9 @@ def run_load(engine, frontend, mode: str, slots: int, gaps, seed_base: int = SEE
     thread.start()
     base = f"http://127.0.0.1:{server.server_address[1]}"
     service = server.RequestHandlerClass.service
+    sr = engine.cfg.sample_rate
     try:
-        _tts_samples(base, "Warm up the server.", 0)
+        _tts_samples(base, "Warm up the server.", 0, sr)
         before = dict(service.batcher.stats) if service.batcher else None
         n = len(gaps)
         out, errors = [None] * n, []
@@ -107,7 +97,7 @@ def run_load(engine, frontend, mode: str, slots: int, gaps, seed_base: int = SEE
         def one(i):
             t0 = time.time()
             try:
-                samples = _tts_samples(base, TEXTS[i % len(TEXTS)], seed_base + i)
+                samples = _tts_samples(base, TEXTS[i % len(TEXTS)], seed_base + i, sr)
                 out[i] = (time.time() - t0, samples)
             except Exception as e:  # reported below
                 errors.append(f"request {i}: {e}")
@@ -136,7 +126,7 @@ def run_load(engine, frontend, mode: str, slots: int, gaps, seed_base: int = SEE
     rec = dict(mode=mode, requests=n, seed_base=seed_base, **_percentiles("latency_s", lat),
                **_percentiles("ms_per_token", [1e3 * t / max(k, 1) for t, k in zip(lat, each)]),
                wall_s=wall, tokens=tokens, tokens_per_s=tokens / wall,
-               audio_s_per_s=sum(o[1] for o in out) / engine.cfg.sample_rate / wall,
+               audio_s_per_s=sum(o[1] for o in out) / sr / wall,
                latencies_s=lat, tokens_each=each, metrics=metrics)
     if before is not None:
         done = {k: service.batcher.stats[k] - before[k] for k in before}

@@ -221,6 +221,9 @@ def parse_args(argv=None):
     p.add_argument("--logging_steps", type=int, default=100)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    # port only: the synthetic pool's sizes (JAX's fixed 768 and 32 by default)
+    p.add_argument("--pool", type=int, default=768)
+    p.add_argument("--noise_pool", type=int, default=32)
     return p.parse_args(argv)
 
 
@@ -257,7 +260,8 @@ def main(argv=None, on_step=None):
     else:
         vocab = list(VOWEL_SYMBOLS) + list(FRIC_SYMBOLS)
         t0 = time.time()
-        pool = synthetic_pool(args.seconds, args.seed, vocab, max_label=args.max_label)
+        pool = synthetic_pool(args.seconds, args.seed, vocab, pool=args.pool,
+                              noise_pool=args.noise_pool, max_label=args.max_label)
         logger.info("pool: %d clips, %d noise (%.1fs)", len(pool["speech"]),
                     len(pool["noise"]), time.time() - t0)
 

@@ -106,6 +106,9 @@ def parse_args(argv=None):
     p.add_argument("--logging_steps", type=int, default=100)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    # port only: the synthetic pools' sizes (JAX's fixed 768 and 48 by default)
+    p.add_argument("--speech_pool", type=int, default=768)
+    p.add_argument("--noise_pool", type=int, default=48)
     return p.parse_args(argv)
 
 
@@ -146,7 +149,8 @@ def main(argv=None, on_step=None):
         return loss, {"acc": acc}
 
     t0 = time.time()
-    with Prefetch(mixture_batches(args.batch_size, args.seconds, args.seed)) as prefetch:
+    with Prefetch(mixture_batches(args.batch_size, args.seconds, args.seed, args.speech_pool,
+                                  args.noise_pool)) as prefetch:
         batches = iter(prefetch)
         for i in range(args.max_steps):
             wavs, labels = next(batches)

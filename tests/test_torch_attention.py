@@ -4,6 +4,7 @@ which need no JAX, are in test_torch_kernels.py).
 CPU tolerance: f32, atol 2e-5 / rtol 2e-4 (summation order differs between
 XLA and PyTorch; the JAX kernel test uses the same bound)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -70,17 +71,22 @@ DECODE_CASES = [
 ]
 
 
+# the JAX references jitted: one compile per shape where the eager calls
+# dispatched (and the interpreted kernel compiled) op by op
+_JAX_DECODE = jax.jit(jattn.decode_attention)
+_JAX_PALLAS = jax.jit(lambda q, k, v, cl: pallas_decode_attention(q, k, v, cl, s_blk=64,
+                                                                  interpret=True))
+
+
 @pytest.mark.parametrize("b,kblk,s_max,cache_lens", DECODE_CASES)
 def test_decode_attention_matches_jax_and_pallas(b, kblk, s_max, cache_lens):
     q, k, v, cl = _decode_case(b, kblk, s_max, cache_lens, seed=kblk * 100 + b)
     got = n(tattn.decode_attention(t(q), t(k), t(v), t(cl)))
-    want = n(jattn.decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                                    jnp.asarray(cl)))
+    want = n(_JAX_DECODE(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(cl)))
     np.testing.assert_allclose(got, want, **TOL)
     for row in range(b):  # the TPU kernel is single-sequence
-        pallas = pallas_decode_attention(
-            jnp.asarray(q[row]), jnp.asarray(k[row]), jnp.asarray(v[row]),
-            jnp.int32(cl[row]), s_blk=64, interpret=True)
+        pallas = _JAX_PALLAS(jnp.asarray(q[row]), jnp.asarray(k[row]), jnp.asarray(v[row]),
+                             jnp.int32(cl[row]))
         np.testing.assert_allclose(got[row], n(pallas), **TOL)
     # the CPU dispatch takes the plain version
     np.testing.assert_array_equal(

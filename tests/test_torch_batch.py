@@ -26,7 +26,7 @@ from flowmirror_hydravox_tpu_torch.models import llm as tl
 from flowmirror_hydravox_tpu_torch.ops import sampling as ts
 from flowmirror_hydravox_tpu_torch.params import from_numpy_tree
 from flowmirror_hydravox_tpu_torch.runtime.engine import Engine as TorchEngine
-from tests.torch_port_util import JaxReplayNoise, n, seeded_tiny_trees, t
+from tests.torch_port_util import JaxReplayNoise, jit_o0, n, seeded_tiny_trees, t
 
 CFG = tiny_config()
 MAX_TOKENS = 48
@@ -40,13 +40,16 @@ def llm_params():
     return jp, from_numpy_tree(jp, "cpu")
 
 
+# one compile for the module's cases, not one per op (or per case)
+_JAX_PROMPTS = jit_o0(jax.vmap(lambda p, tt, tl_: jl.build_inference_prompt(
+    p, CFG.llm, tt, tl_, jnp.zeros((0,), jnp.int32), jnp.int32(0)), (None, 0, 0)))
+
+
 def _prompts(jp):
     """Three rows of different text lengths, padded to one block."""
     lens = [12, 5, 16]
     text = np.stack([(np.arange(16, dtype=np.int32) * (7 + i)) % 256 for i in range(3)])
-    emb, plen = jax.jit(jax.vmap(lambda p, tt, tl_: jl.build_inference_prompt(  # one compile
-        p, CFG.llm, tt, tl_, jnp.zeros((0,), jnp.int32), jnp.int32(0)), (None, 0, 0)))(
-        jp, jnp.asarray(text), jnp.asarray(lens, jnp.int32))
+    emb, plen = _JAX_PROMPTS(jp, jnp.asarray(text), jnp.asarray(lens, jnp.int32))
     return np.asarray(emb), [int(x) for x in np.asarray(plen)]
 
 
@@ -65,7 +68,7 @@ def test_generate_batched_token_exact(llm_params, heads, jax_path):
         # jitted, as the engine runs it: one compile instead of one per op
         # of its prologue (a new function each call: the decode path is
         # read when it traces)
-        want = jax.jit(lambda p, *a: jl.generate_batched(
+        want = jit_o0(lambda p, *a: jl.generate_batched(
             p, CFG.llm, *a, js.SamplingParams.make(**RAS), inference_head_num=heads,
             max_tokens=MAX_TOKENS))(
             jp, key, jnp.asarray(emb), jnp.asarray(plen, jnp.int32),
@@ -100,7 +103,7 @@ def test_ras_sample_heads_batched_matches_jax_vmap():
     jp = js.SamplingParams.make(top_p=0.8, top_k=10, win_size=10, tau_r=0.1)
     key = jax.random.PRNGKey(9)
 
-    @jax.jit  # one compile for the reference and its draws, not one per op
+    @jit_o0  # one compile for the reference and its draws, not one per op
     def reference(key, *args):
         want = jax.vmap(lambda r, lg, hs, nm, mn: js.ras_sample_heads(r, lg, hs, nm, jp, mn, sts))(
             jax.random.split(key, b), *args)
@@ -141,7 +144,7 @@ def test_flow_inference_with_per_row_prompt_mel_len(flow_params):
     prompt = np.zeros((2, 16, 80), np.float32)
     for r, m in enumerate(pm_len):
         prompt[r, :m] = rng.standard_normal((m, 80))
-    want = jax.jit(lambda p, *a: jflow.inference(p, CFG.flow, *a))(  # one compile, not one per op
+    want = jit_o0(lambda p, *a: jflow.inference(p, CFG.flow, *a))(  # one compile, not one per op
         jp, jnp.asarray(token), jnp.asarray(valid), jnp.asarray(prompt), jnp.asarray(pm_len),
         jnp.asarray(emb))
     got = tflow.inference(tp, CFG.flow, t(token), t(valid), t(prompt), t(pm_len), t(emb))

@@ -38,7 +38,7 @@ from flowmirror_hydravox_tpu_torch.runtime import continuous
 from flowmirror_hydravox_tpu_torch.runtime.continuous import ContinuousBatcher
 from flowmirror_hydravox_tpu_torch.runtime.engine import Engine as TorchEngine
 from flowmirror_hydravox_tpu_torch.runtime.server import TTSService, make_server
-from tests.torch_port_util import JaxReplayNoise, seeded_tiny_trees
+from tests.torch_port_util import JaxReplayNoise, jit_o0, seeded_tiny_trees
 
 CFG = tiny_config()
 MAX_TOKENS = 48
@@ -70,7 +70,7 @@ def _jax_solo_decode(jax_engine, heads):
     call, since the decode path is read when it traces."""
     cap = JaxBatcher(jax_engine, slots=1, head_num=heads).cache_cap
 
-    @jax.jit
+    @jit_o0
     def run(jp, padded, n_text, key, min_len, max_len):
         emb, plen = jl.build_inference_prompt(jp, CFG.llm, padded, n_text,
                                               jnp.zeros((0,), jnp.int32), jnp.int32(0))
@@ -356,12 +356,13 @@ def test_metrics_route(tiny):
 
 @pytest.mark.parametrize("argv,slots", [([], 4), (["--continuous-batching", "0"], 0),
                                         (["--continuous-batching", "3",
-                                          "--continuous-reserve", "2"], 3)])
+                                          "--continuous-reserve", "2", "--with-ui"], 3)])
 def test_launcher_batching_flags(monkeypatch, tiny, argv, slots):
     """The batching flags reach the service: the slots, their head count and
     the slots reserved for streams (default 1, as in the JAX launcher); the
-    launcher asks cuDNN for deterministic algorithms, and hands the server
-    one TrainingManager on its --device and --tiny."""
+    launcher asks cuDNN for deterministic algorithms, hands the server one
+    TrainingManager on its --device and --tiny, and `with_ui` as
+    --with-ui sets it."""
     reserve = 2 if "--continuous-reserve" in argv else 1
     seen = {}
     monkeypatch.setattr(launcher, "build", lambda args: tiny)
@@ -372,7 +373,7 @@ def test_launcher_batching_flags(monkeypatch, tiny, argv, slots):
     assert (type(training).__name__, training.device, training.tiny) == (
         "TrainingManager", "cpu", True)
     assert seen == {"continuous_slots": slots, "continuous_head_num": 2,
-                    "continuous_reserve_stream": reserve}
+                    "continuous_reserve_stream": reserve, "with_ui": "--with-ui" in argv}
     assert torch.backends.cudnn.deterministic
     engine, frontend = tiny
     service = TTSService(engine, frontend, continuous_slots=slots,

@@ -71,7 +71,8 @@ def test_package_imports_with_jax_blocked():
         "             'preprocess.vad_model', 'preprocess.asr_model', 'preprocess.transcribe',\n"
         "             'preprocess.extract_tokens', 'preprocess.merge', 'train.augment',\n"
         "             'train.train_frontend', 'train.train_vad', 'train.train_asr',\n"
-        "             'tools.eval_frontend_real', 'tools.make_demo_samples'):\n"
+        "             'tools.eval_frontend_real', 'tools.make_demo_samples', 'tools.loadgen',\n"
+        "             'tools.bench_serving', 'runtime.webui', 'utils.i18n'):\n"
         "    assert 'flowmirror_hydravox_tpu_torch.' + name in mods, name\n"
         "print(len(mods))\n"
     )

@@ -59,6 +59,12 @@ def _prompt(params):
 
 RAS = dict(top_p=0.9, top_k=10, win_size=24, tau_r=0.2)
 GREEDY = dict(top_p=0.9, top_k=1, win_size=24, tau_r=2.0)  # top_k=1, no fallback
+# JAX's generate jitted, as its engine runs it: one compile per head count
+# where the eager call compiled its loop and each op around it. One jitted
+# function per attention path: the path is read while tracing.
+_JAX_GENERATE = {path: jax.jit(lambda p, *a, heads: jl.generate(
+    p, CFG, *a, inference_head_num=heads, max_tokens=MAX_TOKENS), static_argnames="heads")
+    for path in ("xla", "pallas_interpret")}
 
 
 @pytest.mark.parametrize("heads,sampling,jax_path", [
@@ -74,9 +80,9 @@ def test_generate_token_exact(params, heads, sampling, jax_path):
     key = jax.random.PRNGKey(heads * 10 + (sampling == "ras"))
     set_pallas_decode(jax_path == "pallas_interpret", interpret=True)
     try:
-        want = jl.generate(jp, CFG, key, jnp.asarray(emb), jnp.int32(plen), jnp.int32(min_len),
-                           jnp.int32(max_len), JSP.make(**sp), inference_head_num=heads,
-                           max_tokens=MAX_TOKENS)
+        want = _JAX_GENERATE[jax_path](jp, key, jnp.asarray(emb), jnp.int32(plen),
+                                       jnp.int32(min_len), jnp.int32(max_len), JSP.make(**sp),
+                                       heads=heads)
         want_tokens = np.asarray(want.tokens)
     finally:
         set_pallas_decode(None)
@@ -94,9 +100,8 @@ def test_generate_stops_at_max_len_budget(params):
     jp, tp = params
     emb, plen = _prompt(params)
     key = jax.random.PRNGKey(5)
-    want = jl.generate(jp, CFG, key, jnp.asarray(emb), jnp.int32(plen), jnp.int32(40),
-                       jnp.int32(7), JSP.make(**RAS), inference_head_num=3,
-                       max_tokens=MAX_TOKENS)
+    want = _JAX_GENERATE["xla"](jp, key, jnp.asarray(emb), jnp.int32(plen), jnp.int32(40),
+                                jnp.int32(7), JSP.make(**RAS), heads=3)
     got = tl.generate(tp, CFG, t(emb), plen, 40, 7, TSP.make(**RAS), JaxReplayNoise(key),
                       inference_head_num=3, max_tokens=MAX_TOKENS)
     assert got.num_tokens == int(want.num_tokens) == 7

@@ -31,16 +31,21 @@ def _inputs(m, h, i, seed):
     return [x, *ws]
 
 
+# the JAX references jitted: one compile per shape where the eager calls
+# dispatched (and the interpreted kernel compiled) op by op
+_JAX_KERNEL = jax.jit(lambda *a: pallas_mlp_gemv(*a, tile_i=256, interpret=True))
+_JAX_BLOCK = jax.jit(jq._mlp_block)
+
+
 # (M, H, I): one decode row, K rows, B 8 x K 5 rows, and the tiny config's
 # MTP-head MLP width (22016) at B 3
 @pytest.mark.parametrize("m,h,i", [(1, 64, 256), (5, 64, 512), (40, 64, 256), (3, 64, 22016)])
 def test_plain_version_matches_pallas_kernel_and_mlp_block_f32(m, h, i):
     arrs = _inputs(m, h, i, seed=m + i)
     got = n(tmlp.mlp_gemv_ref(*map(t, arrs)))
-    want_kernel = np.asarray(pallas_mlp_gemv(*map(jnp.asarray, arrs), tile_i=256, interpret=True))
+    want_kernel = np.asarray(_JAX_KERNEL(*map(jnp.asarray, arrs)))
     x, g, u, d = map(jnp.asarray, arrs)
-    want_block = np.asarray(jq._mlp_block(
-        {"gate_proj_w": g, "up_proj_w": u, "down_proj_w": d}, x))
+    want_block = np.asarray(_JAX_BLOCK({"gate_proj_w": g, "up_proj_w": u, "down_proj_w": d}, x))
     np.testing.assert_allclose(got, want_kernel, **F32)
     np.testing.assert_allclose(got, want_block, **F32)
 
@@ -49,8 +54,7 @@ def test_plain_version_matches_pallas_kernel_bf16():
     arrs = _inputs(4, 128, 512, seed=7)
     got = tmlp.mlp_gemv_ref(*(t(a).to(torch.bfloat16) for a in arrs))
     assert got.dtype == torch.bfloat16
-    want = pallas_mlp_gemv(*(jnp.asarray(a, jnp.bfloat16) for a in arrs), tile_i=256,
-                           interpret=True)
+    want = _JAX_KERNEL(*(jnp.asarray(a, jnp.bfloat16) for a in arrs))
     np.testing.assert_allclose(n(got.float()), np.asarray(want, np.float32), **BF16)
 
 

@@ -11,7 +11,7 @@ from flowmirror_hydravox_tpu.models import flow, hift, llm
 from flowmirror_hydravox_tpu.train.checkpoint import _flatten, save_params_npz
 from flowmirror_hydravox_tpu_torch import params as tparams
 from flowmirror_hydravox_tpu_torch.config import tiny_config as torch_tiny_config
-from tests.torch_port_util import seeded_tiny_trees, to_numpy_tree
+from tests.torch_port_util import jit_o0, seeded_tiny_trees, to_numpy_tree
 
 CFG = tiny_config()
 JAX_INIT = {
@@ -26,20 +26,11 @@ TORCH_INIT = {
 }
 
 
-def _jax_init(init, key):
-    """`init(key)` jitted, at XLA's lowest backend optimisation level: one
-    compile instead of one per op (the eager init of HiFT alone takes tens of
-    seconds on the CPU), and a program that runs once spent most of its
-    compile (HiFT's ~18 s) in LLVM's optimisation passes."""
-    options = {"xla_backend_optimization_level": 0}
-    return jax.jit(init).lower(key).compile(compiler_options=options)(key)
-
-
 @pytest.fixture(scope="module")
 def jax_trees():
-    """The JAX init of each tree."""
+    """The JAX init of each tree, jitted at the lowest backend level."""
     keys = jax.random.split(jax.random.PRNGKey(0), 3)
-    return {name: to_numpy_tree(_jax_init(lambda k, f=JAX_INIT[name]: f(k, jnp.float32), k))
+    return {name: to_numpy_tree(jit_o0(lambda k, f=JAX_INIT[name]: f(k, jnp.float32))(k))
             for name, k in zip(("llm", "flow", "hift"), keys)}
 
 
@@ -60,7 +51,7 @@ def test_npz_roundtrip_keeps_keys_shapes_values(name, jax_trees, tmp_path):
 def test_npz_bf16_is_cast_back_and_noise_stays_f32(tmp_path):
     """bf16 trees are stored as f32; a bf16 load casts them back, except the
     f32 flow noise buffer."""
-    tree = _jax_init(lambda k: flow.init_params(k, CFG.flow, jnp.bfloat16), jax.random.PRNGKey(1))
+    tree = jit_o0(lambda k: flow.init_params(k, CFG.flow, jnp.bfloat16))(jax.random.PRNGKey(1))
     path = str(tmp_path / "flow.npz")
     save_params_npz(path, tree)
     loaded = tparams.load_params_npz(path, "cpu", dtype=torch.bfloat16)

@@ -19,6 +19,7 @@ each JAX program compiles once."""
 
 import os
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -121,7 +122,8 @@ def test_asr_logits_match_jax(jax_asr_native):
     wav = np.stack([_heldout(1)[0], _heldout(2)[0]])
     wav[1, 50_000:] = 0.0
     lens = np.array([wav.shape[1], 50_000], np.int32)
-    want, want_pad = jax_asr.logits(jax_asr_native.params, jax_asr_native.cfg, wav, lens)
+    want, want_pad = jax.jit(jax_asr.logits, static_argnums=1)(  # one compile, not one per op
+        jax_asr_native.params, jax_asr_native.cfg, wav, lens)
     got, got_pad = asr_model.logits(port.params, port.cfg, t(wav), t(lens))
     np.testing.assert_array_equal(n(got_pad), np.asarray(want_pad))
     np.testing.assert_allclose(n(got), np.asarray(want), rtol=0, atol=LOGIT_ATOL)

@@ -18,10 +18,13 @@ itself is held against JAX in tests/test_torch_quant.py.
   live tree is the new checkpoint's, quantized (int8 leaves with their
   scales), and decodes the tokens of a fresh int8 engine on it;
 - tools/eval_int8.py on the CPU: its JSON line, and every token of a tree
-  held against itself agreeing."""
+  held against itself agreeing; JAX's command line (`--text_len`, the
+  `--tiny` clamps) and every field of JAX's JSON line."""
 
+import ast
 import contextlib
 import json
+import pathlib
 import threading
 import urllib.request
 
@@ -229,11 +232,39 @@ def test_load_pt_into_int8_server(tmp_path):
 
 def test_eval_int8_runs_on_cpu(capsys):
     out = eval_int8.main(["--tiny", "--device", "cpu", "--utterances", "2", "--tokens", "24",
-                          "--text-len", "8"])
+                          "--text_len", "8"])
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == out
     assert out["probes"] == 4 and len(out["kl_dense_int8_per_head"]) == CFG.llm.head_num
     assert 0 < out["greedy_token_agreement"] <= 1 and max(out["kl_dense_int8_per_head"]) >= 0
     dense = from_numpy_tree(seeded_tiny_trees()[0], "cpu")
     same = eval_int8.evaluate(CFG.llm, dense, dense, utterances=1, tokens=16, text_len=8,
                               device="cpu")
-    assert same["greedy_seq_match"] == "1/1" and same["kl_dense_int8_max"] == 0.0
+    assert same["greedy_seq_match"] == "1/1" and same["kl_bf16_int8_max"] == 0.0
+
+
+def _jax_eval_int8_fields() -> set:
+    """The keys of the dict JAX's tools/eval_int8.py prints, read from its
+    source (running it would compile the JAX engine twice)."""
+    src = pathlib.Path(__file__).resolve().parents[1] / "flowmirror_hydravox_tpu" / "tools" / \
+        "eval_int8.py"
+    for node in ast.walk(ast.parse(src.read_text())):
+        if (isinstance(node, ast.Assign) and getattr(node.targets[0], "id", None) == "out"
+                and isinstance(node.value, ast.Call)):
+            return {kw.arg for kw in node.value.keywords}
+    raise AssertionError("no `out = dict(...)` in JAX's eval_int8")
+
+
+def test_eval_int8_takes_jax_flags_and_fields(capsys):
+    jax_fields = _jax_eval_int8_fields()
+    assert {"kl_bf16_int8_mean", "kl_bf16_int8_max", "top1_agreement",
+            "first_divergence_tokens"} <= jax_fields
+    out = eval_int8.main(["--tiny", "--device", "cpu", "--utterances", "1", "--tokens", "64",
+                          "--text_len", "40"])
+    assert (out["tokens"], out["text_len"]) == (32, 16)  # JAX's --tiny clamps
+    assert jax_fields <= out.keys()
+    assert out["first_divergence_tokens"] is None or isinstance(out["first_divergence_tokens"],
+                                                                  int)
+    assert out["kl_bf16_int8_mean"] == pytest.approx(np.mean(out["kl_dense_int8_per_head"]),
+                                                     abs=1e-6)
+    assert 0 <= out["kl_bf16_int8_mean"] <= out["kl_bf16_int8_max"]
+    assert out["top1_agreement"] == round(float(np.mean(out["top1_agreement_per_head"])), 4)

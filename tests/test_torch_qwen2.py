@@ -14,7 +14,7 @@ from flowmirror_hydravox_tpu.models import qwen2 as jq
 from flowmirror_hydravox_tpu.ops.attention import set_pallas_decode
 from flowmirror_hydravox_tpu_torch.models import qwen2 as tq
 from flowmirror_hydravox_tpu_torch.params import from_numpy_tree
-from tests.torch_port_util import n, t, to_numpy_tree
+from tests.torch_port_util import jit_o0, n, t, to_numpy_tree
 
 TOL = dict(atol=2e-5, rtol=2e-4)
 CFG = tiny_config().llm.backbone
@@ -56,8 +56,8 @@ def test_prefill_and_decode_blocks_match_jax(params, jax_path):
     try:
         # jitted: one compile per block shape, not one per op; a new program
         # for each path, since the decode path is read when it traces
-        block = jax.jit(lambda p, x, c, adv: jq.forward_block_with_cache(p, CFG, x, c,
-                                                                          advance=adv))
+        block = jit_o0(lambda p, x, c, adv: jq.forward_block_with_cache(p, CFG, x, c,
+                                                                         advance=adv))
         for x, adv in zip(blocks, advances):
             jh, jcache = block(params, jnp.asarray(x), jcache, jnp.asarray([adv], jnp.int32))
             th, tcache = tq.forward_block_with_cache(
@@ -81,5 +81,6 @@ def test_batched_rows_with_different_lengths(params):
     got, _ = tq.forward_block_with_cache(tparams, CFG, t(x), cache)
     jcache = jq.init_kv_cache(CFG, 2, 256, dtype=jnp.float32)._replace(
         length=jnp.asarray([5, 17], jnp.int32))
-    want, _ = jq.forward_block_with_cache(params, CFG, jnp.asarray(x), jcache)
+    want, _ = jit_o0(lambda p, x, c: jq.forward_block_with_cache(p, CFG, x, c))(  # one compile
+        params, jnp.asarray(x), jcache)
     np.testing.assert_allclose(n(got), n(want), **TOL)

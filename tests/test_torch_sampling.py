@@ -12,7 +12,7 @@ import torch
 
 from flowmirror_hydravox_tpu.ops import sampling as js
 from flowmirror_hydravox_tpu_torch.ops import sampling as ts
-from tests.torch_port_util import n, t
+from tests.torch_port_util import jit_o0, n, t
 
 V, STS = 58, 50  # tiny vocab: speech tokens 0..49, stop ids 50..57
 JP = js.SamplingParams.make(top_p=0.8, top_k=10, win_size=10, tau_r=0.1)
@@ -34,6 +34,10 @@ def _history(seed, num, repeat_of=None):
     return h
 
 
+# one compile for the cases, not one per op
+_JAX_RAS_DIST = jit_o0(lambda lg, hist, num, eos: js.ras_dist(lg, hist, num, JP, eos, STS))
+
+
 @pytest.mark.parametrize("seed,num,ignore_eos,repeat", [
     (0, 0, False, False), (1, 12, False, False), (2, 12, True, False), (3, 15, False, True),
     (4, 8, True, True)])
@@ -41,8 +45,8 @@ def test_ras_dist_matches_jax(seed, num, ignore_eos, repeat):
     logits = _logits(seed)
     top = int(np.argmax(logits[:STS]))
     hist = _history(seed, num, repeat_of=top if repeat else None)
-    want = n(js.ras_dist(jnp.asarray(logits), jnp.asarray(hist), jnp.int32(num), JP,
-                         jnp.bool_(ignore_eos), STS))
+    want = n(_JAX_RAS_DIST(jnp.asarray(logits), jnp.asarray(hist), jnp.int32(num),
+                           jnp.bool_(ignore_eos)))
     got = n(ts.ras_dist(t(logits), t(hist), num, TP, ignore_eos, STS))
     np.testing.assert_array_equal(got > 0, want > 0)
     np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-6)
@@ -71,7 +75,7 @@ def _jax_head_noise(key, k):
 
 # the JAX sampler jitted, as the JAX decode loops run it: one compile where
 # each eager call dispatched its ops one by one (~0.4 s a call)
-_JAX_SAMPLE_HEADS = jax.jit(lambda key, logits, hist, num, min_len: js.ras_sample_heads(
+_JAX_SAMPLE_HEADS = jit_o0(lambda key, logits, hist, num, min_len: js.ras_sample_heads(
     key, logits, hist, num, JP, min_len, STS))
 
 

@@ -1,11 +1,15 @@
 """The port's HTTP server on the CPU (tiny config, random weights): the SFT
 REST schema, its error codes, the launcher's device rule, and the JAX
 server's routes: a multi-segment text as one flash batch, and window
-coalescing of concurrent requests."""
+coalescing of concurrent requests. Around it: tools/loadgen.py against the
+JAX package's copy on one server, and the web UI (`--with-ui`) against the
+JAX page."""
 
+import ast
 import base64
 import io
 import json
+import pathlib
 import threading
 import urllib.error
 import urllib.request
@@ -17,10 +21,18 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import ui_api_calls, ui_sets
+from flowmirror_hydravox_tpu.runtime import webui as jax_webui
+from flowmirror_hydravox_tpu.tools import loadgen as jax_loadgen
 from flowmirror_hydravox_tpu_torch import __main__ as launcher
 import tests.torch_port_util  # noqa: F401  (one torch thread per test worker)
+from flowmirror_hydravox_tpu_torch.runtime import webui
 from flowmirror_hydravox_tpu_torch.runtime.engine import Engine
 from flowmirror_hydravox_tpu_torch.runtime.server import TTSService, make_server
+from flowmirror_hydravox_tpu_torch.tools import loadgen
+
+JAX_ROOT = pathlib.Path(__file__).resolve().parents[1] / "flowmirror_hydravox_tpu"
+NOT_FOUND = {"success": False, "message": "not found", "data": None, "error": "not found"}
 
 TWO_SEGMENTS = "The first sentence is here! And a second one follows."
 
@@ -178,3 +190,71 @@ def test_failed_group_answers_each_request_with_the_error(tiny, monkeypatch):
         assert service.batched_requests == 0
     assert results == [{"error": "the batch failed"}] * 3
     assert calls == []
+
+
+def jax_flags(path: pathlib.Path) -> set:
+    """The option strings of every add_argument in a JAX source file."""
+    return {a.value for node in ast.walk(ast.parse(path.read_text()))
+            if isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "add_argument"
+            for a in node.args if isinstance(a, ast.Constant)}
+
+
+@pytest.mark.parametrize("mode,arrival", [("tts", "closed"), ("stream", "poisson")])
+def test_loadgen_matches_jax_loadgen(server_url, capsys, mode, arrival):
+    """One command line, every flag of JAX's loadgen, through both copies
+    against one port server: the same fields, every request answered."""
+    argv = ["--url", server_url, "--speaker", "default", "--text", "hello there world",
+            "--mode", mode, "--arrival", arrival, "--rate", "4", "--concurrency", "2",
+            "--duration", "1.5", "--head-num", "2", "--timeout", "120", "--warmup", "1"]
+    assert {a for a in argv if a.startswith("--")} == jax_flags(JAX_ROOT / "tools" / "loadgen.py")
+    jax_loadgen.main(argv)
+    jax_out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    out = loadgen.main(argv)
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == out
+    assert out.keys() == jax_out.keys()
+    for res in (jax_out, out):
+        assert res["requests"] > 0 and res["errors"] == 0, res
+        assert (res["mode"], res["arrival"]) == (mode, arrival)
+        assert res["latency_p95_ms"] >= res["latency_p50_ms"] > 0
+        assert (res["ttft_p50_ms"] is not None) == (mode == "stream")
+        assert res["batched_requests"] is not None and res["continuous_requests"] == 0
+
+
+def test_web_ui_page_and_routes(tiny, server_url):
+    """The port's page against JAX's, served at GET / with `with_ui` (and
+    not without), and every route the page calls served by the port (a
+    route's own 404 for an unknown id counts; the unknown-route 404 does
+    not)."""
+    page, jax_page = webui.INDEX_HTML, jax_webui.INDEX_HTML
+    sets = ui_sets(page)
+    assert sets, "I18N table not found"
+    assert sets["tabs"] == {"tts", "zeroshot", "data", "training", "models", "speakers"}
+    assert sets["en"] == sets["zh"] and len(sets["en"]) > 30 and sets["markers"] <= sets["en"]
+    assert sets == ui_sets(jax_page)
+    calls = ui_api_calls(page)
+    assert calls == ui_api_calls(jax_page)
+    assert {path for path, _ in calls} == {
+        "/speakers", "/speakers/add", "/speakers/remove/", "/tts", "/samples", "/samples/load",
+        "/zero-shot", "/devices", "/data/run", "/training/start", "/training/status/",
+        "/training/stop/", "/models/list", "/models/delete", "/models/convert", "/load_pt"}
+    assert launcher.parse_args(["--with-ui"]).with_ui and not launcher.parse_args([]).with_ui
+
+    with urllib.request.urlopen(server_url + "/", timeout=60) as r:
+        assert json.load(r) == {"status": "ok"}
+    engine, frontend = tiny
+    server = make_server("127.0.0.1", 0, engine, frontend, request_timeout=300.0, with_ui=True)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        with urllib.request.urlopen(base + "/", timeout=60) as r:
+            assert r.headers["Content-Type"] == "text/html; charset=utf-8"
+            assert r.read().decode("utf-8") == page
+        assert _call(base + "/health") == (200, {"status": "ok"})
+        for path, method in calls + [("/training/plot/", "GET")]:
+            url = base + "/api/v1" + path + ("no-such-id" if path.endswith("/") else "")
+            code, body = _call(url, {} if method == "POST" else None)
+            assert body != NOT_FOUND, (path, method, code)
+    finally:
+        server.shutdown()
+        server.RequestHandlerClass.service.shutdown()
+        server.server_close()

@@ -29,7 +29,7 @@ from flowmirror_hydravox_tpu_torch.models import llm as tl
 from flowmirror_hydravox_tpu_torch.noise import TorchNoise
 from flowmirror_hydravox_tpu_torch.ops import sampling as ts
 from flowmirror_hydravox_tpu_torch.params import from_numpy_tree
-from tests.torch_port_util import JaxReplayNoise, n, seeded_tiny_trees, t
+from tests.torch_port_util import JaxReplayNoise, jit_o0, n, seeded_tiny_trees, t
 
 CFG = tiny_config()
 MAX_TOKENS = 40
@@ -42,10 +42,12 @@ def llm_params():
     return jp, from_numpy_tree(jp, "cpu")
 
 
-@jax.jit  # one compile per text length, not one per op
-def _jax_prompt(jp, text, n_text):
+def _jax_prompt_fn(jp, text, n_text):
     return jl.build_inference_prompt(jp, CFG.llm, text, n_text, jnp.zeros((0,), jnp.int32),
                                      jnp.int32(0))
+
+
+_jax_prompt = jit_o0(_jax_prompt_fn)  # one compile per text length, not one per op
 
 
 def _prompt(jp, text):
@@ -133,7 +135,7 @@ def test_generate_batched_speculative_matches_jax(llm_params):
     jp, tp = llm_params
     lens = [12, 5, 16, 9]
     text = np.stack([(np.arange(16, dtype=np.int32) * (7 + i)) % 256 for i in range(4)])
-    emb, plen = jax.jit(jax.vmap(_jax_prompt, (None, 0, 0)))(  # one compile
+    emb, plen = jit_o0(jax.vmap(_jax_prompt_fn, (None, 0, 0)))(  # one compile
         jp, jnp.asarray(text), jnp.asarray(lens, jnp.int32))
     min_len, max_len = [6, 7, 3, 0], [34, 7, 25, 0]
     key = jax.random.PRNGKey(77)

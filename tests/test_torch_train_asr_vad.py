@@ -23,7 +23,6 @@ The ASR runs at a narrow config (d 32, 2 heads, 1 block) and both trainers'
 pools are cut to a few clips (the CLIs' defaults synthesize 768); each JAX
 program is jitted and compiles once."""
 
-import functools
 import itertools
 import pathlib
 
@@ -269,15 +268,13 @@ def test_dataset_batches_match_jax(tmp_path):
         train_asr.dataset_batches(str(tmp_path / "ds"), 3, 0.1, 4, "", 20)
 
 
-def test_clis_write_checkpoints_both_packages_load(tmp_path, monkeypatch):
-    monkeypatch.setattr(train_vad, "mixture_batches",
-                        functools.partial(train_vad.mixture_batches, **SMALL_POOLS))
-    monkeypatch.setattr(train_asr, "synthetic_pool", functools.partial(
-        train_asr.synthetic_pool, pool=SMALL_POOLS["speech_pool"],
-        noise_pool=SMALL_POOLS["noise_pool"]))
-    common = ["--batch_size", "4", "--max_steps", "2", "--logging_steps", "1", "--device", "cpu"]
-    vad_state = train_vad.main(["--output_dir", str(tmp_path / "vad"), "--seconds", "1", *common])
-    asr_state = train_asr.main(["--output_dir", str(tmp_path / "asr"), "--seconds", "2", *common])
+def test_clis_write_checkpoints_both_packages_load(tmp_path):
+    common = ["--batch_size", "4", "--max_steps", "2", "--logging_steps", "1", "--device", "cpu",
+              "--noise_pool", str(SMALL_POOLS["noise_pool"])]
+    vad_state = train_vad.main(["--output_dir", str(tmp_path / "vad"), "--seconds", "1",
+                                "--speech_pool", str(SMALL_POOLS["speech_pool"]), *common])
+    asr_state = train_asr.main(["--output_dir", str(tmp_path / "asr"), "--seconds", "2",
+                                "--pool", str(SMALL_POOLS["speech_pool"]), *common])
     assert vad_state.step == asr_state.step == 2
     vad_path, asr_path = str(tmp_path / "vad" / "vad.npz"), str(tmp_path / "asr" / "asr.npz")
     jax_vad, port_vad = jvad.NativeVAD(vad_path), vad_model.NativeVAD(vad_path, device="cpu")

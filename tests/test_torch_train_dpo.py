@@ -40,7 +40,7 @@ from flowmirror_hydravox_tpu_torch.models import qwen2 as tq
 from flowmirror_hydravox_tpu_torch.params import flatten_params, load_params_npz
 from flowmirror_hydravox_tpu_torch.train import data, train_dpo
 from flowmirror_hydravox_tpu_torch.train import steps as ts
-from tests.torch_port_util import n, seeded_tiny_trees, t
+from tests.torch_port_util import jit_o0, n, seeded_tiny_trees, t
 
 CFG = tiny_config().llm
 JCFG = jax_tiny_config().llm
@@ -107,7 +107,7 @@ def test_dpo_loss_matches_jax_in_each_variant():
 def test_forward_dpo_matches_jax(npz_tree):
     tree, path = npz_tree
     batch = _batch(1)
-    want = jax.jit(lambda p, *a: jx.forward_dpo(p, JCFG, *a))(
+    want = jit_o0(lambda p, *a: jx.forward_dpo(p, JCFG, *a))(
         _jax(tree), *[jnp.asarray(batch[k]) for k in KEYS])
     got = tx.forward_dpo(load_params_npz(path, "cpu"), CFG, *[t(batch[k]) for k in KEYS])
     assert set(got) == set(want)
@@ -121,7 +121,7 @@ def test_dpo_train_steps_match_jax(npz_tree):
     batch = _batch(2)
     jb, tb = {k: jnp.asarray(v) for k, v in batch.items()}, ts.batch_to(batch, "cpu")
     jopt, topt = js.make_optimizer(js.OptimConfig(**OPT)), ts.Optimizer(ts.OptimConfig(**OPT))
-    jstep = jax.jit(lambda s, rp, b: js.dpo_train_step(s, rp, b, JCFG, jopt))
+    jstep = jit_o0(lambda s, rp, b: js.dpo_train_step(s, rp, b, JCFG, jopt))
     jstate, jref = js.init_state(_jax(tree), jopt), _jax(tree)
     policy = load_params_npz(path, "cpu")
     ref = train_dpo.frozen_copy(policy)
@@ -147,7 +147,7 @@ def test_dpo_grad_accum_matches_jax_and_the_full_batch(npz_tree):
     batch = _batch(3, chosen=(12,) * 4, rejected=(12,) * 4, text=(8,) * 4, lr=12)
     jb, tb = {k: jnp.asarray(v) for k, v in batch.items()}, ts.batch_to(batch, "cpu")
     jopt, topt = js.make_optimizer(js.OptimConfig(**OPT)), ts.Optimizer(ts.OptimConfig(**OPT))
-    jstate, jm = jax.jit(lambda s, rp, b: js.dpo_train_step(s, rp, b, JCFG, jopt, accum_steps=2))(
+    jstate, jm = jit_o0(lambda s, rp, b: js.dpo_train_step(s, rp, b, JCFG, jopt, accum_steps=2))(
         js.init_state(_jax(tree), jopt), _jax(tree), jb)
     ref = load_params_npz(path, "cpu")
     acc_state, acc_m = ts.dpo_train_step(ts.init_state(load_params_npz(path, "cpu"), topt), ref,

@@ -30,7 +30,7 @@ from flowmirror_hydravox_tpu_torch.models import flow as tflow
 from flowmirror_hydravox_tpu_torch.noise import TorchNoise
 from flowmirror_hydravox_tpu_torch.params import flatten_params, from_numpy_tree, unflatten_params
 from flowmirror_hydravox_tpu_torch.train import steps as ts
-from tests.torch_port_util import JaxReplayNoise, n, seeded_tiny_trees, t
+from tests.torch_port_util import JaxReplayNoise, jit_o0, n, seeded_tiny_trees, t
 
 CFG = tiny_config().flow
 JCFG = jax_tiny_config().flow
@@ -75,7 +75,7 @@ def test_dit_forward_with_dropout_matches_jax():
                           jax.random.bernoulli(k2, 0.9, (b, tm, ecfg.dim * ecfg.ff_mult))))
         return out, masks
 
-    want, jmasks = jax.jit(reference)(jax.tree.map(jnp.asarray, est), key, *map(jnp.asarray, (
+    want, jmasks = jit_o0(reference)(jax.tree.map(jnp.asarray, est), key, *map(jnp.asarray, (
         x, mask, mu, tt, spks, cond)))
     masks = [tuple(t(np.asarray(m)) for m in pair) for pair in jmasks]
     got = tdit.forward(from_numpy_tree(est, "cpu"), ecfg, *map(t, (x, mask, mu, tt, spks, cond)),
@@ -95,7 +95,7 @@ def test_compute_loss_and_gradients_match_jax():
     assert use_cond.any() and not use_cond.all() and kept.any() and not kept.all(), (use_cond, kept)
 
     jb = [jnp.asarray(batch[k]) for k in KEYS]
-    want_loss, want = jax.jit(jax.value_and_grad(
+    want_loss, want = jit_o0(jax.value_and_grad(
         lambda p: jflow.compute_loss(p, JCFG, key, *jb)))(jax.tree.map(jnp.asarray, _tree()))
     want = flatten_params(jax.tree.map(np.asarray, want))
     leaves = ts.tree_leaves(from_numpy_tree(_tree(), "cpu"))
@@ -117,7 +117,7 @@ def _steps(accum, keys, batch):
     topt = ts.Optimizer(ts.OptimConfig(**OPTIM))
     jstate = js.init_state(jax.tree.map(jnp.asarray, _tree()), jopt)
     tstate = ts.init_state(from_numpy_tree(_tree(), "cpu"), topt)
-    step = jax.jit(lambda s, b, r: js.flow_train_step(s, b, r, JCFG, jopt, accum_steps=accum))
+    step = jit_o0(lambda s, b, r: js.flow_train_step(s, b, r, JCFG, jopt, accum_steps=accum))
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     tb = ts.batch_to(batch, "cpu")
     for i, key in enumerate(keys):

@@ -49,7 +49,7 @@ from flowmirror_hydravox_tpu_torch.train.data import Prefetch
 from flowmirror_hydravox_tpu_torch.train.synth_speech import synth_utterance
 from flowmirror_hydravox_tpu_torch.utils import audio
 from flowmirror_hydravox_tpu_torch.utils.wavio import encode_wav
-from tests.torch_port_util import n, t
+from tests.torch_port_util import jit_o0, n, t
 
 TOK_CFG = jst.SpeechTokenizerConfig(dim=64, num_layers=2, num_heads=4)
 SPK_CFG = jst.SpeakerEncoderConfig(dim=32, num_layers=2)
@@ -107,7 +107,7 @@ def _jax_step(loss_fn, params, *batch):
     optimizer = js.make_optimizer(js.OptimConfig(**OPT))
     state = js.init_state(params, optimizer)
 
-    @jax.jit
+    @jit_o0
     def step(params, opt_state, *batch):
         (loss, metrics), grads = jax.value_and_grad(
             lambda p: loss_fn(p, *batch), has_aux=True)(params)
@@ -176,7 +176,7 @@ def speaker_case(tmp_path_factory):
     jparams = {"spk": jst.init_speaker_params(k1, SPK_CFG),
                "classifier": jax.random.normal(k2, (N_SPK, SPK_CFG.embed_dim)) * 0.05}
     wavs = _clips(6, 0.5, seed=11)
-    feats = np.asarray(jax.jit(jax.vmap(
+    feats = np.asarray(jit_o0(jax.vmap(
         lambda x: jaudio.kaldi_fbank(x, 16000, SPK_CFG.n_mels)))(wavs))
     labels = np.array([0, 1, 2, 3, 1, 2], np.int32)
 
@@ -203,7 +203,7 @@ def test_kaldi_fbank_and_htk_filterbank_match_jax():
             np.testing.assert_array_equal(audio.mel_filterbank(*args, None, htk),
                                           jaudio.mel_filterbank(*args, None, htk))
     wavs = _clips(4, 1.0, seed=7)
-    want = np.asarray(jax.jit(jax.vmap(lambda w: jaudio.kaldi_fbank(w, 16000, 80)))(wavs))
+    want = np.asarray(jit_o0(jax.vmap(lambda w: jaudio.kaldi_fbank(w, 16000, 80)))(wavs))
     got = n(audio.kaldi_fbank(t(wavs)))
     assert got.shape == want.shape == (4, 98, 80)
     assert np.isfinite(got).all()
@@ -224,8 +224,8 @@ def test_fsq_quantize_ste_values_and_gradient():
     levels = TOK_CFG.fsq_levels
     v = np.tanh(z.astype(np.float64))  # lattice coordinate x (L - 1) / 2 = 1 for L = 3
     assert np.abs(np.abs(v - np.floor(v)) - 0.5).min() > 1e-4
-    want_q = np.asarray(jax.jit(lambda x: jst.fsq_quantize_ste(x, levels))(jnp.asarray(z)))
-    want, want_grad = jax.jit(jax.value_and_grad(
+    want_q = np.asarray(jit_o0(lambda x: jst.fsq_quantize_ste(x, levels))(jnp.asarray(z)))
+    want, want_grad = jit_o0(jax.value_and_grad(
         lambda x: jnp.sum(jst.fsq_quantize_ste(x, levels) * w)))(jnp.asarray(z))
     zt = t(z).requires_grad_(True)
     q = st.fsq_quantize_ste(zt, levels)

@@ -47,7 +47,7 @@ from flowmirror_hydravox_tpu_torch.ops import decode_attention as tda
 from flowmirror_hydravox_tpu_torch.ops import mlp_gemv as tmlp
 from flowmirror_hydravox_tpu_torch.params import flatten_params, load_params_npz
 from flowmirror_hydravox_tpu_torch.train import steps as ts
-from tests.torch_port_util import n, seeded_tiny_trees, t
+from tests.torch_port_util import jit_o0, n, seeded_tiny_trees, t
 
 CFG = tiny_config().llm
 JCFG = jax_tiny_config().llm
@@ -78,14 +78,14 @@ def _loss_and_acc(params, *batch):
 
 # JAX's loss, accuracy and gradients at JCFG: one compile for the module's
 # tests (the batches share one shape)
-_JAX_VALUE_AND_GRAD = jax.jit(jax.value_and_grad(_loss_and_acc, has_aux=True))
+_JAX_VALUE_AND_GRAD = jit_o0(jax.value_and_grad(_loss_and_acc, has_aux=True))
 
 
 @pytest.fixture(scope="module")
 def npz_tree(tmp_path_factory):
     """A JAX-initialised f32 LLM tree, its heads' MLP cut to the first
     HEAD_MLP of its 22016 columns: (numpy tree, path of its npz)."""
-    tree = jax.tree.map(np.asarray, jax.jit(lambda k: jl.init_params(k, JCFG, jnp.float32))(
+    tree = jax.tree.map(np.asarray, jit_o0(lambda k: jl.init_params(k, JCFG, jnp.float32))(
         jax.random.PRNGKey(0)))
     heads = tree["mtp_block"]
     for name in ("gate_proj_w", "up_proj_w"):
@@ -118,7 +118,7 @@ def test_forward_matches_jax(npz_tree):
     rng = np.random.default_rng(1)
     x = rng.standard_normal((3, 11, CFG.backbone.hidden_size)).astype(np.float32)
     lengths = np.array([11, 6, 1], np.int32)
-    want = jax.jit(lambda p, *a: jq.forward(p, JCFG.backbone, *a))(
+    want = jit_o0(lambda p, *a: jq.forward(p, JCFG.backbone, *a))(
         _jax(tree)["backbone"], jnp.asarray(x), jnp.asarray(lengths))
     got = tq.forward(load_params_npz(path, "cpu")["backbone"], CFG.backbone, t(x), t(lengths))
     np.testing.assert_allclose(n(got), np.asarray(want), atol=1e-5, rtol=1e-5)
@@ -130,8 +130,8 @@ def test_forward_loss_matches_jax_for_each_loss_option(npz_tree):
     batch = _batch(2)
     jb, tb = [jnp.asarray(batch[k]) for k in KEYS], [t(batch[k]) for k in KEYS]
     t_total = 2 + batch["text_token"].shape[1] + batch["speech_token"].shape[1]
-    lm_in, lm_len, targets = jax.jit(lambda p, *b: (*jl.build_lm_input(p, JCFG, *b),
-                                                    jl.build_lm_targets(JCFG, *b[1:], t_total)))(
+    lm_in, lm_len, targets = jit_o0(lambda p, *b: (*jl.build_lm_input(p, JCFG, *b),
+                                                   jl.build_lm_targets(JCFG, *b[1:], t_total)))(
         jp, *jb)
     got_in, got_len = tl.build_lm_input(tp, CFG, *tb)
     np.testing.assert_array_equal(n(got_in), np.asarray(lm_in))
@@ -145,7 +145,7 @@ def test_forward_loss_matches_jax_for_each_loss_option(npz_tree):
     # other three from one program
     assert (JCFG.lsm_weight, JCFG.length_normalized_loss) == options[0]
     (loss, acc), _ = _JAX_VALUE_AND_GRAD(jp, *jb)
-    wants = [{"loss": loss, "acc": acc}] + jax.jit(
+    wants = [{"loss": loss, "acc": acc}] + jit_o0(
         lambda p, *b: [jl.forward_loss(p, c, *b) for c in jcfgs[1:]])(jp, *jb)
     for (lsm, norm), want in zip(options, wants):
         what = f"lsm_weight {lsm}, length_normalized_loss {norm}"
@@ -198,7 +198,7 @@ def test_train_steps_match_jax_under_each_schedule(npz_tree):
                 np.testing.assert_allclose(got(count), float(want(jnp.int32(count))),
                                            rtol=1e-6, err_msg=f"{name} at count {count}")
         jstate, tstate = js.init_state(_jax(tree), jopt), ts.init_state(load_params_npz(path, "cpu"), topt)
-        apply = jax.jit(lambda s, g: js._apply_grads(s, g, jopt))
+        apply = jit_o0(lambda s, g: js._apply_grads(s, g, jopt))
         for i in range(3):
             (loss, acc), grads = _JAX_VALUE_AND_GRAD(jstate.params, *jb)
             jstate, gnorm = apply(jstate, grads)
@@ -221,7 +221,7 @@ def test_nonfinite_gradient_skips_the_update(npz_tree):
               for k, v in flatten_params(tree).items()}
     bad = dict(finite)
     bad["llm_decoder"] = np.full_like(finite["llm_decoder"], np.nan)
-    apply = jax.jit(lambda s, g: js._apply_grads(s, g, jopt))
+    apply = jit_o0(lambda s, g: js._apply_grads(s, g, jopt))
     for grads, finite_norm in ((bad, False), (finite, True)):
         jgrads = _jax(_tree_of(list(grads.items())))
         jstate, jnorm = apply(jstate, jgrads)
@@ -244,7 +244,7 @@ def test_grad_accum_matches_jax_and_the_full_batch(npz_tree):
     tb = ts.batch_to(batch, "cpu")
     oc = dict(learning_rate=1e-4, warmup_steps=1, total_steps=100)
     jopt, topt = js.make_optimizer(js.OptimConfig(**oc)), ts.Optimizer(ts.OptimConfig(**oc))
-    jstate, jm = jax.jit(lambda s, b: js.llm_train_step(s, b, JCFG, jopt, accum_steps=2))(
+    jstate, jm = jit_o0(lambda s, b: js.llm_train_step(s, b, JCFG, jopt, accum_steps=2))(
         js.init_state(_jax(tree), jopt), jb)
     acc_state, acc_m = ts.llm_train_step(ts.init_state(load_params_npz(path, "cpu"), topt), tb,
                                          CFG, topt, accum_steps=2)
@@ -277,7 +277,7 @@ def test_optimizer_matches_optax_on_f32_and_bf16_trees():
         jstate = js.init_state(_jax(_tree_of([(k, v.astype(jdt)) for k, v in p32.items()])), jopt)
         tstate = ts.init_state(_tree_of([(k, t(v, tdt)) for k, v in p32.items()]), topt)
         never = tstate.params["never"].detach().to(torch.float32).clone()
-        apply = jax.jit(lambda s, g: js._apply_grads(s, g, jopt))
+        apply = jit_o0(lambda s, g: js._apply_grads(s, g, jopt))
         for i, g in enumerate(steps):
             jstate, jnorm = apply(jstate, _jax(_tree_of([(k, v.astype(jdt)) for k, v in g.items()])))
             tnorm = ts._apply(tstate, {k: t(v, tdt) for k, v in g.items()}, topt)

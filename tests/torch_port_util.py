@@ -54,6 +54,25 @@ def to_numpy_tree(tree):
     return jax.tree.map(lambda a: np.asarray(a), tree)
 
 
+def jit_o0(fn):
+    """The JAX reference `fn` jitted at XLA's lowest backend optimisation
+    level, compiled once per argument shape: one compile where an eager call
+    compiles each op (the eager vocoder took ~13 s a case on one core), and
+    a program that runs once spends most of its compile in LLVM's passes
+    (the JAX init of HiFT ~18 s at the default level)."""
+    compiled = {}
+
+    def call(*args):
+        leaves, tree = jax.tree.flatten(args)
+        key = (tree, tuple((np.shape(a), getattr(a, "dtype", None)) for a in leaves))
+        if key not in compiled:
+            compiled[key] = jax.jit(fn).lower(*args).compile(
+                compiler_options={"xla_backend_optimization_level": 0})
+        return compiled[key](*args)
+
+    return call
+
+
 @functools.partial(jax.jit, static_argnums=(1, 2, 3))
 def _step_draws(rng, k, kmax, vocab):
     rng, rng_step = jax.random.split(rng)
