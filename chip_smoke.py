@@ -2,9 +2,16 @@
 """On-card smoke run of the PyTorch/CUDA port (flowmirror_hydravox_tpu_torch).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ab-parent DIR
 
 Needs one CUDA GPU and a checkout of the repository around this file; it
-exits non-zero without either. Phases, each fatal on failure:
+exits non-zero without either. With --ab-parent it runs none of the phases
+below: DIR is an earlier commit's port unpacked into a gitignored directory
+(`git archive <commit> flowmirror_hydravox_tpu_torch | tar -x -C DIR`), and
+kernel 2's int8 form of that tree is timed in turns with this tree's
+(earlier, this, this, earlier) at every bf16 shape that phase 5i served in
+a run before (that run's chiprun_out/chip_smoke.json) and at AB_SHAPES;
+it writes chiprun_out/ab_mlp_int8.json. Phases, each fatal on failure:
 
   1. census: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds every kernel of the main path from the checkout, one
@@ -2566,7 +2573,8 @@ def check_mlp_gemv_int8(mg, flush, cases, dtypes=("bfloat16",)):
     phase 3b, beside the dense form of the kernel on the dequantized weights
     (`dense_kernel_ms`, in x's dtype) and the matmul_q-form yardstick: three
     products on the dequantized weights and the two elementwise ops
-    (`library_ms`). Returns the per-case records."""
+    (`library_ms`), and the share of its bound it reaches (`bound_share`,
+    bound_ms / kernel_ms). Returns the per-case records."""
     import torch
     import torch.nn.functional as F
 
@@ -2603,6 +2611,9 @@ def check_mlp_gemv_int8(mg, flush, cases, dtypes=("bfloat16",)):
             rec["library_ratio"] = rec["kernel_ms"] / rec["library_ms"]
             rec["dense_ratio"] = rec["kernel_ms"] / rec["dense_kernel_ms"]
             rec["bound_ms"], rec["bound_by"] = mlp_int8_bound(m, h, i, dtype)
+            rec["bound_share"] = rec["bound_ms"] / rec["kernel_ms"]
+            if dtype == torch.bfloat16:  # the one-launch form's plan
+                rec["plan"] = mg.plan_int8(m, h, i, mg._resident)._asdict()
             records.append(rec)
             print("mlp_gemv_int8", json.dumps(rec), flush=True)
     return records
@@ -2621,7 +2632,106 @@ def check_int8_shapes(served, mg, flush, counted):
         (r,) = check_mlp_gemv_int8(mg, flush, [(m, h, i)], (dtype,))
         out.append(dict(r, launches_5i=launches))
         print("5i served shape mlp_int8", json.dumps(out[-1]), flush=True)
+    # clusters of the one-launch form that fit at once (row groups, H, shared
+    # memory, cluster size), as the plans read them
+    print("int8 resident clusters", json.dumps(
+        {",".join(map(str, key)): n for key, n in sorted(mg._resident_counts.items())}),
+        flush=True)
     return out
+
+
+def load_parent_mlp_gemv(root: pathlib.Path):
+    """An earlier tree's ops/mlp_gemv.py, loaded as package
+    `ab_parent_port`: it builds that tree's csrc/mlp_gemv.cu into that
+    tree's build/."""
+    import importlib
+    import importlib.util
+
+    name = "ab_parent_port"
+    pkg = root / "flowmirror_hydravox_tpu_torch"
+    if not (pkg / "csrc" / "mlp_gemv.cu").is_file():
+        fail(f"--ab-parent: no port package under {root}")
+    spec = importlib.util.spec_from_file_location(name, pkg / "__init__.py",
+                                                  submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module(f"{name}.ops.mlp_gemv")
+
+
+def compare_int8_forms(parent, shapes) -> list:
+    """Kernel 2's int8 form of an earlier tree (`parent`, its ops/mlp_gemv
+    module) and of this tree at each (M, H, I), bf16 rows, seeded int8
+    weights: each held to this tree's plain version, then timed as phase 3b
+    times kernels, in the order earlier, this, this, earlier."""
+    import torch
+
+    from flowmirror_hydravox_tpu_torch.ops import mlp_gemv as mg
+    from flowmirror_hydravox_tpu_torch.ops import quant
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")  # 256 MB > L2
+    g = torch.Generator(device="cuda").manual_seed(17)
+    forms = {"parent": parent, "new": mg}
+    records = []
+    for m, h, i in shapes:
+        x = torch.randn(m, h, generator=g, device="cuda").to(torch.bfloat16)
+        pairs = [quant.quantize_weight_int8(torch.randn(shape, generator=g, device="cuda") * 0.05)
+                 for shape in ((h, i), (h, i), (i, h))]
+        weights, scales = [w for w, _ in pairs], tuple(sc for _, sc in pairs)
+        ref = mg.mlp_gemv_ref(x, *weights, scales).float()
+        lim = TOL["bfloat16"] * (1.0 + ref.abs().max().item())
+        rec = dict(M=m, H=h, I=i, bound_ms=mlp_int8_bound(m, h, i, torch.bfloat16)[0])
+        for key, mod in forms.items():
+            out = mod.mlp_gemv_int8_cuda(x, *weights, scales)
+            torch.cuda.synchronize()
+            err = (out.float() - ref).abs().max().item()
+            if not err <= lim:
+                fail(f"ab {key} form M{m} H{h} I{i}: err {err} > {lim}")
+            rec[f"{key}_max_abs_err"] = err
+        turns = ("parent", "new", "new", "parent")
+        times = [time_ms(lambda mod=forms[k]: mod.mlp_gemv_int8_cuda(x, *weights, scales), flush)
+                 for k in turns]
+        for key in forms:
+            rec[f"{key}_ms"] = [t for k, t in zip(turns, times) if k == key]
+            rec[f"{key}_bound_share"] = rec["bound_ms"] / min(rec[f"{key}_ms"])
+        rec["speedup"] = min(rec["parent_ms"]) / min(rec["new_ms"])
+        records.append(rec)
+        print("ab mlp_gemv_int8", json.dumps(rec), flush=True)
+    return records
+
+
+# bf16 shapes of the int8 form timed in turns besides 5i's: the rows past
+# one 8-row group that the slots' verify block (20) and the flash batches
+# (9, 40, 65) give at I 4864 and the slots' head 0 at the MTP width, as
+# tests/test_torch_kernels_int8.py's CARD_CASES hold them; Qwen2-1.5B's
+# 1536 x 8960 at 8 and 16 rows a block
+AB_SHAPES = [(9, 896, 4864), (20, 896, 4864), (40, 896, 4864), (65, 896, 4864),
+             (20, 896, 22016), (2, 1536, 8960), (20, 1536, 8960)]
+
+
+def ab_main(argv):
+    """--ab-parent DIR: the int8 forms in turns."""
+    import argparse
+
+    p = argparse.ArgumentParser(prog="chip_smoke.py")
+    p.add_argument("--ab-parent", required=True, type=pathlib.Path)
+    args = p.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("no CUDA GPU")
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = census()
+    served = json.loads((ROOT / "chiprun_out" / "chip_smoke.json").read_text())
+    shapes = sorted({(k["M"], k["H"], k["I"]) for k in served["int8"]["kernels"]
+                     if k["dtype"] == "bfloat16"} | set(AB_SHAPES))
+    records = compare_int8_forms(load_parent_mlp_gemv(args.ab_parent.resolve()), shapes)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "ab_mlp_int8.json").write_text(
+        json.dumps({"card": card, "records": records}, indent=1))
+    print(card, flush=True)
 
 
 def check_int8_tree(params, what):
@@ -5604,4 +5714,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) > 1:
+        ab_main(sys.argv[1:])
+    else:
+        main()

@@ -1,8 +1,8 @@
 // Helpers of the port's Hopper kernels (sm_90a): 16-byte vector loads with
-// f32 conversion, f32 stores to the storage type, cp.async, int8 to bf16
-// conversion, the bf16 tensor-core mma.sync tile, warp reductions, and the
-// integer ticket that elects the last block of a group to merge the group's
-// partials.
+// f32 conversion, f32 stores to the storage type, cp.async, mbarriers and
+// the TMA's bulk copies, int8 to bf16 conversion, the bf16 tensor-core
+// mma.sync tile, warp reductions, and the integer ticket that elects the
+// last block of a group to merge the group's partials.
 //
 // Included by decode_attention.cu and mlp_gemv.cu; ops/nvcc_build.py
 // rebuilds a library when this header is newer than it.
@@ -59,20 +59,88 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Four int8 values (the bytes of q, lowest first) as two bf16 pairs: lo
-// holds bytes 0 and 1 (byte 0 in the low half), hi bytes 2 and 3. Exact:
-// each byte, offset by 128, goes into the mantissa of 2^23 and the offset
-// is subtracted in f32; an integer of magnitude <= 128 is a bf16, the high
-// half of its f32.
-__device__ __forceinline__ void int8x4_to_bf16x2(uint32_t q, uint32_t& lo, uint32_t& hi) {
-  const uint32_t u = q ^ 0x80808080u;  // each byte as v + 128
-  constexpr float kBias = 8388736.f;   // 2^23 + 128
-  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - kBias;
-  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - kBias;
-  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - kBias;
-  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - kBias;
-  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
-  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+// mbarriers in shared memory and the TMA's copies that complete on them
+// (PTX ISA: mbarrier, cp.async.bulk, cp.async.bulk.tensor). One thread
+// arms a barrier with the bytes it expects (`mbar_expect_tx`, which is also
+// that thread's arrival), the copies count them off, and every thread waits
+// for the phase's parity.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+// makes initialised barriers visible to the TMA (the async proxy)
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "wait_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra wait_%=;\n"
+      "}\n" ::"r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+// orders this thread's earlier shared-memory accesses before the async
+// proxy's next writes (a TMA load into memory the block has just used)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// a box of a 2-D tensor map (`tmap`, a __grid_constant__ parameter) at
+// element coordinates (c0 innermost, c1) into shared memory (128-byte aligned)
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* tmap, int c0, int c1,
+                                           uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(tmap)), "r"(c0), "r"(c1),
+        "r"(smem_u32(bar)) : "memory");
+}
+// `bytes` contiguous bytes (a multiple of 16; both addresses 16-byte aligned)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+// Four 8x8 b16 matrices from shared memory, transposed (ldmatrix .trans):
+// lanes 8q .. 8q + 7 give the addresses of matrix q's 8 rows of 16 bytes;
+// lane (g = lane / 4, t = lane % 4) receives, of each matrix, b16 column g
+// of rows 2t and 2t + 1. Volatile, so that it stays after the barrier
+// waits that make the TMA's writes visible.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// (a & b) | c in one instruction
+__device__ __forceinline__ uint32_t and_or(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// Four int8 values (the bytes of q, lowest first) as two bf16 pairs: even
+// holds bytes 0 and 2 (byte 0 in the low half), odd bytes 1 and 3. Exact:
+// a byte b is (b & 127) - (b & 128); the bf16 with exponent 2^7 and
+// mantissa b & 127 is 128 + (b & 127), the one with mantissa bit 7 set is
+// 256, so one bf16x2 subtraction of the two forms leaves b in each half,
+// every value on the way a bf16.
+__device__ __forceinline__ void int8x4_to_bf16x2(uint32_t q, uint32_t& even, uint32_t& odd) {
+  const uint32_t low7 = 0x007F007Fu, sign = 0x00800080u, exp7 = 0x43004300u;
+  const uint32_t qo = q >> 8;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n"
+      : "=r"(even) : "r"(and_or(q, low7, exp7)), "r"(and_or(q, sign, exp7)));
+  asm("sub.rn.bf16x2 %0, %1, %2;\n"
+      : "=r"(odd) : "r"(and_or(qo, low7, exp7)), "r"(and_or(qo, sign, exp7)));
 }
 
 // D += A B for one m16n8k16 bf16 tile with f32 accumulators (PTX ISA

@@ -66,20 +66,78 @@
 //   - Any M >= 1 (more than 40 rows in bf16, 16 in f32, take further row
 //     blocks, each reading the weights again), any I >= 1 (element loads
 //     for gate and up when I is not a multiple of 8), H a multiple of 8.
-//   - The int8 form is the same kernels with the weight type a template
-//     parameter: a lane loads the same columns as raw bytes (8 or 4 a row,
-//     2 for f32 rows), keeps them raw while they are in flight, and turns
-//     them into the bf16 (or f32) fragments exactly, in registers, just
-//     before the k-step's mma (int8x4_to_bf16x2 in common.cuh); the scales
-//     multiply the f32 sums where pass 1 applies silu and where pass 2
-//     writes its output. A right and simple form: the warp tile and the
-//     planning are the bf16 form's, so a row read is 64 or 32 bytes rather
-//     than 128.
 //
-// Plain C interface (bound with ctypes): the wrapper allocates h, the
-// partials, the output and the zeroed ticket buffer (reused across calls
-// on one stream), passes PyTorch's current stream, and raises on a non-zero
-// return (a refused launch).
+// The int8 form, bf16 rows (`int8_mlp_kernel`, one launch a call). What
+// bounds it: bytes, half the dense form's (3.9 us at 896 x 4864, 17.7 us at
+// 896 x 22016), and at the backbone width the launch floor (~5 us on the
+// card) as much. Reading the int8 weights with the dense form's warp tiles
+// took as many memory round trips as the dense form (a row read of 64 or
+// 32 bytes rather than 128), left 56 of 132 SMs idle at I 4864 in pass 1,
+// and chained h through device memory into a second launch. The TPU
+// kernel's decomposition (tile I, sum h_tile @ down_tile over the tiles) is
+// spread over blocks instead:
+//   - A chunk is 32 columns of I. Block b takes chunks b, b + G, ... (G
+//     blocks), so it reduces gate and up over all of H for its columns and
+//     its h is whole inside the block: h = round_T(silu(a) * b) goes to
+//     shared memory (`hs`) and never to device memory (`int8_mlp_kernel`,
+//     the loop over the block's chunks). The block multiplies it by the
+//     chunk's 32 rows of `down` into its (M, H) f32 partial, held in
+//     registers across its chunks: QT 32-column tiles of H a warp (the
+//     instantiation: QT 4 up to H 1024, 8 up to 2048).
+//   - The weights reach shared memory by the TMA (`request`): gate and up
+//     through 2-D tensor maps, in eight pieces of H a chunk, one a warp, each
+//     on its own mbarrier, so that a warp multiplies its piece as soon as it
+//     lands; down's 32 rows by 1-D bulk copies on a ninth barrier, waited on
+//     only for the down product. The wrapper builds the tensor maps once per
+//     weight tensor. All of a chunk's bytes are requested at once: with one
+//     chunk a block (I 4864: 152 blocks, two an SM) every byte of the call
+//     is in flight in the first round trip; with more (I 22016) two blocks
+//     an SM each walk their chunks. The wrapper plans the grid from the
+//     shapes and from the clusters the card holds at once (ops/mlp_gemv.py,
+//     `plan_int8`): all blocks run in one wave.
+//   - Where the TMA's 16-byte rules fail (I or H not a multiple of 16: I
+//     4863, I 100) the same kernel fills the same stages with plain loads
+//     through registers (byte loads for gate and up, whose rows may start
+//     at any byte); it never gives way to the plain version.
+//   - ldmatrix .trans reads a 16-row x 32-column weight tile so that each
+//     register holds two rows of two adjacent columns (the TMA's 32-byte
+//     swizzle and down's padded rows keep the reads on distinct banks); the
+//     int8 values become bf16 exactly in registers, two a bf16x2
+//     subtraction (`hv::int8x4_to_bf16x2`), straight into the A fragments
+//     of mma.sync m16n8k16 with the weight columns as the 16-row operand,
+//     as in the dense form. The 8 warps split H's k-steps for gate and up
+//     (sums added in warp order) and H's 32-column tiles for down.
+//   - The cross-block sum stays deterministic: the blocks of a thread block
+//     cluster (up to 8) put their partials in shared memory, and block r of
+//     the cluster sums column range r over the cluster's blocks in rank
+//     order through distributed shared memory. With one cluster that sum,
+//     times s_d and rounded, is the output. Otherwise each cluster writes
+//     its f32 partial, and for each range the last cluster to arrive
+//     (integer ticket, `hv::last_of_group`) sums the clusters' partials in
+//     a fixed order, applies s_d and rounds once. No float atomics: two
+//     calls are bit-equal.
+//   - Rows: 8, 16 or 24 a block (row groups 1-3; 24 only at QT 4, where
+//     the warps' partials leave the registers for them); more take further
+//     row blocks (grid y), each reading the weights again (from L2 when
+//     they run together). A chunk's stage holds 96 bytes per row of H, so a
+//     block's shared memory bounds H: 16 rows a block up to H 1664, 8 rows
+//     up to H 1920 (the wrapper plans 8-row blocks past 1664 and raises
+//     past 1920).
+// f32 rows take the int8 instantiation of the two passes above (the weight
+// type a template parameter; a lane loads 2 bytes a row and turns them into
+// f32 in registers; the scales multiply the f32 sums where pass 1 applies
+// silu and where pass 2 writes its output). Every shape the port serves is
+// bf16.
+//
+// Plain C interface (bound with ctypes): the wrapper allocates h (the
+// two-pass forms only), the partials, the output and the zeroed ticket
+// buffer (reused across calls on one stream), passes PyTorch's current
+// stream, and raises on a non-zero return (a refused launch).
+
+#include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap
+#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled
+#include <string.h>
 
 #include <type_traits>
 
@@ -269,63 +327,6 @@ struct WarpTile<float, float, MG> {
       red[m * TN + c0] = acc[m][0];
       red[m * TN + c0 + 1] = acc[m][1];
     }
-  }
-};
-
-// int8 weights (the int8 form), bf16 rows: the same warp tile and mma as
-// bf16 weights. A lane loads the same CW columns of a weight row, CW bytes
-// (8 or 4), and keeps them raw until the k-step is used, so that a round's
-// loads stay in flight while x is staged; `step` turns them into the bf16
-// fragments (exactly: |w8| <= 127 needs 8 significant bits) and runs the
-// bf16 tile's step.
-template <int MG>
-struct WarpTile<bf16, int8_t, MG> : WarpTile<bf16, bf16, MG> {
-  using Base = WarpTile<bf16, bf16, MG>;
-  static constexpr int CW = Base::CW;
-  static constexpr int QW = CW / 4;  // 32-bit words of a lane's row
-  struct Frag {
-    uint32_t q[4][QW];  // rows 2t, 2t+1, 2t+8, 2t+9 of the k-step; columns CW g ..
-  };
-
-  __device__ __forceinline__ static void load(Frag& f, const int8_t* __restrict__ w, int ldw,
-                                              int n_cols, int col0, int krow, int k_lim,
-                                              bool vec) {
-    const int lane = threadIdx.x % 32;
-    const int col = col0 + (lane / 4) * CW;
-    const int t = lane % 4;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = krow + 2 * t + (i & 1) + (i >> 1) * 8;
-      const int8_t* p = w + (size_t)row * ldw + col;
-      const bool in = row < k_lim && col < n_cols;
-      if (vec && QW == 2) {
-        const uint2 u = in ? __ldg(reinterpret_cast<const uint2*>(p)) : make_uint2(0, 0);
-        f.q[i][0] = u.x;
-        f.q[i][1 % QW] = u.y;
-      } else if (vec) {
-        f.q[i][0] = in ? __ldg(reinterpret_cast<const unsigned int*>(p)) : 0u;
-      } else {
-#pragma unroll
-        for (int wd = 0; wd < QW; ++wd) {
-          uint32_t word = 0;  // a 0 byte is the weight 0
-#pragma unroll
-          for (int b = 0; b < 4; ++b)
-            if (row < k_lim && col + 4 * wd + b < n_cols)
-              word |= (uint32_t)(uint8_t)p[4 * wd + b] << (8 * b);
-          f.q[i][wd] = word;
-        }
-      }
-    }
-  }
-
-  __device__ __forceinline__ void step(const Frag& f, const bf16* xs, int ldx, int xk) {
-    typename Base::Frag b;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int wd = 0; wd < QW; ++wd)
-        hv::int8x4_to_bf16x2(f.q[i][wd], b.r[i][2 * wd], b.r[i][2 * wd + 1]);
-    Base::step(b, xs, ldx, xk);
   }
 };
 
@@ -651,6 +652,444 @@ int dispatch(int dtype, const void* x, const void* gate, const void* up, const v
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// The int8 form, bf16 rows: one launch a call (the note at the top).
+
+constexpr int QC = 32;  // columns of I a chunk
+constexpr int QW = 8;   // warps of a block
+// QT, a template parameter: the 32-column tiles of H a warp takes in the
+// down product, whose partial it holds in registers; 4 up to H 1024, 8 up
+// to 2048 (the TMA's 256-row box bounds H there too; shared memory, as
+// `int8_smem_bytes` counts it, bounds it lower still)
+constexpr int QT_MAX = 8;
+__host__ __device__ constexpr int qt_for(int hdim) { return hdim <= QW * 4 * 32 ? 4 : QT_MAX; }
+constexpr int HS_LD = QC + 8;         // row stride of h (80 bytes: the mma reads hit 32 banks)
+constexpr int RED_LD = QC + 8;        // row stride of the warps' f32 sums (2-way bank conflicts)
+
+// Byte offsets in a block's dynamic shared memory, from a 1024-byte
+// aligned base (ops/mlp_gemv.py `int8_smem_bytes` mirrors `total`). Each
+// of the `stages` stages holds a chunk: gate [hpad][32] and up [hpad][32],
+// in QW pieces of rb rows, warp w's k-steps (a box of the tensor map each,
+// on barrier w of the stage; the TMA's 32-byte swizzle swaps the 16-byte
+// halves of rows 4-7 of every 8, so that ldmatrix reads 8 rows from 8
+// distinct bank groups; once multiplied, the warps' f32 sums of gate and
+// up overlay them, so the pair takes at least that room), then down's 32
+// rows at a stride of dld bytes (dld = 16 mod 128: 8 rows, 8 bank groups).
+// Then x's rows [8 MG][ldx] bf16, h [8 MG][HS_LD] bf16, the block's range
+// of s_d, and QW + 1 mbarriers a stage. After the last chunk the block's
+// partial [8 MG][H] f32 overlays stage 0.
+struct Int8Layout {
+  int rb, hpad, dld, ldx, gu, stage, xs, hs, sds, bars, total;
+  __host__ __device__ Int8Layout(int hdim, int mg, int stages) {
+    rb = KS * ((hdim + KS * QW - 1) / (KS * QW));
+    hpad = QW * rb;
+    dld = round_up(hdim, 128) + 16;
+    ldx = staged_ld<bf16>(hdim);
+    const int red = QW * 2 * 8 * mg * RED_LD * 4;
+    gu = 2 * hpad * QC > red ? 2 * hpad * QC : red;
+    stage = round_up(gu + QC * dld, 1024);
+    xs = stages * stage;
+    hs = xs + 8 * mg * ldx * 2;
+    sds = hs + 8 * mg * HS_LD * 2;
+    bars = round_up(sds + hdim * 4, 8);
+    total = bars + stages * (QW + 1) * 8 + 1024;  // + the room to align the base
+  }
+};
+
+// One block: 8 MG rows of x (grid y) against chunks blockIdx.x,
+// blockIdx.x + gridDim.x, ... of I; then the cluster's and the clusters'
+// sums. `tma` 0 (I or H not a multiple of 16): the stages are filled by
+// plain loads, and the tensor maps are not read.
+template <int MG, int QT>
+__global__ void __launch_bounds__(QW * 32, MG == 1 && QT == 4 ? 2 : 1)
+int8_mlp_kernel(const __grid_constant__ CUtensorMap tm_gate,
+                const __grid_constant__ CUtensorMap tm_up, const bf16* __restrict__ x,
+                const int8_t* __restrict__ gate, const int8_t* __restrict__ up,
+                const int8_t* __restrict__ down, const float* __restrict__ sg,
+                const float* __restrict__ su, const float* __restrict__ sd,
+                bf16* __restrict__ out, float* __restrict__ part, int* __restrict__ tickets,
+                int m_total, int hdim, int idim, int stages, int tma) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (hv::smem_u32(smem_raw) & 1023)) & 1023);
+  const Int8Layout L(hdim, MG, stages);
+  bf16* xs = reinterpret_cast<bf16*>(smem + L.xs);
+  bf16* hs = reinterpret_cast<bf16*>(smem + L.hs);
+  float* sds = reinterpret_cast<float*>(smem + L.sds);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);  // [stage][QW pieces, down]
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int m0 = blockIdx.y * MG * 8;
+  const int m_cnt = min(MG * 8, m_total - m0);
+  const int n_chunks = (idim + QC - 1) / QC;
+  const int n_mine = (int)blockIdx.x < n_chunks
+                         ? (n_chunks - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x
+                         : 0;
+  const int k_steps = (hdim + KS - 1) / KS;
+  const int ks0 = warp * (L.rb / KS);  // this warp's k-steps of H: [ks0, ks1)
+  const int ks1 = min(k_steps, ks0 + L.rb / KS);
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cl = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int span = round_up((hdim + cl - 1) / cl, 4);  // this block's columns of the sums
+  const int lo = rank * span;
+  const int n4 = lo < hdim ? (min(hdim, lo + span) - lo) / 4 : 0;
+
+  // A weight tile of 16 rows (a k-step) x 32 columns is read by one
+  // ldmatrix.x4.trans as four 8x8 b16 matrices (rows 0-7 / 8-15 x bytes
+  // 0-15 / 16-31); lane l gives row (l / 8 % 2) * 8 + l % 8, half l / 16.
+  // Lane (g, t) then holds, of each, the bytes of columns 2g, 2g + 1 at rows
+  // 2t, 2t + 1: converted, the A fragments of the mma whose rows g and g + 8
+  // are columns 2g and 2g + 1 (of 16j.., j the matrix pair).
+  const int lrow = (lane >> 3 & 1) * 8 + (lane & 7);
+  const int lhalf = lane >> 4;
+  const int gu_lane = lrow * QC + ((lhalf ^ (lrow >> 2 & 1)) << 4);  // swizzled
+  const int dn_lane = lrow * L.dld + (lhalf << 4);
+
+  if (tma && threadIdx.x == 0) {
+    for (int i = 0; i < (QW + 1) * stages; ++i) hv::mbar_init(bars + i, 1);
+    hv::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // Warp 0 requests the block's i-th chunk into stage i % stages: each
+  // warp's piece of gate and up as a box of the tensor maps on that warp's
+  // barrier (out-of-range rows and columns arrive as zeros), down's rows by
+  // one bulk copy each on the stage's last barrier.
+  const void* tmap_g = &tm_gate;
+  const void* tmap_u = &tm_up;
+  auto request = [&](int i) {
+    const int c0 = ((int)blockIdx.x + i * (int)gridDim.x) * QC;
+    unsigned char* st = smem + (i % stages) * L.stage;
+    uint64_t* bar = bars + (QW + 1) * (i % stages);
+    const int n_rows = min(QC, idim - c0);
+    if (lane == 0) {
+      for (int w = 0; w < QW && w * L.rb < hdim; ++w) {
+        hv::mbar_expect_tx(bar + w, 2 * L.rb * QC);
+        hv::tma_load_2d(st + w * L.rb * QC, tmap_g, c0, w * L.rb, bar + w);
+        hv::tma_load_2d(st + (L.hpad + w * L.rb) * QC, tmap_u, c0, w * L.rb, bar + w);
+      }
+      hv::mbar_expect_tx(bar + QW, n_rows * hdim);
+    }
+    __syncwarp();
+    if (lane < n_rows)
+      hv::bulk_load(st + L.gu + lane * L.dld, down + (size_t)(c0 + lane) * hdim, hdim, bar + QW);
+  };
+  if (tma && warp == 0)
+    for (int i = 0; i < min(stages, n_mine); ++i) request(i);
+  // Scales are read a chunk ahead (each thread's h column is threadIdx.x
+  // % 32 in every chunk) and s_d of this block's output range at the start,
+  // so that no scale read waits on device memory after the weights.
+  float sg_next = 0.f, su_next = 0.f;
+  auto fetch_scales = [&](int i) {
+    const int col = ((int)blockIdx.x + i * (int)gridDim.x) * QC + (int)threadIdx.x % QC;
+    sg_next = col < idim ? __ldg(sg + col) : 0.f;
+    su_next = col < idim ? __ldg(su + col) : 0.f;
+  };
+  if (n_mine > 0) fetch_scales(0);
+  for (int e = threadIdx.x; e < 4 * n4; e += QW * 32) sds[e] = __ldg(sd + lo + e);
+  // x's rows, staged while the first chunks are in flight
+  stage_rows<bf16, MG>(xs, L.ldx, x, hdim, m0, m_cnt, 0, hdim);
+
+  float accd[QT][MG][2][4] = {};  // the block's partial of out: tiles warp + 8 nt of H
+  for (int i = 0; i < n_mine; ++i) {
+    const int c0 = ((int)blockIdx.x + i * (int)gridDim.x) * QC;
+    unsigned char* st = smem + (i % stages) * L.stage;
+    uint64_t* bar = bars + (QW + 1) * (i % stages);
+    const uint32_t parity = (i / stages) & 1;
+    const float sgc = sg_next, suc = su_next;
+    if (i + 1 < n_mine) fetch_scales(i + 1);
+    if (tma) {
+      if (ks0 < ks1) hv::mbar_wait(bar + warp, parity);
+    } else {
+      // plain loads: gate and up a 4-byte word at a time from single
+      // bytes (their rows start at any byte), zero outside H x I; down's
+      // rows 8 bytes at a time
+      for (int e = threadIdx.x; e < L.hpad * (QC / 4); e += QW * 32) {
+        const int r = e / (QC / 4);
+        const int col = c0 + 4 * (e % (QC / 4));
+        uint32_t wg = 0, wu = 0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          if (r < hdim && col + b < idim) {
+            const size_t o = (size_t)r * idim + col + b;
+            wg |= (uint32_t)(uint8_t)gate[o] << (8 * b);
+            wu |= (uint32_t)(uint8_t)up[o] << (8 * b);
+          }
+        }
+        const int wd = e % (QC / 4);  // the TMA's 32-byte swizzle, as ldmatrix reads it
+        const int o = r * QC + (((wd >> 2) ^ (r >> 2 & 1)) << 4) + 4 * (wd & 3);
+        *reinterpret_cast<uint32_t*>(st + o) = wg;
+        *reinterpret_cast<uint32_t*>(st + L.hpad * QC + o) = wu;
+      }
+      const int n8 = hdim / 8;
+      for (int e = threadIdx.x; e < QC * n8; e += QW * 32) {
+        const int r = e / n8;
+        const uint2 v = c0 + r < idim
+                            ? __ldg(reinterpret_cast<const uint2*>(down + (size_t)(c0 + r) * hdim) +
+                                    e % n8)
+                            : make_uint2(0, 0);
+        *reinterpret_cast<uint2*>(st + L.gu + r * L.dld + 8 * (e % n8)) = v;
+      }
+      __syncthreads();
+    }
+
+    // a = x @ gate and b = x @ up for the chunk's 32 columns; warp w takes
+    // its piece of H, as soon as that piece has landed
+    float acc[2][MG][2][4] = {};
+#pragma unroll 2
+    for (int ks = ks0; ks < ks1; ++ks) {
+      uint32_t q[2][4];
+      hv::ldsm_x4_trans(q[0], st + ks * KS * QC + gu_lane);
+      hv::ldsm_x4_trans(q[1], st + (L.hpad + ks * KS) * QC + gu_lane);
+      uint32_t b0[MG], b1[MG];
+#pragma unroll
+      for (int gr = 0; gr < MG; ++gr) {
+        const bf16* xp = xs + (gr * 8 + g) * L.ldx + ks * KS + 2 * t;
+        b0[gr] = *reinterpret_cast<const uint32_t*>(xp);
+        b1[gr] = *reinterpret_cast<const uint32_t*>(xp + 8);
+      }
+#pragma unroll
+      for (int mat = 0; mat < 2; ++mat)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          uint32_t a0, a1, a2, a3;
+          hv::int8x4_to_bf16x2(q[mat][2 * j], a0, a1);
+          hv::int8x4_to_bf16x2(q[mat][2 * j + 1], a2, a3);
+#pragma unroll
+          for (int gr = 0; gr < MG; ++gr)
+            hv::mma_bf16_16816(acc[mat][gr][j], a0, a1, a2, a3, b0[gr], b1[gr]);
+        }
+    }
+    __syncthreads();  // gate and up are read: the warps' sums overlay them
+    float* red = reinterpret_cast<float*>(st);  // [warp][gate, up][8 MG][RED_LD]
+#pragma unroll
+    for (int mat = 0; mat < 2; ++mat)
+#pragma unroll
+      for (int gr = 0; gr < MG; ++gr)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            red[((warp * 2 + mat) * 8 * MG + gr * 8 + 2 * t + (c & 1)) * RED_LD + 16 * j + 2 * g +
+                (c >> 1)] = acc[mat][gr][j][c];
+    __syncthreads();
+    // h = round_T(silu(a) * b), the sums added in warp order; 0 past I
+    for (int e = threadIdx.x; e < MG * 8 * QC; e += QW * 32) {
+      const int m = e / QC;
+      const int c = e % QC;
+      const int col = c0 + c;
+      float v = 0.f;
+      if (col < idim) {
+        float a = 0.f, b = 0.f;
+#pragma unroll
+        for (int w = 0; w < QW; ++w) {
+          a += red[((w * 2) * 8 * MG + m) * RED_LD + c];
+          b += red[((w * 2 + 1) * 8 * MG + m) * RED_LD + c];
+        }
+        a *= sgc;
+        b *= suc;
+        v = a / (1.f + expf(-a)) * b;
+      }
+      hs[m * HS_LD + c] = __float2bfloat16(v);
+    }
+    __syncthreads();
+
+    // out += h @ down over the chunk's 32 rows (rows past I meet h = 0)
+    if (tma) hv::mbar_wait(bar + QW, parity);
+    const unsigned char* dp = st + L.gu + dn_lane;
+#pragma unroll
+    for (int kk = 0; kk < QC; kk += KS) {
+      uint32_t b0[MG], b1[MG];
+#pragma unroll
+      for (int gr = 0; gr < MG; ++gr) {
+        const bf16* hp = hs + (gr * 8 + g) * HS_LD + kk + 2 * t;
+        b0[gr] = *reinterpret_cast<const uint32_t*>(hp);
+        b1[gr] = *reinterpret_cast<const uint32_t*>(hp + 8);
+      }
+#pragma unroll
+      for (int nt = 0; nt < QT; ++nt) {
+        const int tile = warp + nt * QW;
+        if (tile * 32 < hdim) {
+          uint32_t q[4];
+          hv::ldsm_x4_trans(q, dp + kk * L.dld + tile * 32);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            uint32_t a0, a1, a2, a3;
+            hv::int8x4_to_bf16x2(q[2 * j], a0, a1);
+            hv::int8x4_to_bf16x2(q[2 * j + 1], a2, a3);
+#pragma unroll
+            for (int gr = 0; gr < MG; ++gr)
+              hv::mma_bf16_16816(accd[nt][gr][j], a0, a1, a2, a3, b0[gr], b1[gr]);
+          }
+        }
+      }
+    }
+    // the stage is consumed; order this block's writes to it before the
+    // TMA's next ones, then refill it
+    hv::fence_proxy_async();
+    __syncthreads();
+    if (tma && warp == 0 && i + stages < n_mine) request(i + stages);
+  }
+
+  // The block's partial into stage 0 (every copy has landed and been read),
+  // its rows of x only.
+  float* P = reinterpret_cast<float*>(smem);  // [8 MG][H]
+#pragma unroll
+  for (int nt = 0; nt < QT; ++nt)
+#pragma unroll
+    for (int gr = 0; gr < MG; ++gr)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int col = (warp + nt * QW) * 32 + 16 * j + 2 * g + (c >> 1);
+          const int row = gr * 8 + 2 * t + (c & 1);
+          if (col < hdim && row < m_cnt) P[row * hdim + col] = accd[nt][gr][j][c];
+        }
+
+  // Block `rank` of the cluster sums column range `rank` over the
+  // cluster's blocks, in rank order, through distributed shared memory.
+  cluster.sync();
+  const int n_clu = (int)gridDim.x / cl;
+  auto write_out = [&](size_t row, int col, float4 s) {
+    const float4 sc = *reinterpret_cast<const float4*>(sds + (col - lo));
+    const __nv_bfloat162 lo2 = __floats2bfloat162_rn(s.x * sc.x, s.y * sc.y);
+    const __nv_bfloat162 hi2 = __floats2bfloat162_rn(s.z * sc.z, s.w * sc.w);
+    uint2 v;
+    v.x = *reinterpret_cast<const uint32_t*>(&lo2);
+    v.y = *reinterpret_cast<const uint32_t*>(&hi2);
+    *reinterpret_cast<uint2*>(out + row * hdim + col) = v;
+  };
+  auto add4 = [](float4& s, float4 v) {
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  };
+  constexpr int U = 8;  // partials loaded together, so their latencies overlap
+  for (int e = threadIdx.x; e < m_cnt * n4; e += QW * 32) {
+    const int m = e / n4;
+    const int col = lo + 4 * (e % n4);
+    float4 v[U];
+#pragma unroll
+    for (int q = 0; q < U; ++q)
+      v[q] = q < cl ? *reinterpret_cast<const float4*>(cluster.map_shared_rank(P + m * hdim + col, q))
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int q = 0; q < U; ++q) add4(s, v[q]);
+    const size_t row = (size_t)(m0 + m);
+    if (n_clu == 1)
+      write_out(row, col, s);
+    else
+      *reinterpret_cast<float4*>(part + ((size_t)(blockIdx.x / cl) * m_total + row) * hdim +
+                                 col) = s;
+  }
+
+  // The last cluster to arrive for this range sums the clusters' partials:
+  // T threads an element (a power of two that keeps the block's threads
+  // busy), thread j of them over clusters j, j + T, ... in order, then the
+  // T sums over a fixed shuffle tree. The order is fixed, so two calls are
+  // bit-equal.
+  int* ticket = tickets + blockIdx.y * cl + rank;
+  if (n_clu > 1 && hv::last_of_group(ticket, n_clu)) {
+    const int n_el = m_cnt * n4;
+    int T = 1;
+    while (T < 32 && n_el * T * 2 <= QW * 32) T *= 2;
+    const int j = threadIdx.x % T;
+    for (int base = 0; base < n_el; base += QW * 32 / T) {
+      const int e = base + threadIdx.x / T;
+      const bool valid = e < n_el;
+      const size_t row = (size_t)(m0 + (valid ? e / n4 : 0));
+      const int col = lo + 4 * (valid ? e % n4 : 0);
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int c0 = j; valid && c0 < n_clu; c0 += T * U) {
+        float4 v[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int c = c0 + u * T;
+          v[u] = c < n_clu ? __ldcg(reinterpret_cast<const float4*>(
+                                 part + ((size_t)c * m_total + row) * hdim + col))
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) add4(s, v[u]);
+      }
+      for (int o = 1; o < T; o <<= 1) {
+        s.x += __shfl_xor_sync(0xffffffffu, s.x, o);
+        s.y += __shfl_xor_sync(0xffffffffu, s.y, o);
+        s.z += __shfl_xor_sync(0xffffffffu, s.z, o);
+        s.w += __shfl_xor_sync(0xffffffffu, s.w, o);
+      }
+      if (valid && j == 0) write_out(row, col, s);
+    }
+    hv::release_ticket(ticket);
+  }
+  cluster.sync();  // no block leaves while another may read its partial
+}
+
+template <int MG, int QT>
+cudaError_t configure_int8() {
+  static bool configured = false;  // set once per instantiation
+  if (configured) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      int8_mlp_kernel<MG, QT>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  configured = err == cudaSuccess;
+  return err;
+}
+
+cudaLaunchConfig_t int8_config(dim3 grid, int smem, int cluster, cudaLaunchAttribute* attr,
+                               cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(QW * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int MG, int QT>
+int launch_int8(const CUtensorMap& tg, const CUtensorMap& tu, const void* x, const void* gate,
+                const void* up, const void* down, const float* sg, const float* su,
+                const float* sd, float* part, int* tickets, void* out, int m, int hdim,
+                int idim, int blocks, int cluster, int stages, int smem, int tma,
+                cudaStream_t stream) {
+  if (smem != Int8Layout(hdim, MG, stages).total || smem > MAX_SMEM || hdim > QW * QT * 32 ||
+      blocks % cluster != 0)
+    return -2;
+  cudaError_t err = configure_int8<MG, QT>();
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      int8_config(dim3(blocks, (m + MG * 8 - 1) / (MG * 8)), smem, cluster, &attr, stream);
+  err = cudaLaunchKernelEx(&cfg, int8_mlp_kernel<MG, QT>, tg, tu, static_cast<const bf16*>(x),
+                           static_cast<const int8_t*>(gate), static_cast<const int8_t*>(up),
+                           static_cast<const int8_t*>(down), sg, su, sd, static_cast<bf16*>(out),
+                           part, tickets, m, hdim, idim, stages, tma);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+template <int MG, int QT>
+int resident_int8(int smem, int cluster) {
+  cudaError_t err = configure_int8<MG, QT>();
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = int8_config(dim3(cluster), smem, cluster, &attr, nullptr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, (const void*)int8_mlp_kernel<MG, QT>, &cfg);
+  return err != cudaSuccess ? -(int)err : n;
+}
+
 }  // namespace
 
 extern "C" {
@@ -679,15 +1118,109 @@ int hv_mlp_gemv(int dtype, const void* x, const void* gate, const void* up, cons
                                stream);
 }
 
-// The int8 form: as hv_mlp_gemv, with gate, up and down int8 (16-byte
-// aligned, down's rows a multiple of 8 bytes) and their per-output-column
-// f32 scales sg, su (I,) and sd (H,).
-int hv_mlp_gemv_int8(int dtype, const void* x, const void* gate, const void* up,
-                     const void* down, const float* sg, const float* su, const float* sd,
-                     void* h, float* part, int* tickets, void* out, int m, int hdim, int idim,
-                     int ldh, int row_groups, int splits, int chunk, void* stream) {
-  return dispatch<int8_t, int8_t>(dtype, x, gate, up, down, sg, su, sd, h, part, tickets, out,
-                                  m, hdim, idim, ldh, row_groups, splits, chunk, stream);
+// The int8 form, f32 rows (dtype 0; row_groups 1 or 2): as hv_mlp_gemv,
+// two passes, with gate, up and down int8 (16-byte aligned, down's rows a
+// multiple of 8 bytes) and their per-output-column f32 scales sg, su (I,)
+// and sd (H,).
+int hv_mlp_gemv_int8_f32(int dtype, const void* x, const void* gate, const void* up,
+                         const void* down, const float* sg, const float* su, const float* sd,
+                         void* h, float* part, int* tickets, void* out, int m, int hdim,
+                         int idim, int ldh, int row_groups, int splits, int chunk,
+                         void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int rc = -1;
+  if (dtype == 0 && row_groups == 1)
+    rc = launch<float, int8_t, 1>(x, gate, up, down, sg, su, sd, h, part, tickets, out, m, hdim,
+                                  idim, ldh, splits, chunk, st);
+  else if (dtype == 0 && row_groups == 2)
+    rc = launch<float, int8_t, 2>(x, gate, up, down, sg, su, sd, h, part, tickets, out, m, hdim,
+                                  idim, ldh, splits, chunk, st);
+  if (rc != 0) return rc;
+  return (int)cudaGetLastError();
+}
+
+// The TMA descriptor of an int8 weight (rows, cols) row-major, as the int8
+// form reads gate and up: boxes of 32 columns x Int8Layout::rb rows, the
+// 32-byte swizzle, zeros out of range. Written into `out` (128 bytes); cols must be a multiple of
+// 16 and `w` 16-byte aligned. Returns 0 or the driver's error code (-3: no
+// entry point).
+int hv_mlp_gemv_int8_tensor_map(void* out, const void* w, int rows, int cols) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    void* fn = nullptr;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess || fn == nullptr) return -3;
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols};
+  const cuuint32_t box[2] = {(cuuint32_t)QC, (cuuint32_t)Int8Layout(rows, 1, 1).rb};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(w), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return (int)r;
+  memcpy(out, &map, sizeof(map));
+  return 0;
+}
+
+// Thread block clusters of `cluster` blocks of the int8 form (row_groups 1
+// or 2, or 3 up to H 1024) at H `hdim` with `smem` bytes of dynamic shared
+// memory that fit on the card at once (cudaOccupancyMaxActiveClusters), or
+// minus the error.
+int hv_mlp_gemv_int8_resident(int row_groups, int hdim, int smem, int cluster) {
+  const bool wide = qt_for(hdim) == QT_MAX;
+  if (row_groups == 1)
+    return wide ? resident_int8<1, QT_MAX>(smem, cluster) : resident_int8<1, 4>(smem, cluster);
+  if (row_groups == 2)
+    return wide ? resident_int8<2, QT_MAX>(smem, cluster) : resident_int8<2, 4>(smem, cluster);
+  if (row_groups == 3 && !wide) return resident_int8<3, 4>(smem, cluster);
+  return -1;
+}
+
+// The int8 form, bf16 rows: one launch. x (m, hdim) bf16; gate and up
+// (hdim, idim), down (idim, hdim) int8, 16-byte aligned; sg, su (idim,), sd
+// (hdim,) f32; out (m, hdim) bf16. A block holds 8 * row_groups rows (row
+// groups 1 or 2, or 3 up to H 1024); `blocks` blocks in clusters of
+// `cluster` (a divisor) walk the chunks through `stages` stages of `smem`
+// bytes (Int8Layout's total). part is
+// (blocks / cluster, m, hdim) f32 when there is more than one cluster;
+// tickets (row blocks * cluster,) int32 are zero and left zero. With tma,
+// tmap_gate and tmap_up are gate's and up's descriptors
+// (hv_mlp_gemv_int8_tensor_map); without, they may be null. Returns 0, -1
+// for an unsupported row_groups, -2 for a plan the kernel does not take
+// (hdim above 2048, smem not the layout's), or the cudaError_t of the launch.
+int hv_mlp_gemv_int8(const void* tmap_gate, const void* tmap_up, const void* x, const void* gate,
+                     const void* up, const void* down, const float* sg, const float* su,
+                     const float* sd, float* part, int* tickets, void* out, int m, int hdim,
+                     int idim, int row_groups, int blocks, int cluster, int stages, int smem,
+                     int tma, void* stream) {
+  CUtensorMap tg, tu;
+  memset(&tg, 0, sizeof(tg));
+  memset(&tu, 0, sizeof(tu));
+  if (tma) {
+    memcpy(&tg, tmap_gate, sizeof(tg));
+    memcpy(&tu, tmap_up, sizeof(tu));
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool wide = qt_for(hdim) == QT_MAX;
+#define HV_LAUNCH_INT8(MG, QT)                                                                \
+  launch_int8<MG, QT>(tg, tu, x, gate, up, down, sg, su, sd, part, tickets, out, m, hdim, idim, \
+                      blocks, cluster, stages, smem, tma, st)
+  if (row_groups == 1) return wide ? HV_LAUNCH_INT8(1, QT_MAX) : HV_LAUNCH_INT8(1, 4);
+  if (row_groups == 2) return wide ? HV_LAUNCH_INT8(2, QT_MAX) : HV_LAUNCH_INT8(2, 4);
+  if (row_groups == 3 && !wide) return HV_LAUNCH_INT8(3, 4);
+#undef HV_LAUNCH_INT8
+  return -1;
 }
 
 }  // extern "C"

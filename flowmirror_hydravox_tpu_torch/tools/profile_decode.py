@@ -57,7 +57,7 @@ from ..runtime.engine import Engine, SynthesisResult
 TEXT = "The quick brown fox jumps over the lazy dog and then keeps on running."
 OUT = os.path.join("chiprun_out", "profile_decode.json")
 KERNELS = {"decode_attention": ("decode_attn_kernel",),
-           "mlp_gemv": ("swiglu_kernel", "down_kernel")}
+           "mlp_gemv": ("swiglu_kernel", "down_kernel", "int8_mlp_kernel")}
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx")
 STAGES = ("engine.llm", "engine.synth")
 SLOT_TEXTS = ["The first caller asks for a short weather report.",

@@ -247,6 +247,56 @@ def test_mlp_split_plan_covers_i(m, h, i, dtype):
     assert tiles * (splits + 1) >= min(target, tiles * -(-i // 16))
     if (m, h, i, dtype) == (40, 896, 4864, "bfloat16"):  # 7 splits, as measured best
         assert (mg, splits) == (5, 7)
+    if dtype == "bfloat16":  # bf16 rows take the int8 form's one launch
+        # at this H, at Qwen2-1.5B's 1536 (8 tiles of H a warp) and at the
+        # widest H the form takes (8-row blocks only)
+        for width in (h, 1536, tmlp.INT8_MAX_H):
+            _check_int8_plan(m, width, i)
+
+
+# clusters of the int8 form that fit at once on an H100 80GB HBM3, by the
+# blocks an SM holds and the cluster size (cudaOccupancyMaxActiveClusters,
+# the "int8 resident clusters" line of chip_smoke.py): clusters of 4 and 8
+# fit on 120 of the 132 SMs
+_H100_CLUSTERS = {1: {1: 132, 2: 66, 4: 30, 8: 15}, 2: {1: 264, 2: 132, 4: 62, 8: 30}}
+
+
+def _h100_resident(row_groups, hdim, smem, cluster):
+    """Clusters of the int8 form resident at once on the H100: two blocks an
+    SM at most at one row group up to H 1024, else one (the kernel's launch
+    bounds), as 228 KB of shared memory an SM allows (1 KB of it a block's
+    reserve)."""
+    per_sm = min(2 if row_groups == 1 and hdim <= 1024 else 1, 233472 // (smem + 1024))
+    return _H100_CLUSTERS[per_sm][cluster]
+
+
+def _check_int8_plan(m, h, i):
+    """The int8 form's plan: its chunks cover I exactly once, a block's
+    shared memory fits, every block is resident at once, and at the served
+    widths the grid has at least a block for each of the 132 SMs (which SMs
+    a cluster of 8 lands on is the card's choice: they fit on 120)."""
+    plan = tmlp.plan_int8(m, h, i, _h100_resident)
+    assert plan.stages in (1, 2)
+    # the fewest groups of 8 rows that hold min(M, 16), only 8 rows past H
+    # 1664, where a stage of 16 does not fit; or 24 rows past 16, up to H
+    # 1024, where its blocks walk fewer chunks (at M 40 x 4864 they do not)
+    low = 1 if h > 1664 else -(-min(m, 16) // 8)
+    assert plan.row_groups == low or (plan.row_groups == 3 and m > 16 and h <= 1024)
+    if h == 896 and i == 4864 and m in (40, 65):
+        assert plan.row_groups == {40: 2, 65: 3}[m]
+    rows = 8 * plan.row_groups
+    assert plan.row_blocks * rows >= m > (plan.row_blocks - 1) * rows
+    assert plan.smem == tmlp.int8_smem_bytes(h, plan.row_groups, plan.stages) <= 232448
+    assert plan.cluster in tmlp.INT8_CLUSTERS and plan.blocks % plan.cluster == 0
+    clusters = plan.blocks // plan.cluster * plan.row_blocks
+    assert clusters <= _h100_resident(plan.row_groups, h, plan.smem, plan.cluster)
+    # block b walks chunks b, b + blocks, ... (the kernel's order)
+    n = -(-i // tmlp.INT8_CHUNK)
+    cols = [c for b in range(plan.blocks) for k in range(b, n, plan.blocks)
+            for c in range(k * tmlp.INT8_CHUNK, min(i, (k + 1) * tmlp.INT8_CHUNK))]
+    assert sorted(cols) == list(range(i))
+    if h == 896 and i in (4864, 22016) and m <= 16:
+        assert plan.blocks * plan.row_blocks >= 132
 
 
 def test_mlp_dispatch_takes_the_plain_version_on_cpu():

@@ -8,6 +8,9 @@ Card tolerance, as tests/test_torch_kernels.py holds the bf16 form: f32
 version sum in another order, and bf16 rounds h); TF32 is off so f32 is
 full f32."""
 
+import ctypes
+import struct
+
 import pytest
 import torch
 
@@ -19,9 +22,12 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # (M, H, I): the backbone at one row, K 2 and 5, a row past a row group, the
 # slots' verify block (20), the largest flash batch at K 5 (40) and past one
 # block (65); the MTP width at the decode rows and the slots' head 0 (20);
-# a ragged I (element loads)
+# a ragged I (element loads); wider backbones, where a warp holds 8 tiles
+# of H: Qwen2-1.5B's 1536 x 8960 at 8 and 16 rows a block, and the widest H
+# the bf16 rows take (8-row blocks only)
 CARD_CASES = [(m, 896, 4864) for m in (1, 2, 5, 9, 20, 40, 65)] + \
-             [(m, 896, 22016) for m in (1, 4, 20)] + [(3, 896, 4863), (2, 64, 100)]
+             [(m, 896, 22016) for m in (1, 4, 20)] + [(3, 896, 4863), (2, 64, 100)] + \
+             [(2, 1536, 8960), (20, 1536, 8960), (9, tmlp.INT8_MAX_H, 8960)]
 
 
 def _case(m, h, i, dtype=torch.float32, device="cpu", seed=0):
@@ -63,8 +69,26 @@ def test_int8_dispatch_takes_the_plain_version_on_cpu():
                                                  quant.mlp_scales(layer)), atol=0, rtol=0)
 
 
-def test_int8_wrapper_refuses_cpu_tensors_and_unpaired_scales():
+def test_int8_wrapper_refuses_cpu_tensors_and_unpaired_scales(monkeypatch):
+    """Also: the TMA descriptors a launch is handed stay alive when the
+    lookup of the second empties a full cache (a stand-in for the library
+    writes each weight's address and shape into its descriptor)."""
     x, (g, u, d), scales = _case(2, 64, 128)
+
+    class Library:
+        @staticmethod
+        def hv_mlp_gemv_int8_tensor_map(out, ptr, rows, cols):
+            ctypes.memmove(out, struct.pack("<Qii", ptr, rows, cols), 16)
+            return 0
+
+    monkeypatch.setattr(tmlp, "_library", lambda: (Library, None, None))
+    monkeypatch.setattr(tmlp, "_tensor_maps", dict.fromkeys(range(tmlp._MAX_TENSOR_MAPS - 1)))
+    maps = tmlp._tensor_maps_of(g, u)
+    [ctypes.create_string_buffer(128) for _ in range(1000)]  # reuse any freed block
+    assert [struct.unpack("<Qii", b.raw[:16]) for b in maps] == \
+        [(w.data_ptr(), *w.shape) for w in (g, u)]
+    assert list(tmlp._tensor_maps.values()) == maps  # the full cache was emptied first
+    assert tmlp._tensor_maps_of(g, u) == maps  # and serves the next launch
     with pytest.raises(ValueError, match="CUDA"):
         tmlp.mlp_gemv_int8_cuda(x, g, u, d, scales)
     with pytest.raises(ValueError, match="scales"):  # int8 weights without scales
